@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # takes no arguments; needs one CUDA card
+
+Phases, in order (any failed check raises, so the exit status is non-zero):
+
+1. device  - require CUDA; print the card's name and power limit; turn TF32
+             off for matmuls and cuDNN (the plain f32 convs would run in
+             TF32 otherwise).
+2. build   - build or load the kernels' shared library from `csrc/`.
+3. kernels - each CUDA kernel (K1 dense conv, K2 multi-dilation conv, K3
+             phase interleave) against its plain torch version at the
+             serving path's full-width shapes, batch 4, in f32 and bf16:
+             error relative to max |plain| and median CUDA-event times.
+4. slice   - the whole restoration path at a mid-size config, card
+             (kernels) against CPU (plain versions), same weights and
+             draws; every kernel's launch counter must rise on the card.
+5. cli     - the infer CLI at full width (512 px, 1024 px decoder, IR-SE-50
+             encoder, 4-step DDPM, 15-SMART RestoreNet) answering 8
+             synthetic degraded faces at batch 4, in f32 and in bf16, with
+             launch counts and peak memory; then, on the same 4 inputs,
+             the stage split and imgs/s from CUDA-event medians of
+             `restore`, and the bf16-vs-f32 PSNR.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}. Details also go to
+chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+PHASES = ("device", "build", "kernels", "slice", "cli")
+HERE = os.path.dirname(os.path.abspath(__file__))
+KERNEL_INFO = {
+    "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
+                   "vspbfr_tpu/ops/pallas_conv.py:222"),
+    "dilated_multi_conv": ("vspbfr_tpu_torch/csrc/dilated_conv.cu",
+                           "vspbfr_tpu/ops/pallas_dilated.py:180"),
+    "d2s": ("vspbfr_tpu_torch/csrc/d2s.cu",
+            "vspbfr_tpu/ops/pallas_d2s.py:75"),
+}
+TOL = {"f32": 1e-4, "bf16": 2e-2}
+REPORT: dict = {}
+CARD = ""
+
+
+def say(*parts) -> None:
+    print(f"[{CARD}]", *parts, flush=True)
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() in ms, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# --- phase 1 ----------------------------------------------------------------
+
+def phase_device():
+    global CARD
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    CARD = smi.splitlines()[0].strip()
+    print(smi, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say("torch", torch.__version__, "cuda", torch.version.cuda,
+        "devices", torch.cuda.device_count())
+    say("cudnn.allow_tf32 =", torch.backends.cudnn.allow_tf32,
+        "cuda.matmul.allow_tf32 =", torch.backends.cuda.matmul.allow_tf32)
+    REPORT["device"] = {"nvidia_smi": smi,
+                        "name": torch.cuda.get_device_name(0),
+                        "count": torch.cuda.device_count()}
+
+
+# --- phase 2 ----------------------------------------------------------------
+
+def phase_build():
+    from vspbfr_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    say(f"kernel library {lib.path} built/loaded in "
+        f"{lib.build_seconds:.2f} s")
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            say("  ptxas:", line.strip())
+    REPORT["build_seconds"] = lib.build_seconds
+
+
+# --- phase 3 ----------------------------------------------------------------
+
+def _k1_cases():
+    # (x shape, w shape, pads, label): 3x3 StyledConvs across the decoder and
+    # RestoreNet widths, the subpixel up-convs, LargeConv 1x1 fusion and
+    # rate-1 branch
+    p1, p0 = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    return [
+        ((4, 32, 32, 512), (3, 3, 512, 512), p1, "styled 32px C512"),
+        ((4, 128, 128, 256), (3, 3, 256, 256), p1, "styled 128px C256"),
+        ((4, 256, 256, 128), (3, 3, 128, 128), p1, "styled 256px C128"),
+        ((4, 512, 512, 64), (3, 3, 64, 64), p1, "styled 512px C64"),
+        ((4, 1024, 1024, 32), (3, 3, 32, 32), p1, "styled 1024px C32"),
+        ((4, 256, 256, 128), (3, 3, 128, 256), p1, "up-conv 256->512"),
+        ((4, 512, 512, 64), (3, 3, 64, 128), p1, "up-conv 512->1024"),
+        ((4, 512, 512, 64), (1, 1, 64, 64), p0, "LargeConv fusion 1x1"),
+        ((4, 512, 512, 3), (1, 1, 3, 16), p0, "LargeConv rate-1 1x1"),
+    ]
+
+
+def _k2_cases():
+    return [((4, h, h, c), "SMART %dpx C%d" % (h, c)) for h, c in
+            ((8, 512), (64, 512), (128, 256), (256, 128), (512, 64))]
+
+
+def _k3_cases():
+    return [((4, 256, 256, 256), 64, "decoder/RestoreNet 512px C64"),
+            ((4, 512, 512, 128), 32, "decoder 1024px C32")]
+
+
+def _check(name, label, dt_name, got, ref, ms, plain_ms, rows):
+    ref = ref.float()
+    scale = float(ref.abs().max().clamp_min(1e-12))
+    abs_err = float((got.float() - ref).abs().max())
+    rel = abs_err / scale
+    ok = rel <= TOL[dt_name]
+    say(f"{name:20s} {label:28s} {dt_name:4s} rel_err {rel:.3e} "
+        f"(abs {abs_err:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    rows.append(dict(kernel=name, case=label, dtype=dt_name, rel_err=rel,
+                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+    if not ok:
+        raise AssertionError(f"{name} {label} {dt_name}: rel err {rel:.3e} > "
+                             f"{TOL[dt_name]}")
+
+
+def phase_kernels():
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, scale=1.0, offset=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    rows = []
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for xs, ws, pads, label in _k1_cases():
+            x = rand(*xs).to(dt)
+            w = (rand(*ws) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(dt)
+            s = rand(xs[0], xs[3], scale=0.2, offset=1.0).to(dt)
+            got = ops.dense_conv(x, w, pads, in_scale=s)
+            ref = ops.dense_conv_plain(x.float(), w.float(), pads, s.float())
+            ms = cuda_ms(lambda: ops.dense_conv(x, w, pads, in_scale=s))
+            pms = cuda_ms(lambda: ops.dense_conv_plain(x, w, pads, s))
+            _check("dense_conv", label, dt_name, got, ref, ms, pms, rows)
+            del x, w, s, got, ref
+        for xs, label in _k2_cases():
+            c = xs[3]
+            x = rand(*xs).to(dt)
+            wl = [(rand(3, 3, c, c // 4) / (9 * c) ** 0.5).to(dt)
+                  for _ in range(4)]
+            s = rand(xs[0], c, scale=0.2, offset=1.0).to(dt)
+            o = rand(xs[0], c, scale=0.2, offset=1.0).to(dt)
+            dils = (1, 2, 4, 8)
+            got = ops.dilated_multi_conv(x, wl, dils, in_scale=s, out_scale=o)
+            ref = ops.dilated_multi_conv_plain(
+                x.float(), [w.float() for w in wl], dils, s.float(), o.float())
+            ms = cuda_ms(lambda: ops.dilated_multi_conv(
+                x, wl, dils, in_scale=s, out_scale=o))
+            pms = cuda_ms(lambda: ops.dilated_multi_conv_plain(
+                x, wl, dils, s, o))
+            _check("dilated_multi_conv", label, dt_name, got, ref, ms, pms,
+                   rows)
+            del x, wl, s, o, got, ref
+        for xs, inner, label in _k3_cases():
+            x = rand(*xs).to(dt)
+            got = ops.d2s(x, inner)
+            ref = ops.d2s_plain(x.float(), inner)
+            if not torch.equal(got.float(), ref):
+                raise AssertionError(f"d2s {label} {dt_name}: not exact")
+            ms = cuda_ms(lambda: ops.d2s(x, inner))
+            pms = cuda_ms(lambda: ops.d2s_plain(x, inner))
+            _check("d2s", label, dt_name, got, ref, ms, pms, rows)
+            del x, got, ref
+        torch.cuda.empty_cache()
+    REPORT["kernels"] = rows
+
+
+# --- phase 4 ----------------------------------------------------------------
+
+def _condition_diffuser(pipe, factor: float = 4.0):
+    """Sharpen the random-init diffuser's spatial-attention softmax (q/k
+    kernels x4): at init it is almost uniform over 512 features and the
+    LayerNorm after it amplifies f32 rounding by ~1e4, which would make any
+    two devices disagree. tests/test_torch_pipeline.py does the same."""
+    import torch
+
+    with torch.no_grad():
+        for blk in pipe.diffuser.block:
+            blk.attention_layer.q.kernel.mul_(factor)
+            blk.attention_layer.k.kernel.mul_(factor)
+
+
+def _draws(pipe, batch, seed, device):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_lat = pipe.psp.n_latent
+    idx = (int(rng.integers(1, pipe.generator.n_latent))
+           if rng.uniform() < pipe.mixing_prob else pipe.generator.n_latent)
+    return {"init_noise": torch.tensor(rng.standard_normal(
+                (batch, n_lat, 512)).astype(np.float32), device=device),
+            "z": torch.tensor(rng.standard_normal(
+                (2, batch, pipe.style_dim)).astype(np.float32),
+                device=device),
+            "inject_index": idx}
+
+
+def synthetic_faces(n: int, size: int, seed: int) -> np.ndarray:
+    """n degraded face-like (size, size, 3) images in [-1, 1]: an ellipse
+    face with eyes and mouth over a background, colour blotches, 4x
+    box-downsampled and re-upsampled, plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[-1:1:size * 1j, -1:1:size * 1j]
+    out = []
+    for _ in range(n):
+        img = np.broadcast_to(rng.uniform(-1, 0, 3), (size, size, 3)).copy()
+        face = (xx / rng.uniform(0.5, 0.7)) ** 2 + (yy / 0.8) ** 2 < 1
+        img[face] = rng.uniform(-0.2, 0.6, 3)
+        for ex in (-0.25, 0.25):
+            img[(xx - ex) ** 2 + (yy + 0.2) ** 2 < 0.01] = -0.8
+        img[(np.abs(xx) < 0.25) & (np.abs(yy - 0.4) < 0.04)] = -0.5
+        coarse = rng.standard_normal((size // 32, size // 32, 3)) * 0.15
+        img += np.kron(coarse, np.ones((32, 32, 1)))
+        low = img.reshape(size // 4, 4, size // 4, 4, 3).mean(axis=(1, 3))
+        img = np.kron(low, np.ones((4, 4, 1)))
+        img += rng.standard_normal(img.shape) * 0.05
+        out.append(np.clip(img, -1, 1).astype(np.float32))
+    return np.stack(out)
+
+
+def phase_slice():
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.models.e4e import TINY_STAGES
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    cfg = dict(size=128, decoder_size=256, encode_size=64,
+               encoder_stages=TINY_STAGES, channel_div=4)
+    cpu = RestorationPipeline(**cfg).init_from_seed(1).eval()
+    _condition_diffuser(cpu)
+    card = RestorationPipeline(**cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    low = torch.tensor(synthetic_faces(1, 128, seed=2))
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_g, smp_g = card.restore(
+        low.cuda(), torch.Generator(device="cuda").manual_seed(0),
+        return_sample=True, draws=_draws(card, 1, 3, "cuda"))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    out_c, smp_c = cpu.restore(low, torch.Generator().manual_seed(0),
+                               return_sample=True,
+                               draws=_draws(cpu, 1, 3, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    say(f"slice (size 128, decoder 256, channel_div 4, b1): card "
+        f"{t_card:.3f} s (first call), CPU {t_cpu:.3f} s; launches {counts}")
+    res = {"launches": counts}
+    for name, g, c in (("restored", out_g, out_c), ("sample", smp_g, smp_c)):
+        g, c = g.float().cpu(), c.float()
+        if g.shape != c.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"slice {name}: shape {tuple(g.shape)} "
+                                 f"vs {tuple(c.shape)} or non-finite")
+        rng_ = float(c.max() - c.min())
+        err = (g - c).abs()
+        mean_r, max_r = float(err.mean()) / rng_, float(err.max()) / rng_
+        say(f"slice {name}: range {rng_:.4f} mean|err|/range {mean_r:.3e} "
+            f"max|err|/range {max_r:.3e}")
+        res[name] = dict(range=rng_, mean_rel=mean_r, max_rel=max_r)
+        if mean_r > 1e-3 or max_r > 1e-2:
+            raise AssertionError(f"slice {name}: card vs CPU out of bounds")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"slice: kernels never launched: {missing}")
+    REPORT["slice"] = res
+
+
+# --- phase 5 ----------------------------------------------------------------
+
+def phase_cli():
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import infer
+    from vspbfr_tpu_torch.evaluation import psnr
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    faces = synthetic_faces(8, 512, seed=5)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lq = os.path.join(tmp, "lq")
+        os.makedirs(lq)
+        for i, f in enumerate(faces):
+            np.save(os.path.join(lq, f"face{i}.npy"), f)
+        for mode in ("f32", "bf16"):
+            out = os.path.join(tmp, f"out_{mode}")
+            argv = ["--lq_dirs", lq, "--out", out, "--batch", "4",
+                    "--device", "cuda", "--seed", "0"]
+            if mode == "bf16":
+                argv.append("--bf16")
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = infer.main(argv)["datasets"]["data0"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            files = sorted(os.listdir(os.path.join(out, "data0")))
+            restored = [f for f in files if "_restore" in f]
+            if rep["n"] != 8 or len(restored) != 8:
+                raise AssertionError(f"cli {mode}: {rep['n']} answered, "
+                                     f"{len(restored)} written")
+            for f in restored:
+                if f.endswith(".npy"):
+                    a = np.load(os.path.join(out, "data0", f))
+                    if a.shape != (512, 512, 3) or not np.isfinite(a).all():
+                        raise AssertionError(f"cli {mode}: bad output {f}")
+            secs = rep["batch_seconds"]
+            ips = 4 * (len(secs) - 1) / sum(secs[1:])
+            say(f"cli {mode}: 8 requests at b4, batch seconds "
+                f"{[round(s, 4) for s in secs]}, {ips:.3f} imgs/s "
+                f"(one batch, first excluded: a smoke figure), peak "
+                f"{peak:.3f} GiB, wall {wall:.1f} s incl. init; launches "
+                f"{counts}")
+            missing = [k for k, v in counts.items() if v == 0]
+            if missing:
+                raise AssertionError(f"cli {mode}: kernels never launched: "
+                                     f"{missing}")
+            res[mode] = dict(batch_seconds=secs, imgs_per_s=ips,
+                             peak_gib=peak, launches=counts,
+                             output_format=os.path.splitext(restored[0])[1])
+    torch.cuda.empty_cache()
+
+    # stage split and bf16-vs-f32 on the same inputs and draws
+    base = RestorationPipeline().init_from_seed(0).eval()
+    p32 = RestorationPipeline()
+    p32.load_state_dict(base.state_dict())
+    p32 = p32.cuda().eval()
+    p16 = RestorationPipeline(compute_dtype=torch.bfloat16)
+    p16.load_state_dict(base.state_dict())
+    p16 = p16.cuda().eval().prepare_params()
+    del base
+    low = torch.tensor(faces[:4], device="cuda")
+
+    def run(p, upto="full", sample=False):
+        return p.restore(low, torch.Generator(device="cuda").manual_seed(0),
+                         upto=upto, return_sample=sample)
+
+    for mode, p in (("f32", p32), ("bf16", p16)):
+        ms = {u: cuda_ms(lambda: run(p, u), iters=5, warmup=1)
+              for u in ("encode", "ddpm", "decode", "full")}
+        ms_sample = cuda_ms(lambda: run(p, "full", True), iters=10, warmup=1)
+        split = {"encode": ms["encode"], "ddpm": ms["ddpm"] - ms["encode"],
+                 "decode": ms["decode"] - ms["ddpm"],
+                 "restore": ms["full"] - ms["decode"]}
+        say(f"stage split {mode} b4 (ms, median of 5): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items())
+            + f"; full {ms['full']:.3f}")
+        # the CLI's call (restore with the sample image), median of 10
+        ips = 4e3 / ms_sample
+        say(f"restore with sample image {mode} b4: {ms_sample:.3f} ms "
+            f"(median of 10 CUDA-event runs) = {ips:.3f} imgs/s")
+        res[mode].update(prefix_ms=ms, stage_ms=split,
+                         full_with_sample_ms=ms_sample,
+                         imgs_per_s_median=ips)
+    out32 = run(p32).float()
+    out16 = run(p16).float()
+    if not (torch.isfinite(out32).all() and torch.isfinite(out16).all()):
+        raise AssertionError("cli: non-finite pipeline output")
+    data_range = max(2 * float(out32.abs().max()), 2.0)
+    p = float(psnr(out16, out32, data_range=data_range).mean())
+    say(f"bf16 vs f32 PSNR on the same 4 inputs and draws: {p:.3f} dB "
+        f"(data range {data_range:.3f})")
+    res["bf16_vs_f32_psnr_db"] = p
+    REPORT["cli"] = res
+
+
+# --- main -------------------------------------------------------------------
+
+def main() -> None:
+    import torch
+
+    for name in PHASES:
+        t0 = time.perf_counter()
+        globals()[f"phase_{name}"]()
+        say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+
+    kernels = []
+    for name, (src, replaces) in KERNEL_INFO.items():
+        rows = [r for r in REPORT["kernels"] if r["kernel"] == name
+                and r["dtype"] == "f32"]
+        big = max(rows, key=lambda r: r["plain_ms"])
+        launches = REPORT["cli"]["f32"]["launches"][name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": big["max_abs_err"],
+                        "ms": big["ms"], "plain_ms": big["plain_ms"],
+                        "case": big["case"]})
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(REPORT, f, indent=1)
+    print(CARD, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

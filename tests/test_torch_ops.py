@@ -1,0 +1,201 @@
+"""Parity of the PyTorch port's ops with the JAX package, on the CPU.
+
+The plain versions of the port's three kernels (K1 dense conv, K2
+multi-dilation conv, K3 phase interleave) are held against the JAX Pallas
+kernels run in interpret mode, and the port's other serving-path ops
+against their JAX counterparts. Inputs come from numpy with a seed.
+
+Tolerance: max |port - jax| <= 1e-4 * max |jax| (f32; the two frameworks
+sum the same products in another order).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import importlib  # noqa: E402
+
+import jax.numpy as jnp  # noqa: E402
+
+from vspbfr_tpu.ops.fused_act import fused_leaky_relu as j_flr  # noqa: E402
+from vspbfr_tpu.ops.pallas_conv import _conv_pallas  # noqa: E402
+from vspbfr_tpu.ops.pallas_d2s import _d2s_pallas  # noqa: E402
+from vspbfr_tpu.ops.pallas_dilated import _multi_pallas  # noqa: E402
+from vspbfr_tpu_torch import ops  # noqa: E402
+
+# the packages' ops/__init__ re-export functions under these module names
+jmc = importlib.import_module("vspbfr_tpu.ops.modulated_conv")
+jup = importlib.import_module("vspbfr_tpu.ops.upfirdn2d")
+tmc = importlib.import_module("vspbfr_tpu_torch.ops.modulated_conv")
+tup = importlib.import_module("vspbfr_tpu_torch.ops.upfirdn2d")
+
+REL = 1e-4
+
+
+def assert_rel(port, ref, rel=REL):
+    port = np.asarray(port.detach().cpu().float() if hasattr(port, "detach")
+                      else port, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    scale = max(np.abs(ref).max(), 1e-6)
+    err = np.abs(port - ref).max() / scale
+    assert err <= rel, f"max rel err {err:.3e} > {rel}"
+
+
+def _rand(rng, *shape, scale=1.0, offset=0.0):
+    return (rng.standard_normal(shape) * scale + offset).astype(np.float32)
+
+
+T = torch.tensor
+
+
+# --- K1 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,k,pads,isc", [
+    ((2, 7, 9, 5), 3, ((1, 1), (1, 1)), True),    # odd widths, in_scale
+    ((1, 6, 5, 8), 3, ((0, 2), (2, 0)), False),   # asymmetric pads
+    ((2, 5, 7, 3), 1, ((0, 0), (0, 0)), True),    # 1x1, Ci = 3
+    ((1, 8, 8, 16), 2, ((0, 1), (1, 0)), True),   # 2x2 (assembled up-conv)
+])
+def test_dense_conv_plain_matches_pallas(rng, shape, k, pads, isc):
+    x = _rand(rng, *shape)
+    w = _rand(rng, k, k, shape[3], 12, scale=0.2)
+    s = _rand(rng, shape[0], shape[3], scale=0.2, offset=1.0) if isc else None
+    ref = _conv_pallas(jnp.asarray(x), jnp.asarray(w), pads,
+                       None if s is None else jnp.asarray(s), interpret=True)
+    got = ops.dense_conv(T(x), T(w), pads, None if s is None else T(s))
+    assert_rel(got, ref)
+
+
+# --- K2 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("hw,ci,cos,dils,isc,osc", [
+    ((6, 10), 8, (2, 2, 2, 2), (1, 2, 4, 8), True, True),
+    ((4, 4), 16, (4, 4, 4, 4), (1, 2, 4, 8), True, True),  # halo > image
+    ((8, 8), 8, (4, 8), (4, 8), False, False),             # uneven widths
+])
+def test_dilated_multi_plain_matches_pallas(rng, hw, ci, cos, dils, isc, osc):
+    b = 2
+    x = _rand(rng, b, *hw, ci)
+    ws = [_rand(rng, 3, 3, ci, co, scale=0.3) for co in cos]
+    s = _rand(rng, b, ci, scale=0.2, offset=1.0) if isc else None
+    o = _rand(rng, b, sum(cos), scale=0.2, offset=1.0) if osc else None
+    ref = _multi_pallas(jnp.asarray(x), tuple(jnp.asarray(w) for w in ws),
+                        None if s is None else jnp.asarray(s),
+                        None if o is None else jnp.asarray(o), dils, 1,
+                        interpret=True)
+    got = ops.dilated_multi_conv(T(x), [T(w) for w in ws], dils,
+                                 in_scale=None if s is None else T(s),
+                                 out_scale=None if o is None else T(o))
+    assert_rel(got, ref)
+
+
+def test_dilated_multi_refuses_groups():
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(NotImplementedError):
+        ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=4)
+
+
+# --- K3 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,inner", [((2, 3, 5, 64), 16),
+                                         ((1, 4, 4, 12), 3)])
+def test_d2s_plain_matches_pallas(rng, shape, inner):
+    x = _rand(rng, *shape)
+    ref = _d2s_pallas(jnp.asarray(x), inner, interpret=True)
+    got = ops.d2s(T(x), inner)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# --- plain-torch ops --------------------------------------------------------
+
+@pytest.mark.parametrize("fn,kw", [
+    ("upsample2d", {}),
+    ("downsample2d", {}),
+    ("blur", {"pad": (2, 1)}),
+    ("blur", {"pad": (1, 1), "upsample_factor": 2}),
+])
+def test_resample_matches_jax(rng, fn, kw):
+    x = _rand(rng, 2, 8, 6, 5)
+    taps = (1, 3, 3, 1)
+    ref = getattr(jup, fn)(jnp.asarray(x), taps, **kw)
+    got = getattr(tup, fn)(T(x), taps, **kw)
+    assert_rel(got, ref)
+
+
+def test_upfirdn2d_matches_jax(rng):
+    x = _rand(rng, 1, 7, 9, 4)
+    k = np.asarray(jup.make_resample_kernel((1, 2, 1)))
+    np.testing.assert_allclose(tup.make_resample_kernel((1, 2, 1)).numpy(), k,
+                               rtol=1e-6)
+    for up, down, pad in [(2, 1, (1, 2, 0, 1)), (1, 2, (1, 1)),
+                          (1, 1, (-1, 2, 1, -1))]:
+        ref = jup.upfirdn2d(jnp.asarray(x), jnp.asarray(k), up=up, down=down,
+                            pad=pad)
+        assert_rel(tup.upfirdn2d(T(x), T(k), up=up, down=down, pad=pad), ref)
+
+
+def test_fused_leaky_relu_and_demod(rng):
+    x = _rand(rng, 2, 4, 4, 6)
+    b = _rand(rng, 6)
+    assert_rel(ops.fused_leaky_relu(T(x), T(b)),
+               j_flr(jnp.asarray(x), jnp.asarray(b)))
+    w = _rand(rng, 3, 3, 6, 5)
+    s = _rand(rng, 2, 6, offset=1.0)
+    assert_rel(ops.demod_coeffs(T(w), T(s), 0.1),
+               jmc.demod_coeffs(jnp.asarray(w), jnp.asarray(s), 0.1))
+
+
+@pytest.mark.parametrize("kw,cin,cout,k", [
+    (dict(up=True), 6, 5, 3),              # subpixel + d2s (c_out < 128)
+    (dict(up=True), 4, 128, 3),            # transposed conv + blur
+    (dict(down=True), 6, 7, 3),            # composed blur + stride-2 conv
+    (dict(), 6, 7, 3),                     # stride-1 (K1 with in_scale)
+    (dict(dilation=2), 6, 4, 3),           # dilated single branch
+    (dict(demodulate=False), 6, 3, 1),     # ToRGB per-batch einsum
+])
+def test_modulated_conv2d_matches_jax(rng, kw, cin, cout, k):
+    x = _rand(rng, 2, 8, 8, cin)
+    w = _rand(rng, k, k, cin, cout)
+    s = _rand(rng, 2, cin, scale=0.3, offset=1.0)
+    taps = (1, 3, 3, 1)
+    ref = jmc.modulated_conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s),
+                               blur_kernel=taps, **kw)
+    got = ops.modulated_conv2d(T(x), T(w), T(s), blur_kernel=taps, **kw)
+    assert_rel(got, ref)
+
+
+def test_modulated_conv2d_multi_matches_jax(rng):
+    x = _rand(rng, 2, 8, 8, 8)
+    ws = [_rand(rng, 3, 3, 8, 2) for _ in range(4)]
+    s = _rand(rng, 2, 8, scale=0.3, offset=1.0)
+    ref = jmc.modulated_conv2d_multi(jnp.asarray(x),
+                                     [jnp.asarray(w) for w in ws],
+                                     (1, 2, 4, 8), jnp.asarray(s))
+    got = ops.modulated_conv2d_multi(T(x), [T(w) for w in ws], (1, 2, 4, 8),
+                                     T(s))
+    assert_rel(got, ref)
+
+
+def test_compose_blur_and_assembly_match_jax(rng):
+    from vspbfr_tpu.ops import packed as jpk
+
+    w = _rand(rng, 3, 3, 4, 5)
+    taps = (1, 3, 3, 1)
+    d_ref = jmc.compose_blur_kernel(jnp.asarray(w), taps, gain=4.0)
+    d_got = tmc.compose_blur_kernel(T(w), taps, gain=4.0)
+    assert_rel(d_got, d_ref)
+    m_ref, m_got = jpk._map_up(6, 1, False), tmc._map_up(6, 1)
+    assert [m_ref(a, 0) for a in (0, 1)] == [m_got(a, 0) for a in (0, 1)]
+    wp_ref, py_ref, px_ref = jpk._assemble2(d_ref, m_ref, m_ref, 1, 2)
+    wp_got, py_got, px_got = tmc._assemble2(d_got, m_got, m_got, 1, 2)
+    assert (py_ref, px_ref) == (py_got, px_got)
+    assert_rel(wp_got, wp_ref)
+
+
+def test_kernel_wrappers_raise_off_cpu_and_cuda():
+    x = torch.zeros(1, 4, 4, 8, device="meta")
+    with pytest.raises(ValueError):
+        ops.d2s(x, 2)

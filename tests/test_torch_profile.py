@@ -1,0 +1,65 @@
+"""The trace summary of `vspbfr_tpu_torch.cli.profile`, on made-up events.
+
+The profiler needs a CUDA device, so this checks only the arithmetic that
+turns a trace into the numbers PERF.md quotes: kernel grouping, device time
+per group, and the busy / idle share of the window (exact, in microseconds).
+"""
+
+from types import SimpleNamespace
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.autograd import DeviceType  # noqa: E402
+
+from vspbfr_tpu_torch.cli.profile import kernel_group, summarize  # noqa: E402
+
+
+def _ev(name, start, end, device=DeviceType.CUDA):
+    return SimpleNamespace(name=name, device_type=device,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+@pytest.mark.parametrize("name, group", [
+    ("void dense_conv_kernel<float, 8>(float const*, ...)", "K1 dense_conv"),
+    ("void dilated_multi_kernel<__nv_bfloat16>(...)",
+     "K2 dilated_multi_conv"),
+    ("void d2s_kernel<uint4>(uint4 const*, ...)", "K3 d2s"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32", "library conv"),
+    ("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", "gemm"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
+    ("void at::native::reduce_kernel<512, 1, ...>", "reduce"),
+    ("Memcpy DtoD (Device -> Device)", "copy"),
+    ("void upfirdn_something_else", "other"),
+])
+def test_kernel_group(name, group):
+    assert kernel_group(name) == group
+
+
+def test_summarize_groups_and_idle_share():
+    events = [
+        _ev("aten::conv2d", 0.0, 5.0, DeviceType.CPU),
+        _ev("aten::add", 50.0, 52.0, DeviceType.CPU),
+        _ev("dense_conv_kernel", 10.0, 30.0),
+        _ev("dense_conv_kernel", 25.0, 40.0),   # overlaps the first
+        _ev("d2s_kernel", 60.0, 70.0),
+        _ev("vectorized_elementwise_kernel", 90.0, 110.0),
+    ]
+    s = summarize(events)
+    assert s["device_ms_by_group"] == pytest.approx(
+        {"K1 dense_conv": 0.035, "elementwise": 0.020, "K3 d2s": 0.010})
+    assert list(s["device_ms_by_group"]) == ["K1 dense_conv", "elementwise",
+                                             "K3 d2s"]
+    assert s["device_ms_total"] == pytest.approx(0.065)
+    assert s["window_ms"] == pytest.approx(0.110)
+    assert s["busy_ms"] == pytest.approx(0.060)   # 10-40, 60-70, 90-110
+    assert s["idle_share"] == pytest.approx(1 - 60 / 110)
+    assert s["n_kernels"] == 4
+    assert s["top_kernels"][0] == {"name": "dense_conv_kernel", "ms":
+                                   pytest.approx(0.035), "calls": 2}
+
+
+def test_summarize_refuses_a_trace_without_device_kernels():
+    with pytest.raises(RuntimeError, match="no device kernel"):
+        summarize([_ev("aten::add", 0.0, 1.0, DeviceType.CPU)])

@@ -1,0 +1,122 @@
+"""Batch restoration inference CLI (the `restoration_test.py` product path).
+
+Counterpart of `vspbfr_tpu/cli/infer.py`: runs the pipeline over one or
+more image directories, writes restored/low/sample/gt images, and scores
+PSNR/SSIM where GT is given. `--ckpt` takes a port state_dict saved with
+`torch.save`; without it the weights are random, drawn from `--seed`.
+
+    python -m vspbfr_tpu_torch.cli.infer --lq_dirs DIR --device cuda --bf16
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from vspbfr_tpu_torch.data import RestoreTestDataset, save_image
+from vspbfr_tpu_torch.evaluation import psnr, ssim
+from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--lq_dirs", nargs="+", required=True,
+                   help="low-quality input dirs (PNG/JPG or [-1,1] HWC .npy)")
+    p.add_argument("--hq_dirs", nargs="+", default=None,
+                   help="matching GT dirs ('None' entries allowed)")
+    p.add_argument("--names", nargs="+", default=None, help="dataset names")
+    p.add_argument("--ckpt", type=str, default=None,
+                   help="port state_dict file (torch.save) of the pipeline")
+    p.add_argument("--out", type=str, default="eval_out")
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--mixing", type=float, default=0.5,
+                   help="latent-mixing probability "
+                        "(`restoration_test.py:214`)")
+    p.add_argument("--channel_multiplier", type=int, default=2,
+                   help="StyleGAN2 channel multiplier (config-f = 2)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--decoder_size", type=int, default=1024,
+                   help="frozen StyleGAN2 decoder resolution")
+    p.add_argument("--packed_min_res", type=int, default=0, choices=[0],
+                   help="space-to-depth layout threshold; the port runs the "
+                        "unpacked layout only")
+    p.add_argument("--debug", action="store_true",
+                   help="truncate each dataset to 10 batches")
+    p.add_argument("--save_images", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 decoder + RestoreNet, f32 encode and DDPM")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda, cuda:1, cpu)")
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"datasets": {name: {...}}} with per-batch
+    seconds (host clock, each ending in a device sync) and scores."""
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    pipe = RestorationPipeline(size=args.size, decoder_size=args.decoder_size,
+                               mixing_prob=args.mixing,
+                               channel_multiplier=args.channel_multiplier,
+                               compute_dtype=torch.bfloat16 if args.bf16
+                               else None)
+    if args.ckpt:
+        sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        pipe.load_state_dict(sd)
+    else:
+        print("WARNING: no --ckpt; random weights (smoke-test mode)")
+        pipe.init_from_seed(args.seed)
+    pipe = pipe.to(device).eval().prepare_params()
+    rng = torch.Generator(device=device).manual_seed(args.seed)
+
+    hq_dirs = args.hq_dirs or ["None"] * len(args.lq_dirs)
+    names = args.names or [f"data{i}" for i in range(len(args.lq_dirs))]
+    report = {}
+    for lq_root, hq_root, name in zip(args.lq_dirs, hq_dirs, names):
+        out_dir = os.path.join(args.out, name)
+        os.makedirs(out_dir, exist_ok=True)
+        ds = RestoreTestDataset(lq_root, None if hq_root == "None" else hq_root,
+                                im_size=(args.size, args.size))
+        tot_psnr = tot_ssim = 0.0
+        n, seconds = 0, []
+        for bi, (low, gt, fnames) in enumerate(ds.batches(args.batch)):
+            if args.debug and bi >= 10:
+                break
+            t0 = time.perf_counter()
+            low_t = torch.as_tensor(low, device=device)
+            restored, sample = pipe.restore(low_t, rng, return_sample=True)
+            restored_np = restored.float().cpu().numpy()
+            sample_np = sample.float().cpu().numpy()
+            seconds.append(time.perf_counter() - t0)
+            if args.save_images:
+                for j, fname in enumerate(fnames):
+                    stem = os.path.join(out_dir, fname)
+                    save_image(stem + "_restore", restored_np[j])
+                    save_image(stem + "_low", low[j])
+                    save_image(stem + "_sample", sample_np[j])
+                    if gt is not None:
+                        save_image(stem + "_gt", gt[j])
+            if gt is not None:
+                gt_t = torch.as_tensor(gt)
+                r_t = torch.as_tensor(restored_np)
+                tot_psnr += float(psnr(r_t, gt_t).sum())
+                tot_ssim += float(ssim(r_t, gt_t).sum())
+            n += low.shape[0]
+        entry = {"n": n, "batch_seconds": seconds}
+        if n and ds.hq_files is not None:
+            entry.update(psnr=tot_psnr / n, ssim=tot_ssim / n)
+            print(f"{name}: n={n} psnr={entry['psnr']:.4f} "
+                  f"ssim={entry['ssim']:.4f}")
+        else:
+            print(f"{name}: n={n} (no GT)")
+        report[name] = entry
+    return {"datasets": report}
+
+
+if __name__ == "__main__":
+    main()

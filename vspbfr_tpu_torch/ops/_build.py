@@ -1,0 +1,161 @@
+"""Build and load the port's CUDA kernels (K1 dense conv, K2 multi-dilation
+conv, K3 phase interleave).
+
+No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
+Here the sources under `vspbfr_tpu_torch/csrc/` are compiled by `nvcc` for
+Hopper (`sm_90a`) into ONE shared library with a plain C interface, loaded
+with `ctypes`. The build runs at first use, into
+`<repo>/build/vspbfr_tpu_torch/<key>/`, where the key is a hash of the
+sources and the compiler flags, so a changed source rebuilds and an
+unchanged one loads the library already built. A missing `nvcc` or a failed
+build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vspbfr_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # x, w, in_scale, y, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, stream
+    "vspbfr_dense_conv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # x, w, in_scale, out_scale, y, dtype, B, H, W, Ci, n, dils, cos, stream
+    "vspbfr_dilated_multi_conv": [_P] * 5 + [_I] * 6
+    + [ctypes.POINTER(_I), ctypes.POINTER(_I), _P],
+    # x, y, B, h, w, inner_bytes, unit_bytes, stream
+    "vspbfr_d2s": [_P, _P] + [_I] * 5 + [_P],
+}
+
+
+class KernelLibrary:
+    """The loaded kernels plus what their build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, log: str,
+                 build_seconds: float):
+        self.lib = lib
+        self.path = path
+        self.log = log
+        self.build_seconds = build_seconds
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Launch through the C entry point; raise if the launch failed."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# the library loaded in this process (a cache of the build, not state:
+# loading it again would map the same file)
+_LIBRARY: KernelLibrary | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+        home = CUDA_HOME
+    nvcc = Path(home or "/nonexistent") / "bin" / "nvcc"
+    if not nvcc.is_file():
+        raise RuntimeError(
+            f"nvcc not found (CUDA_HOME={home!r}); the CUDA kernels cannot be "
+            "built")
+    return str(nvcc)
+
+
+def load_library() -> KernelLibrary:
+    """Build the kernel library if its key is new, then load it (once per
+    process)."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    out_dir = BUILD_ROOT / build_key()
+    so = out_dir / "libvspbfr_kernels.so"
+    log_path = out_dir / "build.log"
+    t0 = time.perf_counter()
+    if not so.is_file():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cus = [str(p) for p in CSRC.glob("*.cu")]
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            tmp_so = Path(tmp) / so.name
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_so),
+                   *sorted(cus)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log_path.write_text(" ".join(cmd) + "\n" + proc.stdout
+                                + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            shutil.move(str(tmp_so), so)
+    log = log_path.read_text() if log_path.is_file() else ""
+    _LIBRARY = KernelLibrary(ctypes.CDLL(str(so)), so, log,
+                             time.perf_counter() - t0)
+    return _LIBRARY
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t) -> int:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return code
+
+
+def check_cuda_inputs(name: str, *tensors) -> None:
+    """The checks every kernel wrapper makes before a launch: same CUDA
+    device and dtype, contiguous, and no autograd (the kernels have no
+    backward yet)."""
+    ref = tensors[0]
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {ref.device}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name}: dtypes {t.dtype} and {ref.dtype} differ")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input of shape {tuple(t.shape)} is not "
+                             "contiguous")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(f"{name}: the CUDA kernel has no backward; run "
+                               "it under torch.no_grad()")
+    dtype_code(ref)
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
