@@ -22,6 +22,17 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              launch counts and peak memory; then, on the same 4 inputs,
              the stage split and imgs/s from CUDA-event medians of
              `restore`, and the bf16-vs-f32 PSNR.
+6. grads   - the kernels' gradients against plain torch autograd on the
+             card: K1's Function (dx, whose K1 launch is timed, d_in_scale
+             and dw) at the decoder's full-width shapes, and K4 (the
+             gradient of K3) at its two up-conv shapes, in f32 and bf16.
+7. train   - stage-2 training (the second main path): one step at the
+             phase-4 config on the card (kernels) against the CPU (plain
+             versions), K1 and K4 launching during backward(); then the
+             train_diffuser CLI at full width (256 px, 1024 px decoder,
+             IR-SE-50, b16) on synthetic uint8 faces in f32 and in bf16:
+             step ms, imgs/s, peak memory, launch counts; and ten steps on
+             one fixed batch, which must lower the L1 term.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -40,7 +51,7 @@ import time
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "slice", "cli")
+PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -49,7 +60,13 @@ KERNEL_INFO = {
                            "vspbfr_tpu/ops/pallas_dilated.py:180"),
     "d2s": ("vspbfr_tpu_torch/csrc/d2s.cu",
             "vspbfr_tpu/ops/pallas_d2s.py:75"),
+    "s2d": ("vspbfr_tpu_torch/csrc/s2d.cu",
+            "vspbfr_tpu/ops/pallas_d2s.py:109"),
 }
+# the kernels each main path must launch: serving (phase 5) and stage-2
+# training (phase 7)
+PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s"),
+                "train": ("dense_conv", "d2s", "s2d")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 CARD = ""
@@ -315,7 +332,7 @@ def phase_slice():
         res[name] = dict(range=rng_, mean_rel=mean_r, max_rel=max_r)
         if mean_r > 1e-3 or max_r > 1e-2:
             raise AssertionError(f"slice {name}: card vs CPU out of bounds")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in PATH_KERNELS["serve"] if counts[k] == 0]
     if missing:
         raise AssertionError(f"slice: kernels never launched: {missing}")
     REPORT["slice"] = res
@@ -369,7 +386,7 @@ def phase_cli():
                 f"(one batch, first excluded: a smoke figure), peak "
                 f"{peak:.3f} GiB, wall {wall:.1f} s incl. init; launches "
                 f"{counts}")
-            missing = [k for k, v in counts.items() if v == 0]
+            missing = [k for k in PATH_KERNELS["serve"] if counts[k] == 0]
             if missing:
                 raise AssertionError(f"cli {mode}: kernels never launched: "
                                      f"{missing}")
@@ -422,6 +439,263 @@ def phase_cli():
     REPORT["cli"] = res
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+def _k1_grad_cases():
+    # the decoder's K1 convs at full width, b4: 3x3 StyledConvs and the
+    # assembled subpixel up-convs (K1 + K3 in the forward, K4 + K1's dx in
+    # the backward)
+    p1 = ((1, 1), (1, 1))
+    return [c for c in _k1_cases() if c[2] == p1]
+
+
+def phase_grads():
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(*shape, scale=1.0, offset=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    rows = []
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for xs, ws, pads, label in _k1_grad_cases():
+            x = rand(*xs).to(dt).requires_grad_()
+            w = (rand(*ws) / (ws[0] * ws[1] * ws[2]) ** 0.5).to(
+                dt).requires_grad_()
+            s = rand(xs[0], xs[3], scale=0.2, offset=1.0).to(
+                dt).requires_grad_()
+            out = ops.dense_conv(x, w, pads, in_scale=s)
+            g = rand(*out.shape).to(dt)
+            before = ops.launch_counts()["dense_conv"]
+            got = torch.autograd.grad(out, (x, s, w), g)
+            if ops.launch_counts()["dense_conv"] != before + 1:
+                raise AssertionError(f"dense_conv grad {label}: dx did not "
+                                     "launch K1 once")
+            leaves = [t.detach().float().requires_grad_() for t in (x, s, w)]
+            ref_out = ops.dense_conv_plain(leaves[0], leaves[2], pads,
+                                           leaves[1])
+            ref = torch.autograd.grad(ref_out, leaves, g.float())
+            del ref_out
+            # the timed backward is the training one: dx and d_in_scale (w is
+            # frozen), kernel vs plain autograd on the same dtype
+            wd = w.detach()
+            out_k = ops.dense_conv(x, wd, pads, in_scale=s)
+            ms = cuda_ms(lambda: torch.autograd.grad(out_k, (x, s), g,
+                                                     retain_graph=True))
+            del out_k
+            xp, sp = x.detach().requires_grad_(), s.detach().requires_grad_()
+            out_p = ops.dense_conv_plain(xp, wd, pads, sp)
+            pms = cuda_ms(lambda: torch.autograd.grad(out_p, (xp, sp), g,
+                                                      retain_graph=True))
+            del out_p
+            for name, a, b in zip(("dx", "d_in_scale", "dw"), got, ref):
+                _check(f"dense_conv_grad {name}", label, dt_name, a, b,
+                       ms if name == "dx" else float("nan"),
+                       pms if name == "dx" else float("nan"), rows)
+            del x, w, s, g, got, ref, leaves
+        for xs, inner, label in _k3_cases():
+            # K4 gathers what K3 interleaved: its input is K3's output
+            b, h, w, _ = xs
+            y = rand(b, 2 * h, 2 * w, inner).to(dt)
+            got = ops.s2d(y, inner)
+            ref = ops.s2d_plain(y, inner)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"s2d {label} {dt_name}: not exact")
+            ms = cuda_ms(lambda: ops.s2d(y, inner))
+            pms = cuda_ms(lambda: ops.s2d_plain(y, inner).contiguous())
+            _check("s2d", label, dt_name, got, ref, ms, pms, rows)
+            del y, got, ref
+        torch.cuda.empty_cache()
+    REPORT["grads"] = rows
+
+
+# --- phase 7 ----------------------------------------------------------------
+
+def _rel(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def _train_step_card_vs_cpu(res):
+    """One stage-2 step at the phase-4 config, card vs CPU, same weights,
+    batch and draws. The random-init chain amplifies rounding (see
+    tests/test_torch_train.py), so the card is held to the CPU as closely
+    as the CPU agrees with itself when its inputs move by +-1e-6: error
+    <= 10 x that spread + 1e-5, per metric and over the diffuser's
+    gradients (worst tensor)."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.models.e4e import TINY_STAGES
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.diffuser_train import (DiffuserTrainConfig,
+                                                       DiffuserTrainer)
+
+    pcfg = dict(size=128, decoder_size=256, encode_size=64,
+                encoder_stages=TINY_STAGES, channel_div=4)
+    tcfg = DiffuserTrainConfig(size=128, batch=2)
+    cpu = DiffuserTrainer(tcfg, RestorationPipeline(**pcfg)).init_from_seed(1)
+    _condition_diffuser(cpu.pipe)
+    card = DiffuserTrainer(tcfg, RestorationPipeline(**pcfg))
+    for name, m in cpu.modules.items():
+        card.modules[name].load_state_dict(m.state_dict())
+    card.to("cuda")
+    low = torch.tensor(synthetic_faces(2, 128, seed=11))
+    real = torch.tensor(synthetic_faces(2, 128, seed=12))
+    draws = cpu.draw(2, torch.Generator().manual_seed(13))
+
+    def run(tr, lo, re, dr):
+        tr.state.opt.zero_grad(set_to_none=True)
+        loss, m = tr.losses(lo, re, dr)
+        return loss, {k: v.detach() for k, v in m.items()}
+
+    cuda_draws = {"init_noise": draws["init_noise"].cuda(),
+                  "noise": [n.cuda() for n in draws["noise"]]}
+    ops.reset_launch_counts()
+    loss_g, m_g = run(card, low.cuda(), real.cuda(), cuda_draws)
+    torch.cuda.synchronize()
+    fwd = ops.launch_counts()
+    loss_g.backward()
+    torch.cuda.synchronize()
+    bwd = {k: v - fwd[k] for k, v in ops.launch_counts().items()}
+    say(f"train step card: launches in the forward {fwd}, in backward() "
+        f"{bwd}")
+    for k in ("dense_conv", "s2d"):
+        if bwd[k] == 0:
+            raise AssertionError(f"train: {k} never launched in backward()")
+    grads_g = [p.grad for p in card.diffuser.parameters()]
+
+    outs = []
+    for f in (1.0, 1 + 1e-6, 1 - 1e-6):
+        loss_c, m_c = run(cpu, low * f, real, draws)
+        loss_c.backward()
+        outs.append((m_c, [p.grad.clone() for p in cpu.diffuser.parameters()]))
+    (m_c, grads_c), *pert = outs
+    for k in ("l1", "kl", "percept", "id"):
+        err = _rel(m_g[k], m_c[k])
+        spread = max(_rel(p[0][k], m_c[k]) for p in pert)
+        say(f"train step {k}: card {float(m_g[k]):.6f} CPU "
+            f"{float(m_c[k]):.6f} rel err {err:.3e} (CPU spread "
+            f"{spread:.3e})")
+        res[f"step_{k}"] = dict(card=float(m_g[k]), cpu=float(m_c[k]),
+                                rel_err=err, cpu_spread=spread)
+        if not (torch.isfinite(m_g[k]) and err <= 10 * spread + 1e-5):
+            raise AssertionError(f"train step {k}: card vs CPU {err:.3e}, "
+                                 f"CPU spread {spread:.3e}")
+    err = max(_rel(a, b) for a, b in zip(grads_g, grads_c))
+    spread = max(_rel(a, b) for p in pert for a, b in zip(p[1], grads_c))
+    say(f"train step diffuser grads: worst-tensor rel err {err:.3e} (CPU "
+        f"spread {spread:.3e})")
+    res["step_grads"] = dict(rel_err=err, cpu_spread=spread,
+                             launches_forward=fwd, launches_backward=bwd)
+    if err > 10 * spread + 1e-5:
+        raise AssertionError(f"train step grads: card vs CPU {err:.3e}, CPU "
+                             f"spread {spread:.3e}")
+    del cpu, card
+
+
+def _train_cli(res, faces_dir, mode, batch, iters):
+    """The stage-2 CLI at full width, b16 in one pass (f32 peaks at 34 GiB
+    of the card's 80, so no gradient accumulation is needed)."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import train_diffuser
+
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--path", faces_dir, "--out", out, "--size", "256",
+                "--decoder_size", "1024", "--batch", str(batch),
+                "--iter", str(iters),
+                "--device", "cuda", "--seed", "0", "--save_inter", "100000",
+                "--show_inter", "100000", "--train_dtype", mode]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = train_diffuser.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = rep["steps"]
+    if len(steps) != iters:
+        raise AssertionError(f"train cli {mode}: {len(steps)} steps")
+    for st in steps:
+        if not all(np.isfinite(st[k]) for k in ("loss", "l1", "kl",
+                                                  "percept", "id")):
+            raise AssertionError(f"train cli {mode}: non-finite loss {st}")
+    secs = [st["seconds"] for st in steps]
+    med = statistics.median(secs[1:])
+    ips = batch / med
+    say(f"train cli {mode} b{batch}: step seconds "
+        f"{[round(x, 4) for x in secs]}, median (first excluded) "
+        f"{med * 1e3:.1f} ms = {ips:.3f} imgs/s, peak {peak:.3f} GiB, wall "
+        f"{wall:.1f} s incl. init; launches {counts}; last losses "
+        + ", ".join(f"{k} {steps[-1][k]:.4f}" for k in ("l1", "kl",
+                                                         "percept", "id")))
+    missing = [k for k in PATH_KERNELS["train"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"train cli {mode}: kernels never launched: "
+                             f"{missing}")
+    res[mode] = dict(batch=batch, step_seconds=secs,
+                     median_step_ms=med * 1e3, imgs_per_s=ips, peak_gib=peak,
+                     launches=counts, wall_s=wall,
+                     last_losses={k: steps[-1][k] for k in
+                                  ("loss", "l1", "kl", "percept", "id")})
+
+
+def _fixed_batch_l1(res, gt_u8):
+    """Ten bf16 steps at full width on one fixed degraded batch: the L1
+    term must fall."""
+    import torch
+
+    from vspbfr_tpu_torch.data.degradations import DegradationConfig
+    from vspbfr_tpu_torch.data.device_degrade import (DeviceDegrader,
+                                                      sample_params)
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.diffuser_train import (DiffuserTrainConfig,
+                                                       DiffuserTrainer)
+
+    tr = DiffuserTrainer(DiffuserTrainConfig(compute_dtype="bfloat16"),
+                         RestorationPipeline(size=256)).init_from_seed(3)
+    tr.to("cuda")
+    b = gt_u8.shape[0]
+    p = sample_params(np.random.default_rng(4), b, 256, DegradationConfig())
+    low, real = DeviceDegrader(256).degrade_all(
+        torch.tensor(gt_u8, device="cuda"), p, np.arange(b), True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    l1 = [float(tr.train_step(low, real, generator=gen)["l1"])
+          for _ in range(10)]
+    say(f"fixed batch (b{b}, bf16, full width), L1 over ten steps: "
+        f"{[round(x, 5) for x in l1]}")
+    res["fixed_batch_l1"] = l1
+    if not (np.all(np.isfinite(l1)) and l1[-1] < l1[0]):
+        raise AssertionError(f"fixed batch: L1 did not fall: {l1}")
+    del tr
+
+
+def phase_train():
+    import torch
+
+    res = {}
+    _train_step_card_vs_cpu(res)
+    torch.cuda.empty_cache()
+    faces = synthetic_faces(16, 256, seed=7)
+    gt_u8 = np.round((faces + 1.0) * 127.5).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        for i, f in enumerate(gt_u8):
+            np.save(os.path.join(d, f"face{i}.npy"), f)
+        for mode in ("f32", "bf16"):
+            _train_cli(res, d, mode, 16, iters=4)
+            torch.cuda.empty_cache()
+    _fixed_batch_l1(res, gt_u8)
+    torch.cuda.empty_cache()
+    REPORT["train"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -433,16 +707,21 @@ def main() -> None:
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
+    launches = {"serve": REPORT["cli"]["f32"]["launches"],
+                "train": REPORT["train"]["f32"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
-        rows = [r for r in REPORT["kernels"] if r["kernel"] == name
-                and r["dtype"] == "f32"]
+        rows = [r for r in REPORT["kernels"] + REPORT["grads"]
+                if r["kernel"] == name and r["dtype"] == "f32"]
         big = max(rows, key=lambda r: r["plain_ms"])
-        launches = REPORT["cli"]["f32"]["launches"][name]
+        path = next(p for p, ks in PATH_KERNELS.items() if name in ks)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches,
+                        "replaces": replaces,
+                        "launches": launches[path][name],
                         "max_abs_err": big["max_abs_err"],
                         "ms": big["ms"], "plain_ms": big["plain_ms"],
-                        "case": big["case"]})
+                        "case": big["case"], "path": path,
+                        "launches_by_path": {p: c[name]
+                                             for p, c in launches.items()}})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

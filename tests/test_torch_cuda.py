@@ -6,15 +6,16 @@ out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-`chip_smoke.py` checks the serving path's full-width shapes; these cases
+`chip_smoke.py` checks the main paths' full-width shapes; these cases
 cover the edges the kernels must also get right: odd widths, channel counts
 that are not multiples of the kernels' tiles, asymmetric pads, a halo
-larger than the image, uneven branch widths, sub-16-byte interleave units,
-and the wrappers' refusals.
+larger than the image, uneven branch widths, sub-16-byte interleave and
+gather units, K1's gradients (odd channel counts, asymmetric pads, 1x1 and
+2x2 kernels) against plain torch autograd, and the wrappers' refusals.
 
 Tolerance: f32 <= 1e-4 of max |plain| (the same products summed in another
 order); bf16 <= 2e-2 (plain runs in f32 on the same bf16 inputs, so the
-kernel's bf16 output rounding dominates); K3 exact.
+kernel's bf16 output rounding dominates); K3 and K4 exact.
 """
 
 import pytest
@@ -102,30 +103,87 @@ def test_d2s_matches_plain_exactly(dev, dtype, shape, inner):
     assert torch.equal(ops.d2s(x, inner), ops.d2s_plain(x, inner))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,inner", [((2, 6, 10, 1), 1),   # 2-4 bytes
+                                         ((1, 4, 6, 3), 3),
+                                         ((2, 6, 14, 4), 4),   # 8-16 bytes
+                                         ((1, 10, 6, 5), 5),
+                                         ((2, 16, 16, 16), 16),
+                                         ((1, 10, 14, 64), 64)])
+def test_s2d_matches_plain_exactly(dev, dtype, shape, inner):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    y = _rand(gen, dev, *shape).to(dtype)
+    got = ops.s2d(y, inner)
+    assert torch.equal(got, ops.s2d_plain(y, inner))
+    assert torch.equal(ops.d2s(got, inner), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw,co,pads,isc", [
+    ((2, 7, 9, 5), (3, 3), 12, ((1, 1), (1, 1)), True),     # odd widths
+    ((1, 6, 5, 7), (3, 3), 70, ((0, 2), (2, 0)), True),     # asymmetric
+    ((2, 5, 7, 3), (1, 1), 17, ((0, 0), (0, 0)), True),     # 1x1
+    ((1, 8, 8, 40), (2, 2), 9, ((0, 1), (1, 0)), False),    # 2x2
+    ((2, 12, 10, 33), (3, 3), 65, ((2, 1), (1, 2)), True),  # pads up to k-1
+])
+def test_dense_conv_grads_match_plain_autograd(dev, dtype, shape, kw, co,
+                                               pads, isc):
+    """dx (a K1 launch), d_in_scale and dw against autograd of the plain
+    version in f32 on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, *kw, shape[3], co) * 0.2).to(dtype)
+    s = (_rand(gen, dev, shape[0], shape[3], scale=0.2, offset=1.0).to(dtype)
+         if isc else None)
+    leaves = [t for t in (x, w, s) if t is not None]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = ops.dense_conv(x, w, pads, in_scale=s)
+    g = _rand(gen, dev, *out.shape).to(dtype)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(out, leaves, g)
+    assert ops.launch_counts()["dense_conv"] == 1
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    rx, rw = ref_leaves[:2]
+    rs = ref_leaves[2] if isc else None
+    ref_out = ops.dense_conv_plain(rx, rw, pads, rs)
+    ref = torch.autograd.grad(ref_out, ref_leaves, g.float())
+    for a, b in zip(got, ref):
+        _assert_close(a, b, dtype)
+
+
 def test_launch_counters_count_launches(dev):
     x = torch.zeros(1, 4, 4, 8, device=dev)
     ops.reset_launch_counts()
     ops.dense_conv(x, torch.zeros(3, 3, 8, 8, device=dev), ((1, 1), (1, 1)))
     ops.d2s(x, 2)
     ops.d2s(x, 2)
+    ops.s2d(x, 8)
     assert ops.launch_counts() == {"dense_conv": 1, "dilated_multi_conv": 0,
-                                   "d2s": 2}
+                                   "d2s": 2, "s2d": 1}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 4, 4, 8, device=dev)
     w = torch.zeros(3, 3, 8, 4, device=dev)
     pads = ((1, 1), (1, 1))
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.dense_conv(x, w.clone().requires_grad_(), pads)
+    with pytest.raises(ValueError, match="negative pads"):
+        ops.dense_conv(x.clone().requires_grad_(), w,
+                       ((3, 0), (1, 1))).sum().backward()
     with pytest.raises(ValueError, match="contiguous"):
         ops.dense_conv(x.transpose(1, 2), w, pads)
     with pytest.raises(TypeError):
         ops.dense_conv(x, w.bfloat16(), pads)
     with pytest.raises(TypeError):
         ops.d2s(x.half(), 2)
+    with pytest.raises(TypeError):
+        ops.s2d(x.half(), 8)
+    with pytest.raises(ValueError):
+        ops.s2d(torch.zeros(1, 3, 4, 8, device=dev), 8)
     with pytest.raises(ValueError):
         ops.dense_conv(x, torch.zeros(3, 3, 5, 4, device=dev), pads)
     with pytest.raises(ValueError):
         ops.dilated_multi_conv(x, [w], (2,), out_scale=torch.zeros(
             1, 5, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.dilated_multi_conv(x, [w.requires_grad_()], (2,))

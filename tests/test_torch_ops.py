@@ -1,12 +1,14 @@
 """Parity of the PyTorch port's ops with the JAX package, on the CPU.
 
-The plain versions of the port's three kernels (K1 dense conv, K2
-multi-dilation conv, K3 phase interleave) are held against the JAX Pallas
-kernels run in interpret mode, and the port's other serving-path ops
+The plain versions of the port's kernels (K1 dense conv, K2
+multi-dilation conv, K3 phase interleave, K4 phase gather) are held against
+the JAX Pallas kernels run in interpret mode, K1's gradient Function
+against `jax.vjp` of the interpret-mode K1, and the port's other ops
 against their JAX counterparts. Inputs come from numpy with a seed.
 
 Tolerance: max |port - jax| <= 1e-4 * max |jax| (f32; the two frameworks
-sum the same products in another order).
+sum the same products in another order); K1's gradients <= 1e-5; K3 and K4
+exact.
 """
 
 import numpy as np
@@ -20,8 +22,8 @@ import importlib  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from vspbfr_tpu.ops.fused_act import fused_leaky_relu as j_flr  # noqa: E402
-from vspbfr_tpu.ops.pallas_conv import _conv_pallas  # noqa: E402
-from vspbfr_tpu.ops.pallas_d2s import _d2s_pallas  # noqa: E402
+from vspbfr_tpu.ops.pallas_conv import _conv_pallas, conv2d_dense  # noqa: E402
+from vspbfr_tpu.ops.pallas_d2s import _d2s_pallas, _s2d_pallas  # noqa: E402
 from vspbfr_tpu.ops.pallas_dilated import _multi_pallas  # noqa: E402
 from vspbfr_tpu_torch import ops  # noqa: E402
 
@@ -69,6 +71,52 @@ def test_dense_conv_plain_matches_pallas(rng, shape, k, pads, isc):
     assert_rel(got, ref)
 
 
+@pytest.mark.parametrize("shape,k,co,pads,isc", [
+    ((2, 7, 9, 5), 3, 12, ((1, 1), (1, 1)), True),
+    ((1, 6, 5, 8), 3, 7, ((0, 2), (2, 0)), True),     # asymmetric pads
+    ((2, 5, 7, 3), 1, 4, ((0, 0), (0, 0)), True),     # 1x1
+    ((1, 8, 8, 16), 2, 6, ((0, 1), (1, 0)), False),   # 2x2
+])
+def test_dense_conv_grads_match_jax_vjp(rng, shape, k, co, pads, isc):
+    """dx, dw and d_in_scale of the port's Function (the backward math the
+    card runs, on its plain primitive) vs `jax.vjp` of the interpret-mode
+    K1 with its custom VJP; <= 1e-5 of max |jax|."""
+    x = _rand(rng, *shape)
+    w = _rand(rng, k, k, shape[3], co, scale=0.2)
+    s = _rand(rng, shape[0], shape[3], scale=0.2, offset=1.0) if isc else None
+    out, vjp = jax.vjp(
+        lambda x_, w_, s_: conv2d_dense(x_, w_, pads, s_, interpret=True),
+        jnp.asarray(x), jnp.asarray(w), None if s is None else jnp.asarray(s))
+    g = _rand(rng, *out.shape)
+    refs = vjp(jnp.asarray(g))
+    leaves = [T(a).requires_grad_() for a in (x, w, s) if a is not None]
+    got_out = ops.dense_conv(leaves[0], leaves[1], pads,
+                             leaves[2] if isc else None)
+    assert_rel(got_out, out)
+    got = torch.autograd.grad(got_out, leaves, T(g))
+    for a, b in zip(got, [r for r in refs if r is not None]):
+        assert_rel(a, b, rel=1e-5)
+
+
+@pytest.mark.parametrize("check", [torch.autograd.gradcheck,
+                                   torch.autograd.gradgradcheck])
+def test_dense_conv_function_is_twice_differentiable(rng, check):
+    """The backward is built of differentiable calls, so the double
+    backward that R1 needs runs through it (float64, finite differences)."""
+    x, w, s = (T(a).double().requires_grad_() for a in (
+        _rand(rng, 1, 4, 5, 3), _rand(rng, 3, 3, 3, 2, scale=0.3),
+        _rand(rng, 1, 3, scale=0.2, offset=1.0)))
+    assert check(lambda x_, w_, s_: ops.dense_conv(
+        x_, w_, ((1, 2), (0, 1)), in_scale=s_), (x, w, s))
+
+
+def test_dense_conv_grad_refuses_negative_backward_pads():
+    x = torch.zeros(1, 4, 4, 2, requires_grad=True)
+    y = ops.dense_conv(x, torch.zeros(3, 3, 2, 2), ((3, 0), (1, 1)))
+    with pytest.raises(ValueError, match="negative pads"):
+        y.sum().backward()
+
+
 # --- K2 ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("hw,ci,cos,dils,isc,osc", [
@@ -107,6 +155,29 @@ def test_d2s_plain_matches_pallas(rng, shape, inner):
     ref = _d2s_pallas(jnp.asarray(x), inner, interpret=True)
     got = ops.d2s(T(x), inner)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+# --- K4 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,inner", [((2, 6, 10, 16), 16),
+                                         ((1, 4, 8, 3), 3)])
+def test_s2d_plain_matches_pallas(rng, shape, inner):
+    y = _rand(rng, *shape)
+    ref = _s2d_pallas(jnp.asarray(y), inner, interpret=True)
+    got = ops.s2d(T(y), inner)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(ops.d2s(got, inner).numpy(), y)
+
+
+def test_d2s_and_s2d_are_each_others_gradient(rng):
+    x = T(_rand(rng, 2, 3, 5, 8)).requires_grad_()
+    g = T(_rand(rng, 2, 6, 10, 2))
+    (dx,) = torch.autograd.grad(ops.d2s(x, 2), x, g)
+    assert torch.equal(dx, ops.s2d_plain(g, 2))
+    y = T(_rand(rng, 2, 6, 10, 2)).requires_grad_()
+    h = T(_rand(rng, 2, 3, 5, 8))
+    (dy,) = torch.autograd.grad(ops.s2d(y, 2), y, h)
+    assert torch.equal(dy, ops.d2s_plain(h, 2))
 
 
 # --- plain-torch ops --------------------------------------------------------
@@ -199,3 +270,5 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     x = torch.zeros(1, 4, 4, 8, device="meta")
     with pytest.raises(ValueError):
         ops.d2s(x, 2)
+    with pytest.raises(ValueError):
+        ops.s2d(x, 8)

@@ -207,4 +207,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert len(mods) >= 18
+    assert len(mods) >= 41
+    for m in ("cli.train_diffuser", "data.device_degrade", "losses.lpips",
+              "train.diffuser_train", "utils.checkpoint"):
+        assert f"vspbfr_tpu_torch.{m}" in mods

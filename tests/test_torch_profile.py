@@ -26,6 +26,7 @@ def _ev(name, start, end, device=DeviceType.CUDA):
     ("void dilated_multi_kernel<__nv_bfloat16>(...)",
      "K2 dilated_multi_conv"),
     ("void d2s_kernel<uint4>(uint4 const*, ...)", "K3 d2s"),
+    ("void s2d_kernel<uint4>(uint4 const*, ...)", "K4 s2d"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32", "library conv"),
     ("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),

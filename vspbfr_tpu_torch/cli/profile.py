@@ -1,15 +1,18 @@
-"""Trace one `restore` batch and say where the device time goes.
+"""Trace one `restore` batch, or one stage-2 training step, and say where
+the device time goes.
 
 The port's counterpart of `scripts/profile_stages.py`. Builds the pipeline
 at full width (512 px, 1024 px decoder) from seed 0, runs `restore` on a
 batch of 4 twice to warm up, then once more under `torch.profiler` with
-CUDA activity, and prints:
+CUDA activity; with `--train`, the stage-2 trainer at full width (256 px,
+1024 px decoder, b16) and its `train_step` instead. It prints:
 
 - the card's name and power limit (`nvidia-smi`);
 - the traced call's wall time (host clock, ending in a device sync);
-- device time by group: the three hand-written kernels (K1 dense conv, K2
-  multi-dilation conv, K3 phase interleave) with their launch counts, the
-  library convs, GEMMs, elementwise, reductions, copies and the rest;
+- device time by group: the hand-written kernels (K1 dense conv, K2
+  multi-dilation conv, K3 phase interleave, K4 phase gather) with their
+  launch counts, the library convs, GEMMs, elementwise, reductions, copies
+  and the rest;
 - the device's busy and idle share of the traced window (the union of the
   kernels' intervals over the time from the call's first host op to the
   last kernel's end);
@@ -18,6 +21,7 @@ CUDA activity, and prints:
 
     python -m vspbfr_tpu_torch.cli.profile                # f32
     python -m vspbfr_tpu_torch.cli.profile --bf16 --out profile_bf16.json
+    python -m vspbfr_tpu_torch.cli.profile --train [--bf16]
 
 Needs a CUDA device: a trace that holds no device kernel raises.
 """
@@ -36,13 +40,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from vspbfr_tpu_torch import ops
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
+from vspbfr_tpu_torch.train.diffuser_train import (
+    DiffuserTrainConfig,
+    DiffuserTrainer,
+)
 
 BATCH, SIZE, DECODER_SIZE, SEED, WARMUP = 4, 512, 1024, 0, 2
+TRAIN_BATCH, TRAIN_SIZE = 16, 256
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("K1 dense_conv", ("dense_conv_kernel",)),
     ("K2 dilated_multi_conv", ("dilated_multi_kernel",)),
     ("K3 d2s", ("d2s_kernel",)),
+    ("K4 s2d", ("s2d_kernel",)),
     ("library conv", ("cudnn", "fprop", "dgrad", "conv", "winograd",
                       "implicit")),
     ("gemm", ("gemm", "gemv")),
@@ -110,6 +120,17 @@ def profile_restore(pipe: RestorationPipeline, low: torch.Tensor) -> dict:
         rng = torch.Generator(device=low.device).manual_seed(SEED)
         return pipe.restore(low, rng, return_sample=True)
 
+    return _profile(run)
+
+
+def profile_train_step(trainer: DiffuserTrainer, low: torch.Tensor,
+                       real: torch.Tensor) -> dict:
+    """Warm up, then trace one `train_step` (forward, backward, Adam)."""
+    gen = torch.Generator(device=low.device).manual_seed(SEED)
+    return _profile(lambda: trainer.train_step(low, real, generator=gen))
+
+
+def _profile(run) -> dict:
     for _ in range(WARMUP):
         run()
     torch.cuda.synchronize()
@@ -127,26 +148,42 @@ def profile_restore(pipe: RestorationPipeline, low: torch.Tensor) -> dict:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 decoder + RestoreNet, f32 encode and DDPM")
+                   help="bf16 decoder (+ RestoreNet, or + loss-net trunks "
+                        "with --train); encode and DDPM stay f32")
+    p.add_argument("--train", action="store_true",
+                   help="trace a stage-2 training step instead of restore")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    pipe = RestorationPipeline(
-        size=SIZE, decoder_size=DECODER_SIZE,
-        compute_dtype=torch.bfloat16 if args.bf16 else None)
-    pipe = pipe.init_from_seed(SEED).cuda().eval().prepare_params()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    low = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen,
-                     device="cuda") * 2 - 1
-    res = profile_restore(pipe, low)
+    if args.train:
+        batch, size = TRAIN_BATCH, TRAIN_SIZE
+        trainer = DiffuserTrainer(
+            DiffuserTrainConfig(compute_dtype="bfloat16" if args.bf16
+                                else None),
+            RestorationPipeline(size=size, decoder_size=DECODER_SIZE))
+        trainer = trainer.init_from_seed(SEED).to("cuda")
+        low, real = (torch.rand((batch, size, size, 3), generator=gen,
+                                device="cuda") * 2 - 1 for _ in range(2))
+        res = profile_train_step(trainer, low, real)
+    else:
+        batch, size = BATCH, SIZE
+        pipe = RestorationPipeline(
+            size=size, decoder_size=DECODER_SIZE,
+            compute_dtype=torch.bfloat16 if args.bf16 else None)
+        pipe = pipe.init_from_seed(SEED).cuda().eval().prepare_params()
+        low = torch.rand((batch, size, size, 3), generator=gen,
+                         device="cuda") * 2 - 1
+        res = profile_restore(pipe, low)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout
-    res.update(card=card.splitlines()[0].strip(), batch=BATCH, size=SIZE,
-               decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32")
-    print(f"[{res['card']}] {res['dtype']} b{BATCH} {SIZE}px: "
+    res.update(card=card.splitlines()[0].strip(), batch=batch, size=size,
+               decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32",
+               call="train_step" if args.train else "restore")
+    print(f"[{res['card']}] {res['call']} {res['dtype']} b{batch} {size}px: "
           f"wall {res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} "
           f"ms of a {res['window_ms']:.3f} ms window (idle share "
           f"{res['idle_share']:.4f}), launches {res['launches']}")

@@ -6,6 +6,13 @@ casts: a path component `name_<i>` (flax's name for the i-th entry of a
 list of submodules) becomes `name.<i>` (an `nn.ModuleList` entry), and `/`
 becomes `.`. So flax `convs_3/conv/weight` is port `convs.3.conv.weight`.
 
+The same rule carries the stage-2 loss nets, whose port modules are named
+for it: LPIPS's `vgg/conv1_2/kernel` is `vgg.conv1.2.kernel` (a ModuleList
+per VGG block) and `lin3` stays `lin3`; the ResNet-101 embedder's
+`layer3_5/bn2/var` is `layer3.5.bn2.var` (flax `nn.Conv` leaves are
+`kernel`/`bias`, `FrozenBatchNorm` leaves `scale`/`bias`/`mean`/`var`, in
+both packages).
+
 This module does not import JAX: it takes the tree as nested dicts of
 numpy arrays (`jax.tree.map(np.asarray, params)`). Reading the reference's
 released `.pt` files later composes `vspbfr_tpu/convert/torch_import.py`'s

@@ -1,10 +1,11 @@
 """Latent DDPM sampler for the code diffuser (T=4, x0-parameterisation).
 
-Counterpart of `vspbfr_tpu/diffusion/ddpm.py` (eval sampler only; the
-training chain waits for the training path). The "linear" schedule is
-linear in sqrt space, computed in float64; the sampler returns only the
-posterior mean at each step, so it is deterministic given its initial
-noise.
+Counterpart of `vspbfr_tpu/diffusion/ddpm.py`: the eval sampler and the
+stage-2 training chain. The "linear" schedule is linear in sqrt space,
+computed in float64; each reverse step returns only the posterior mean, so
+both chains are deterministic given their noise. Training noises the
+condition to t = T-1 (`q_sample`) and unrolls the whole reverse loop with
+gradients (`training_chain`).
 """
 
 from __future__ import annotations
@@ -61,6 +62,13 @@ class LatentDDPM:
         self.denoise = denoise_fn
         self.sched = schedule or DDPMSchedule.linear()
 
+    def q_sample(self, x_start: torch.Tensor, t: int,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising q(x_t | x_0) at a fixed timestep."""
+        s = self.sched
+        return (float(s.sqrt_alphas_cumprod[t]) * x_start
+                + float(s.sqrt_one_minus_alphas_cumprod[t]) * noise)
+
     def p_sample_mean(self, x: torch.Tensor, cond: torch.Tensor,
                       t: int) -> torch.Tensor:
         """One reverse step: predict x0, return the posterior mean only."""
@@ -77,3 +85,14 @@ class LatentDDPM:
         for t in reversed(range(self.sched.num_timesteps)):
             x = self.p_sample_mean(x, cond, t)
         return x
+
+    def training_chain(self, x_start: torch.Tensor, cond: torch.Tensor,
+                       noise: torch.Tensor):
+        """Noise x_start to t = T-1, then run the full reverse loop with
+        gradients. Returns (final, [x_noisy, each step's output])."""
+        x = self.q_sample(x_start, self.sched.num_timesteps - 1, noise)
+        chain = [x]
+        for t in reversed(range(self.sched.num_timesteps)):
+            x = self.p_sample_mean(x, cond, t)
+            chain.append(x)
+        return x, chain

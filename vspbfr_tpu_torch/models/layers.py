@@ -106,7 +106,8 @@ class Dense(nn.Module):
 class Conv(nn.Module):
     """flax nn.Conv with explicit symmetric padding: kernel HWIO,
     lecun-normal; bias zeros. Runs on `F.conv2d`, as the JAX package leaves
-    these convs to XLA."""
+    these convs to XLA. Computes in the input's dtype (the kernel and bias
+    are cast at use, as flax's `dtype=` does)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True):
@@ -125,7 +126,7 @@ class Conv(nn.Module):
     def forward(self, x):
         p = self.padding
         out = conv_nhwc(x, self.kernel, self.stride, ((p, p), (p, p)))
-        return out if self.bias is None else out + self.bias
+        return out if self.bias is None else out + self.bias.to(out.dtype)
 
 
 class LayerNorm(nn.Module):

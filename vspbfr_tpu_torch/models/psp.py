@@ -55,9 +55,12 @@ class PSPFacade(nn.Module):
     def init_from(self, gen):
         self.latent_avg.zero_()
 
+    @torch.no_grad()
     def get_w_plus(self, img: torch.Tensor) -> torch.Tensor:
         """Image (B, H, W, 3) in [-1, 1] -> (B, n_latent, 512) W+ code:
-        resize to encode_size, encode, add latent_avg."""
+        resize to encode_size, encode, add latent_avg. A gradient boundary,
+        as the JAX `stop_gradient` (psp.py:102): the result carries no
+        graph, so no loss reaches the image or the encoder."""
         es = self.encoder.encode_size
         codes = self.encoder(resize_bilinear(img, (es, es)))
         return (codes + self.latent_avg[None])[:, : self.n_latent]
@@ -77,7 +80,9 @@ class PSPFacade(nn.Module):
         return image, feats[: self.out_n_latent]
 
     def decode(self, codes: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        """W+ code -> image pooled to out_size."""
-        image, _ = self.decoder(codes, generator=generator)
+               generator: torch.Generator | None = None,
+               noise=None) -> torch.Tensor:
+        """W+ code -> image pooled to out_size. noise: optional list of the
+        decoder's per-layer noise maps (else drawn from `generator`)."""
+        image, _ = self.decoder(codes, noise=noise, generator=generator)
         return adaptive_avg_pool(image, (self.out_size, self.out_size))

@@ -1,11 +1,12 @@
 """Ops of the PyTorch port (counterpart of `vspbfr_tpu/ops`).
 
-The three hand-written CUDA kernels of the serving path live in
-`dense_conv` (K1), `dilated_conv` (K2) and `d2s` (K3), each beside its
-plain torch version; `_build` compiles and loads them.
+The hand-written CUDA kernels live in `dense_conv` (K1, with its
+gradient), `dilated_conv` (K2) and `d2s` (K3 and its inverse K4, each the
+other's gradient), each beside its plain torch version; `_build` compiles
+and loads them.
 """
 
-from vspbfr_tpu_torch.ops.d2s import d2s, d2s_plain
+from vspbfr_tpu_torch.ops.d2s import d2s, d2s_plain, s2d, s2d_plain
 from vspbfr_tpu_torch.ops.dense_conv import dense_conv, dense_conv_plain
 from vspbfr_tpu_torch.ops.dilated_conv import (
     dilated_multi_conv,
@@ -26,7 +27,7 @@ from vspbfr_tpu_torch.ops.upfirdn2d import (
     upsample2d,
 )
 
-KERNELS = (dense_conv, dilated_multi_conv, d2s)
+KERNELS = (dense_conv, dilated_multi_conv, d2s, s2d)
 
 
 def reset_launch_counts() -> None:
@@ -43,6 +44,6 @@ __all__ = [
     "dense_conv", "dense_conv_plain", "dilated_multi_conv",
     "dilated_multi_conv_plain", "downsample2d", "fused_leaky_relu",
     "launch_counts", "make_resample_kernel", "modulated_conv2d",
-    "modulated_conv2d_multi", "reset_launch_counts", "scaled_leaky_relu",
-    "upfirdn2d", "upsample2d",
+    "modulated_conv2d_multi", "reset_launch_counts", "s2d", "s2d_plain",
+    "scaled_leaky_relu", "upfirdn2d", "upsample2d",
 ]

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (K1 dense conv, K2 multi-dilation
-conv, K3 phase interleave).
+conv, K3 phase interleave, K4 phase gather).
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 Here the sources under `vspbfr_tpu_torch/csrc/` are compiled by `nvcc` for
 Hopper (`sm_90a`) into ONE shared library with a plain C interface, loaded
-with `ctypes`. The build runs at first use, into
+with `ctypes`: one `nvcc -c` per source, all started together, then one
+link. The build runs at first use, into
 `<repo>/build/vspbfr_tpu_torch/<key>/`, where the key is a hash of the
 sources and the compiler flags, so a changed source rebuilds and an
 unchanged one loads the library already built. A missing `nvcc` or a failed
@@ -26,8 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vspbfr_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -38,6 +40,8 @@ _SIGNATURES = {
     + [ctypes.POINTER(_I), ctypes.POINTER(_I), _P],
     # x, y, B, h, w, inner_bytes, unit_bytes, stream
     "vspbfr_d2s": [_P, _P] + [_I] * 5 + [_P],
+    # x, y, B, h, w (the output grid), inner_bytes, unit_bytes, stream
+    "vspbfr_s2d": [_P, _P] + [_I] * 5 + [_P],
 }
 
 
@@ -104,17 +108,33 @@ def load_library() -> KernelLibrary:
     t0 = time.perf_counter()
     if not so.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
-        cus = [str(p) for p in CSRC.glob("*.cu")]
+        nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs, procs = [], []
+            for cu in sorted(CSRC.glob("*.cu")):
+                obj = Path(tmp) / (cu.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                       str(obj), str(cu)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+                objs.append(str(obj))
             tmp_so = Path(tmp) / so.name
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp_so),
-                   *sorted(cus)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log_path.write_text(" ".join(cmd) + "\n" + proc.stdout
-                                + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *objs]
+            log, failed = [], []
+            for cmd, proc in procs:
+                out, _ = proc.communicate()
+                log.append(" ".join(cmd) + "\n" + out)
+                if proc.returncode != 0:
+                    failed.append(out)
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(proc.stderr)
+            log_path.write_text("".join(log))
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
             shutil.move(str(tmp_so), so)
     log = log_path.read_text() if log_path.is_file() else ""
     _LIBRARY = KernelLibrary(ctypes.CDLL(str(so)), so, log,
@@ -134,8 +154,9 @@ def dtype_code(t) -> int:
 
 def check_cuda_inputs(name: str, *tensors) -> None:
     """The checks every kernel wrapper makes before a launch: same CUDA
-    device and dtype, contiguous, and no autograd (the kernels have no
-    backward yet)."""
+    device and dtype, contiguous. Gradients do not pass through here: the
+    wrappers' `torch.autograd.Function`s call the kernels with grad mode
+    off and launch kernels again in their backward."""
     ref = tensors[0]
     for t in tensors:
         if t is None:
@@ -147,9 +168,6 @@ def check_cuda_inputs(name: str, *tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: input of shape {tuple(t.shape)} is not "
                              "contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise RuntimeError(f"{name}: the CUDA kernel has no backward; run "
-                               "it under torch.no_grad()")
     dtype_code(ref)
 
 

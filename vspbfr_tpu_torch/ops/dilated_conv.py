@@ -6,7 +6,10 @@ concatenated on channels, with an optional (B, Ci) input scale and a
 (B, sum Co) output scale. The CUDA source is `csrc/dilated_conv.cu`.
 
 Only `groups=1` (the unpacked layout) is ported; the grouped form served
-the space-to-depth layout, which the port does not carry.
+the space-to-depth layout, which the port does not carry. K2's backward
+(`pallas_dilated.py:274-305`) is not ported yet (stage 3 runs it): on the
+card the wrapper raises when a gradient would have to pass through it,
+rather than return a result with no gradient.
 """
 
 from __future__ import annotations
@@ -62,6 +65,11 @@ def dilated_multi_conv(x: torch.Tensor, ws, dils, groups: int = 1,
     if out_scale is not None and tuple(out_scale.shape) != (b, sum(cos)):
         raise ValueError(f"{name}: out_scale {tuple(out_scale.shape)}")
     _build.check_cuda_inputs(name, x, *ws, in_scale, out_scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, *ws, in_scale, out_scale)):
+        raise RuntimeError(f"{name}: K2 has no backward yet; run it under "
+                           "torch.no_grad()")
     w_all = torch.cat(ws, dim=3).contiguous()   # (3, 3, Ci, sum Co) HWIO
     y = torch.empty((b, h, wd, sum(cos)), dtype=x.dtype, device=x.device)
     c_dils = (ctypes.c_int * len(dils))(*dils)
