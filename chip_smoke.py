@@ -9,10 +9,14 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              off for matmuls and cuDNN (the plain f32 convs would run in
              TF32 otherwise).
 2. build   - build or load the kernels' shared library from `csrc/`.
-3. kernels - each CUDA kernel (K1 dense conv, K2 multi-dilation conv, K3
-             phase interleave) against its plain torch version at the
-             serving path's full-width shapes, batch 4, in f32 and bf16:
-             error relative to max |plain| and median CUDA-event times.
+3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
+             epilogue, K2 multi-dilation conv, K3 phase interleave) against
+             its plain torch version at the main paths' full-width shapes,
+             batch 4, in f32 and bf16: error relative to max |plain|,
+             median CUDA-event times of the kernel, the plain version and
+             (where one call computes the same function) the library's
+             call, and the bound (the larger of operations over the card's
+             peak rate for the dtype and bytes over its memory rate).
 4. slice   - the whole restoration path at a mid-size config, card
              (kernels) against CPU (plain versions), same weights and
              draws; every kernel's launch counter must rise on the card.
@@ -21,11 +25,17 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              synthetic degraded faces at batch 4, in f32 and in bf16, with
              launch counts and peak memory; then, on the same 4 inputs,
              the stage split and imgs/s from CUDA-event medians of
-             `restore`, and the bf16-vs-f32 PSNR.
+             `restore`, with the `VSPBFR_FUSED_EPI` switch off and on (K1
+             plus the torch epilogue, or K1e), and the bf16-vs-f32 PSNR.
 6. grads   - the kernels' gradients against plain torch autograd on the
              card: K1's Function (dx, whose K1 launch is timed, d_in_scale
-             and dw) at the decoder's full-width shapes, and K4 (the
-             gradient of K3) at its two up-conv shapes, in f32 and bf16.
+             and dw) at the decoder's full-width shapes, K1e's Function
+             (every operand; dx a K1 launch; elements within 1e-5 of an
+             activation's kink get no incoming gradient, see `kink_free`),
+             K2's Function (dx, the four
+             branch weights, d_in_scale, d_out_scale) at the SMART shapes,
+             and K4 (the gradient of K3) at its two up-conv shapes, in f32
+             and bf16.
 7. train   - stage-2 training (the second main path): one step at the
              phase-4 config on the card (kernels) against the CPU (plain
              versions), K1 and K4 launching during backward(); then the
@@ -33,6 +43,15 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              IR-SE-50, b16) on synthetic uint8 faces in f32 and in bf16:
              step ms, imgs/s, peak memory, launch counts; and ten steps on
              one fixed batch, which must lower the L1 term.
+8. restore - stage-3 RestoreNet GAN training (the third main path): one
+             step (D update, lazy R1, G update) at a mid-size config on the
+             card against the CPU, same weights, batch, embedding and draws;
+             the launches of its forward, backward() and R1's double
+             backward; then the train_restore CLI at full width (512 px,
+             1024 px decoder, IR-SE-50 at 256, b4, 4 steps, R1 at step 0)
+             in f32 and bf16 with the epilogue switch off and in bf16 with
+             it on: step ms, imgs/s, peak memory, launch counts; and the
+             bf16 step with the switch off and on in turns on one trainer.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -41,6 +60,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -51,11 +71,14 @@ import time
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train")
+PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
+          "restore")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
                    "vspbfr_tpu/ops/pallas_conv.py:222"),
+    "dense_conv_epilogue": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
+                            "vspbfr_tpu/ops/pallas_conv.py:524"),
     "dilated_multi_conv": ("vspbfr_tpu_torch/csrc/dilated_conv.cu",
                            "vspbfr_tpu/ops/pallas_dilated.py:180"),
     "d2s": ("vspbfr_tpu_torch/csrc/d2s.cu",
@@ -63,11 +86,19 @@ KERNEL_INFO = {
     "s2d": ("vspbfr_tpu_torch/csrc/s2d.cu",
             "vspbfr_tpu/ops/pallas_d2s.py:109"),
 }
-# the kernels each main path must launch: serving (phase 5) and stage-2
-# training (phase 7)
+# the kernels each main path must launch: serving (phase 5), stage-2
+# training (phase 7), stage-3 training (phase 8) with the epilogue switch
+# off and on
 PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s"),
-                "train": ("dense_conv", "d2s", "s2d")}
+                "train": ("dense_conv", "d2s", "s2d"),
+                "restore": ("dense_conv", "dilated_multi_conv", "d2s", "s2d"),
+                "restore_fused": ("dense_conv_epilogue", "dense_conv",
+                                  "dilated_multi_conv", "d2s", "s2d")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense): f32 on
+# the CUDA cores, bf16 on the tensor cores, and the HBM rate
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
 REPORT: dict = {}
 CARD = ""
 
@@ -95,6 +126,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def fused_epi(flag: str):
+    """Set the JAX package's epilogue switch, `VSPBFR_FUSED_EPI`, which the
+    port reads at each call, for the duration of the block."""
+    before = os.environ.get("VSPBFR_FUSED_EPI")
+    os.environ["VSPBFR_FUSED_EPI"] = flag
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("VSPBFR_FUSED_EPI")
+        else:
+            os.environ["VSPBFR_FUSED_EPI"] = before
+
+
 # --- phase 1 ----------------------------------------------------------------
 
 def phase_device():
@@ -110,6 +156,8 @@ def phase_device():
     print(smi, flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the epilogue switch stays off unless a phase turns it on
+    os.environ["VSPBFR_FUSED_EPI"] = "0"
     say("torch", torch.__version__, "cuda", torch.version.cuda,
         "devices", torch.cuda.device_count())
     say("cudnn.allow_tf32 =", torch.backends.cudnn.allow_tf32,
@@ -163,17 +211,103 @@ def _k3_cases():
             ((4, 512, 512, 128), 32, "decoder 1024px C32")]
 
 
-def _check(name, label, dt_name, got, ref, ms, plain_ms, rows):
+def _k1e_cases():
+    """(x shape, w shape, epilogue pieces, label) of the K1e convs on the
+    stage-3 path at full width, b4: "s" in_scale + out_scale (a styled
+    conv), "n" noise, "b" bias + lrelu, "p" one post-activation add, "2"
+    the second noise / bias / lrelu stage."""
+    return [
+        ((4, 512, 512, 64), (3, 3, 64, 64), "b2",
+         "SMART fusion 512px C64 +stage2"),
+        ((4, 1024, 1024, 32), (3, 3, 32, 32), "snb", "styled 1024px C32"),
+        ((4, 512, 512, 64), (3, 3, 64, 64), "b", "ResBlock.conv1 512px C64"),
+        ((4, 4, 4, 513), (3, 3, 513, 512), "b", "final_conv 4px Ci513"),
+        ((4, 128, 128, 256), (3, 3, 256, 256), "snb", "styled 128px C256"),
+    ]
+
+
+def k1e_operands(rand, dt, xs, ws, pieces) -> tuple:
+    """(x, w, pads, kwargs of `dense_conv_epilogue`) for a `_k1e_cases`
+    entry; every tensor in dt."""
+    b, h, wd, ci = xs
+    kh, _, _, co = ws
+    p = kh // 2
+    x = rand(*xs).to(dt)
+    w = (rand(*ws) / (kh * kh * ci) ** 0.5).to(dt)
+    kw = {}
+    if "s" in pieces:
+        kw.update(in_scale=rand(b, ci, scale=0.2, offset=1.0).to(dt),
+                  out_scale=rand(b, co, scale=0.2, offset=1.0).to(dt))
+    if "n" in pieces:
+        kw["noise"] = rand(b, h, wd, 1, scale=0.3).to(dt)
+    if "b" in pieces:
+        kw.update(bias=rand(co, scale=0.3).to(dt), act=True)
+    if "p" in pieces:
+        kw["post_add"] = (rand(b, h, wd, co).to(dt),)
+    if "2" in pieces:
+        kw.update(noise2=rand(b, h, wd, 1, scale=0.3).to(dt),
+                  bias2=rand(co, scale=0.3).to(dt), act2=True)
+    return x, w, ((p, p), (p, p)), kw
+
+
+def epi_work(x, w, kw, y) -> tuple[int, int]:
+    """(operations, bytes) of one K1e call: the conv's, the input scale's
+    multiply per input element, and per output element one operation for
+    each other epilogue piece (two for an activation)."""
+    tensors = [v for v in kw.values() if torch_is_tensor(v)]
+    tensors += list(kw.get("post_add", ()))
+    per = (sum(k in kw for k in ("out_scale", "noise", "bias", "noise2",
+                                 "bias2"))
+           + 2 * (bool(kw.get("act")) + bool(kw.get("act2")))
+           + len(kw.get("post_add", ())))
+    flops = (conv_flops(x.shape, w.shape, y.shape) + per * y.numel()
+             + (x.numel() if "in_scale" in kw else 0))
+    return flops, nbytes(x, w, y, *tensors)
+
+
+def torch_is_tensor(v) -> bool:
+    import torch
+
+    return isinstance(v, torch.Tensor)
+
+
+def bound(flops: float, nbytes: float, dt_name: str) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: the
+    larger of the operations over the dtype's peak rate and the bytes
+    (each input read once, each output written once) over the memory
+    rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def conv_flops(x_shape, w_shape, y_shape) -> int:
+    """Multiply-adds x 2 of a dense conv: per output element KH*KW*Ci."""
+    kh, kw, ci, _ = w_shape
+    return 2 * int(np.prod(y_shape)) * kh * kw * ci
+
+
+def _check(name, label, dt_name, got, ref, ms, plain_ms, rows, flops=0,
+           moved=0, library_ms=None, **extra):
     ref = ref.float()
     scale = float(ref.abs().max().clamp_min(1e-12))
     abs_err = float((got.float() - ref).abs().max())
     rel = abs_err / scale
     ok = rel <= TOL[dt_name]
+    b_ms, b_by = bound(flops, moved, dt_name)
+    lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
     say(f"{name:20s} {label:28s} {dt_name:4s} rel_err {rel:.3e} "
-        f"(abs {abs_err:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"{'ok' if ok else 'FAIL'}")
+        f"(abs {abs_err:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+        f"{lib} bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
     rows.append(dict(kernel=name, case=label, dtype=dt_name, rel_err=rel,
-                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                     flops=flops, bytes=moved, **extra))
     if not ok:
         raise AssertionError(f"{name} {label} {dt_name}: rel err {rel:.3e} > "
                              f"{TOL[dt_name]}")
@@ -183,12 +317,18 @@ def phase_kernels():
     import torch
 
     from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, scale=1.0, offset=0.0):
         return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    def f32(kw):
+        return {k: (tuple(t.float() for t in v) if k == "post_add" else
+                    v.float() if torch_is_tensor(v) else v)
+                for k, v in kw.items()}
 
     rows = []
     for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -200,8 +340,30 @@ def phase_kernels():
             ref = ops.dense_conv_plain(x.float(), w.float(), pads, s.float())
             ms = cuda_ms(lambda: ops.dense_conv(x, w, pads, in_scale=s))
             pms = cuda_ms(lambda: ops.dense_conv_plain(x, w, pads, s))
-            _check("dense_conv", label, dt_name, got, ref, ms, pms, rows)
-            del x, w, s, got, ref
+            # the library's conv (cuDNN) on the same input, scaled first
+            xs_ = x * s[:, None, None, :]
+            lms = cuda_ms(lambda: conv_nhwc(xs_, w, 1, pads))
+            _check("dense_conv", label, dt_name, got, ref, ms, pms, rows,
+                   flops=conv_flops(x.shape, w.shape, got.shape) + x.numel(),
+                   moved=nbytes(x, w, s, got), library_ms=lms)
+            del x, w, s, got, ref, xs_
+        for xs, ws, pieces, label in _k1e_cases():
+            x, w, pads, kw = k1e_operands(rand, dt, xs, ws, pieces)
+            got = ops.dense_conv_epilogue(x, w, pads, **kw)
+            ref = ops.dense_conv_epilogue_plain(x.float(), w.float(), pads,
+                                                **f32(kw))
+            ms = cuda_ms(lambda: ops.dense_conv_epilogue(x, w, pads, **kw))
+            pms = cuda_ms(lambda: ops.dense_conv_epilogue_plain(x, w, pads,
+                                                                **kw))
+            # no one library call computes conv + epilogue: cuDNN's conv
+            # alone is timed as the yardstick
+            isc = kw.get("in_scale")
+            xs_ = x if isc is None else x * isc[:, None, None, :]
+            cms = cuda_ms(lambda: conv_nhwc(xs_, w, 1, pads))
+            flops, moved = epi_work(x, w, kw, got)
+            _check("dense_conv_epilogue", label, dt_name, got, ref, ms, pms,
+                   rows, flops=flops, moved=moved, cudnn_conv_ms=cms)
+            del x, w, kw, got, ref, xs_
         for xs, label in _k2_cases():
             c = xs[3]
             x = rand(*xs).to(dt)
@@ -218,7 +380,8 @@ def phase_kernels():
             pms = cuda_ms(lambda: ops.dilated_multi_conv_plain(
                 x, wl, dils, s, o))
             _check("dilated_multi_conv", label, dt_name, got, ref, ms, pms,
-                   rows)
+                   rows, flops=2 * got.numel() * 9 * c,
+                   moved=nbytes(x, *wl, s, o, got))
             del x, wl, s, o, got, ref
         for xs, inner, label in _k3_cases():
             x = rand(*xs).to(dt)
@@ -228,7 +391,8 @@ def phase_kernels():
                 raise AssertionError(f"d2s {label} {dt_name}: not exact")
             ms = cuda_ms(lambda: ops.d2s(x, inner))
             pms = cuda_ms(lambda: ops.d2s_plain(x, inner))
-            _check("d2s", label, dt_name, got, ref, ms, pms, rows)
+            _check("d2s", label, dt_name, got, ref, ms, pms, rows,
+                   moved=nbytes(x, got))
             del x, got, ref
         torch.cuda.empty_cache()
     REPORT["kernels"] = rows
@@ -424,9 +588,33 @@ def phase_cli():
         ips = 4e3 / ms_sample
         say(f"restore with sample image {mode} b4: {ms_sample:.3f} ms "
             f"(median of 10 CUDA-event runs) = {ips:.3f} imgs/s")
+        # the epilogue switch: K1 + the torch epilogue (off) against K1e
+        # (on), in turns off, on, on, off, median of 5 each
+        ab = {"0": [], "1": []}
+        for flag in ("0", "1", "1", "0"):
+            with fused_epi(flag):
+                ab[flag].append(cuda_ms(lambda: run(p, "full", True),
+                                        iters=5, warmup=1))
+        with fused_epi("1"):
+            ops.reset_launch_counts()
+            out_on = run(p).float()
+            on_counts = ops.launch_counts()
+        out_off = run(p).float()
+        if on_counts["dense_conv_epilogue"] == 0 or not torch.isfinite(
+                out_on).all():
+            raise AssertionError(f"cli {mode}: switch on, K1e launches "
+                                 f"{on_counts}, or non-finite output")
+        on_off_psnr = float(psnr(out_on, out_off, data_range=max(
+            2 * float(out_off.abs().max()), 2.0)).mean())
+        say(f"restore {mode} b4, VSPBFR_FUSED_EPI off / on (ms, medians of 5 "
+            f"in turns off, on, on, off): {ab['0']} / {ab['1']}; switch on "
+            f"launches {on_counts}; on vs off PSNR {on_off_psnr:.3f} dB")
         res[mode].update(prefix_ms=ms, stage_ms=split,
                          full_with_sample_ms=ms_sample,
-                         imgs_per_s_median=ips)
+                         imgs_per_s_median=ips,
+                         fused_epi_ab_ms={"off": ab["0"], "on": ab["1"]},
+                         fused_epi_launches=on_counts,
+                         fused_epi_on_vs_off_psnr_db=on_off_psnr)
     out32 = run(p32).float()
     out16 = run(p16).float()
     if not (torch.isfinite(out32).all() and torch.isfinite(out16).all()):
@@ -447,6 +635,65 @@ def _k1_grad_cases():
     # the backward)
     p1 = ((1, 1), (1, 1))
     return [c for c in _k1_cases() if c[2] == p1]
+
+
+def _timed_grads(fn, leaves, g):
+    """Median CUDA-event ms of the backward of fn(*leaves) (the forward
+    runs once, outside the timing)."""
+    import torch
+
+    out = fn(*leaves)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                             retain_graph=True))
+    del out
+    return ms
+
+
+def _grads_vs_plain(kernel_fn, plain_fn, leaves, g):
+    """(kernel's gradients, plain autograd's in f32 on the same inputs,
+    kernel backward ms, plain backward ms in the same dtype)."""
+    import torch
+
+    got = torch.autograd.grad(kernel_fn(*leaves), leaves, g)
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    ref = torch.autograd.grad(plain_fn(*ref_leaves), ref_leaves, g.float())
+    ms = _timed_grads(kernel_fn, leaves, g)
+    same = [t.detach().requires_grad_() for t in leaves]
+    pms = _timed_grads(plain_fn, same, g)
+    return got, ref, ms, pms
+
+
+def kink_free(x, w, pads, kw, band: float = 1e-5):
+    """The output elements where each activation's input (from the plain
+    version in f32) lies more than band x its max |.| away from 0. The
+    slope of lrelu jumps by 5x at 0, so where two correct computations
+    round a value there to opposite signs their gradients differ by O(1)
+    in that element (the max-error check sees it at full width); the K1e
+    gradient checks give those elements (a few in 1e5) no incoming
+    gradient."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    u = ops.apply_epilogue(
+        ops.dense_conv_plain(x.float(), w.float(), pads,
+                             f32(kw.get("in_scale"))),
+        f32(kw.get("out_scale")), f32(kw.get("noise")), f32(kw.get("bias")),
+        act=False)
+    keep = torch.ones_like(u, dtype=torch.bool)
+    if kw.get("act"):
+        keep &= u.abs() > band * u.abs().max()
+    if kw.get("act2"):
+        t = ops.apply_epilogue(u, act=kw.get("act", False),
+                               post_add=tuple(f32(p) for p in
+                                              kw.get("post_add", ())),
+                               noise2=f32(kw.get("noise2")),
+                               bias2=f32(kw.get("bias2")))
+        keep &= t.abs() > band * t.abs().max()
+    return keep
 
 
 def phase_grads():
@@ -492,11 +739,88 @@ def phase_grads():
             pms = cuda_ms(lambda: torch.autograd.grad(out_p, (xp, sp), g,
                                                       retain_graph=True))
             del out_p
+            # dx is a conv of the same size as the forward; d_in_scale one
+            # multiply-add per input element
+            work = dict(flops=conv_flops(x.shape, w.shape, g.shape)
+                        + 2 * x.numel(), moved=nbytes(g, w, x, s, x, s))
             for name, a, b in zip(("dx", "d_in_scale", "dw"), got, ref):
+                timed = name == "dx"
                 _check(f"dense_conv_grad {name}", label, dt_name, a, b,
-                       ms if name == "dx" else float("nan"),
-                       pms if name == "dx" else float("nan"), rows)
+                       ms if timed else float("nan"),
+                       pms if timed else float("nan"), rows,
+                       **(work if timed else {}))
             del x, w, s, g, got, ref, leaves
+        for xs, ws, pieces, label in _k1e_cases()[:4]:
+            # K1e's Function: every operand's gradient, dx a K1 launch
+            x, w, pads, kw = k1e_operands(rand, dt, xs, ws, pieces)
+            names = [k for k, v in kw.items() if torch_is_tensor(v)]
+            flags = {k: v for k, v in kw.items() if not torch_is_tensor(v)}
+            leaves = [x, w] + [kw[k] for k in names]
+            for t in leaves:
+                t.requires_grad_()
+
+            def k1e(x_, w_, *ops_, fn=ops.dense_conv_epilogue):
+                return fn(x_, w_, pads, **dict(zip(names, ops_)), **flags)
+
+            def plain(x_, w_, *ops_):
+                return k1e(x_, w_, *ops_, fn=ops.dense_conv_epilogue_plain)
+
+            out = k1e(*leaves)
+            keep = kink_free(x, w, pads, kw)
+            g = (rand(*out.shape) * keep).to(dt)
+            kinks = 1.0 - float(keep.float().mean())
+            work = epi_work(x, w, kw, out)
+            del out, keep
+            before = ops.launch_counts()["dense_conv"]
+            got, ref, ms, pms = _grads_vs_plain(k1e, plain, leaves, g)
+            # the timed backward: dx and dw, each a conv of the forward's
+            # size, plus the epilogue's elementwise work again
+            work = dict(flops=2 * work[0], moved=2 * work[1])
+            if ops.launch_counts()["dense_conv"] == before:
+                raise AssertionError(f"dense_conv_epilogue grad {label}: dx "
+                                     "did not launch K1")
+            for i, (name, a, b) in enumerate(zip(["dx", "dw", *names], got,
+                                                 ref)):
+                _check(f"dense_conv_epilogue_grad {name}", label, dt_name,
+                       a, b, ms if i == 0 else float("nan"),
+                       pms if i == 0 else float("nan"), rows,
+                       kink_share=kinks, **(work if i == 0 else {}))
+            del x, w, kw, leaves, g, got, ref
+        for xs, label in _k2_cases()[1:4]:
+            # K2's Function: dx, the four branch weights, d_in_scale and
+            # d_out_scale (cuDNN's convs in its backward, as XLA's in JAX)
+            c, dils = xs[3], (1, 2, 4, 8)
+            leaves = [rand(*xs).to(dt)] + [
+                (rand(3, 3, c, c // 4) / (9 * c) ** 0.5).to(dt)
+                for _ in range(4)] + [
+                rand(xs[0], c, scale=0.2, offset=1.0).to(dt)
+                for _ in range(2)]
+            for t in leaves:
+                t.requires_grad_()
+
+            def k2(x_, *rest, fn=ops.dilated_multi_conv):
+                return fn(x_, list(rest[:4]), dils, in_scale=rest[4],
+                          out_scale=rest[5])
+
+            def plain(x_, *rest):
+                return k2(x_, *rest, fn=ops.dilated_multi_conv_plain)
+
+            g = rand(*xs).to(dt)
+            before = ops.launch_counts()["dilated_multi_conv"]
+            got, ref, ms, pms = _grads_vs_plain(k2, plain, leaves, g)
+            if ops.launch_counts()["dilated_multi_conv"] == before:
+                raise AssertionError(f"dilated_multi_conv grad {label}: the "
+                                     "forward did not launch K2")
+            work = dict(flops=2 * 2 * g.numel() * 9 * c,
+                        moved=nbytes(*leaves, g, *leaves))
+            names = ["dx", "dw1", "dw2", "dw4", "dw8", "d_in_scale",
+                     "d_out_scale"]
+            for i, (name, a, b) in enumerate(zip(names, got, ref)):
+                _check(f"dilated_multi_conv_grad {name}", label, dt_name, a,
+                       b, ms if i == 0 else float("nan"),
+                       pms if i == 0 else float("nan"), rows,
+                       **(work if i == 0 else {}))
+            del leaves, g, got, ref
         for xs, inner, label in _k3_cases():
             # K4 gathers what K3 interleaved: its input is K3's output
             b, h, w, _ = xs
@@ -507,7 +831,8 @@ def phase_grads():
                 raise AssertionError(f"s2d {label} {dt_name}: not exact")
             ms = cuda_ms(lambda: ops.s2d(y, inner))
             pms = cuda_ms(lambda: ops.s2d_plain(y, inner).contiguous())
-            _check("s2d", label, dt_name, got, ref, ms, pms, rows)
+            _check("s2d", label, dt_name, got, ref, ms, pms, rows,
+                   moved=nbytes(y, got))
             del y, got, ref
         torch.cuda.empty_cache()
     REPORT["grads"] = rows
@@ -696,6 +1021,256 @@ def phase_train():
     REPORT["train"] = res
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+def _to(tree, device):
+    """The draws' nested dicts and lists of tensors, moved to device."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree
+
+
+def _restore_step(tr, low, real, clean, feats, draws) -> dict:
+    """One stage-3 step on given embedding and draws: the D phase (with R1
+    at G step 0), then the G phase. Returns the metrics and the gradients
+    Adam kept (beta1 = 0, so exp_avg is the last update's gradient: D's is
+    R1's, G's the G loss's; D's exp_avg_sq mixes both D updates)."""
+    m = {**tr.d_phase(low, real, clean, feats, draws["gen_d"]),
+         **tr.g_phase(low, real, clean, feats, draws["gen_g"])}
+
+    def moments(state, key):
+        return [state.opt.state[p][key].detach().clone()
+                for p in state.module.parameters()]
+
+    return {"metrics": {k: v.detach() for k, v in m.items()},
+            "grads": {"d_r1": moments(tr.d_state, "exp_avg"),
+                      "d_sq": moments(tr.d_state, "exp_avg_sq"),
+                      "g": moments(tr.g_state, "exp_avg")}}
+
+
+def _restore_launches(tr, low, real, clean, feats, draws) -> dict:
+    """Where the kernels launch in a stage-3 step on the card: the step's
+    pieces, as the trainer's d_phase and g_phase run them, with the counts
+    read after each: the D forward and its backward(), R1's forward (D's
+    forward and the input gradient, create_graph) and its double backward,
+    the G forward and its backward() (K2's Function: every SMART branch
+    weight must get its gradient through it)."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.losses import d_logistic_loss, r1_penalty
+
+    out = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        out[name] = ops.launch_counts()
+        ops.reset_launch_counts()
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        fake = tr.generate(low, feats, clean, draws["gen_d"])
+    mark("generate (no grad)")
+    loss = d_logistic_loss(tr.disc_logits(real), tr.disc_logits(fake))
+    mark("D forward")
+    loss.backward()
+    mark("D backward()")
+    pen = r1_penalty(tr.disc_logits, real)
+    mark("R1 forward + input gradient")
+    pen.backward()
+    mark("R1 double backward")
+    loss, _ = tr.g_loss(low, real, clean, feats, draws["gen_g"])
+    mark("G forward")
+    loss.backward()
+    mark("G backward()")
+    branch = [p for n, p in tr.gen.named_parameters() if ".dilated." in n]
+    if not branch or any(p.grad is None or not torch.isfinite(p.grad).all()
+                         for p in branch):
+        raise AssertionError("restore: a SMART branch weight got no finite "
+                             "gradient through K2's Function")
+    for m in (tr.gen, tr.disc):
+        m.zero_grad(set_to_none=True)
+    need = {"D backward()": "dense_conv", "R1 double backward": "dense_conv",
+            "G forward": "dilated_multi_conv", "G backward()": "dense_conv"}
+    for part, k in need.items():
+        if out[part][k] == 0:
+            raise AssertionError(f"restore: {k} never launched in {part}")
+    out["smart_branch_weights_with_grad"] = len(branch)
+    return out
+
+
+def _restore_step_card_vs_cpu(res):
+    """One stage-3 step at the phase-4 config (size 128, decoder 256,
+    channel_div 4, b2; LPIPS and ID at full width), card vs CPU, same
+    weights, batch, embedding (computed once on the CPU and handed to both:
+    the random-init DDPM chain is not what this compares) and draws. Held
+    as the stage-2 step is: error <= 10 x the CPU's own spread under +-1e-6
+    input changes + 1e-5, per metric and over each gradient set (worst
+    tensor)."""
+    import copy
+
+    import torch
+
+    from vspbfr_tpu_torch.models.e4e import TINY_STAGES
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
+                                                      RestoreTrainer)
+
+    pcfg = dict(size=128, decoder_size=256, encode_size=64,
+                encoder_stages=TINY_STAGES, channel_div=4)
+    tcfg = RestoreTrainConfig(size=128, batch=2)
+    cpu = RestoreTrainer(tcfg, RestorationPipeline(**pcfg)).init_from_seed(1)
+    card = RestoreTrainer(tcfg, RestorationPipeline(**pcfg))
+    for name, m in cpu.modules.items():
+        card.modules[name].load_state_dict(m.state_dict())
+    card.to("cuda")
+    low = torch.tensor(synthetic_faces(2, 128, seed=21))
+    real = torch.tensor(synthetic_faces(2, 128, seed=22))
+    draws = cpu.draw(2, torch.Generator().manual_seed(23))
+    clean, feats = cpu.embedding(low, draws["embed"])
+    cuda_args = _to([low, real, clean, feats, draws], "cuda")
+
+    t0 = time.perf_counter()
+    got = _restore_step(card, *cuda_args)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    outs = []
+    for f in (1.0, 1 + 1e-6, 1 - 1e-6):
+        outs.append(_restore_step(copy.deepcopy(cpu), low * f, real, clean,
+                                  feats, draws))
+    ref, *pert = outs
+    say(f"restore step (size 128, b2): card {t_card:.3f} s (first call)")
+    for k, v in ref["metrics"].items():
+        err = _rel(got["metrics"][k], v)
+        spread = max(_rel(p["metrics"][k], v) for p in pert)
+        say(f"restore step {k}: card {float(got['metrics'][k]):.6f} CPU "
+            f"{float(v):.6f} rel err {err:.3e} (CPU spread {spread:.3e})")
+        res[f"step_{k}"] = dict(card=float(got["metrics"][k]),
+                                cpu=float(v), rel_err=err, cpu_spread=spread)
+        if not (torch.isfinite(got["metrics"][k]) and
+                err <= 10 * spread + 1e-5):
+            raise AssertionError(f"restore step {k}: card vs CPU {err:.3e}, "
+                                 f"CPU spread {spread:.3e}")
+    for k, ts in ref["grads"].items():
+        err = max(_rel(a, b) for a, b in zip(got["grads"][k], ts))
+        spread = max(_rel(a, b) for p in pert
+                     for a, b in zip(p["grads"][k], ts))
+        say(f"restore step grads {k}: worst-tensor rel err {err:.3e} (CPU "
+            f"spread {spread:.3e})")
+        res[f"step_grads_{k}"] = dict(rel_err=err, cpu_spread=spread)
+        if err > 10 * spread + 1e-5:
+            raise AssertionError(f"restore step grads {k}: card vs CPU "
+                                 f"{err:.3e}, CPU spread {spread:.3e}")
+    res["launches_by_part"] = _restore_launches(card, *cuda_args)
+    say(f"restore step launches by part: {res['launches_by_part']}")
+    del cpu, card
+
+
+def _restore_cli(res, faces_dir, mode, fused, iters=4):
+    """The stage-3 CLI at full width, the reference's per-GPU batch 4."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import train_restore
+
+    key = f"{mode}_fused" if fused == "1" else mode
+    with tempfile.TemporaryDirectory() as out, fused_epi(fused):
+        argv = ["--path", faces_dir, "--out", out, "--size", "512",
+                "--decoder_size", "1024", "--batch", "4",
+                "--iter", str(iters), "--device", "cuda", "--seed", "0",
+                "--save_inter", "100000", "--show_inter", "100000",
+                "--train_dtype", mode]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = train_restore.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = rep["steps"]
+    names = ("d", "r1", "real_score", "fake_score", "g", "gan", "percept",
+             "id")
+    if len(steps) != iters:
+        raise AssertionError(f"restore cli {key}: {len(steps)} steps")
+    for st in steps:
+        if not all(np.isfinite(st[k]) for k in names):
+            raise AssertionError(f"restore cli {key}: non-finite loss {st}")
+    if not steps[0]["r1"] > 0:
+        raise AssertionError(f"restore cli {key}: no R1 at step 0")
+    secs = [st["seconds"] for st in steps]
+    med = statistics.median(secs[1:])
+    say(f"restore cli {key} b4: step seconds {[round(x, 4) for x in secs]}, "
+        f"median (first excluded) {med * 1e3:.1f} ms = {4 / med:.3f} imgs/s, "
+        f"peak {peak:.3f} GiB, wall {wall:.1f} s incl. init; launches "
+        f"{counts}; first losses " + ", ".join(
+            f"{k} {steps[0][k]:.4f}" for k in names))
+    path = "restore_fused" if fused == "1" else "restore"
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"restore cli {key}: kernels never launched: "
+                             f"{missing}")
+    res[key] = dict(batch=4, step_seconds=secs, median_step_ms=med * 1e3,
+                    imgs_per_s=4 / med, peak_gib=peak, launches=counts,
+                    wall_s=wall, losses=steps)
+
+
+def _restore_fused_ab(res):
+    """The stage-3 bf16 step at full width, b4, with the epilogue switch
+    off and on, on one trainer and one batch: CUDA-event medians of 3
+    steps each, in turns off, on, on, off, after one warm-up step each.
+    The steps are the 15 in 16 without R1 (the G step count is set to 1
+    before each)."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
+                                                      RestoreTrainer)
+
+    tr = RestoreTrainer(RestoreTrainConfig(compute_dtype="bfloat16"),
+                        RestorationPipeline()).init_from_seed(4).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    low, real = (torch.tensor(synthetic_faces(4, 512, seed=s),
+                              device="cuda") for s in (31, 32))
+    def step():
+        tr.g_state.step = 1     # R1 stays off
+        return tr.train_step(low, real, gen)
+
+    ab = {"0": [], "1": []}
+    for flag in ("0", "1", "1", "0"):
+        with fused_epi(flag):
+            ab[flag].append(cuda_ms(step, iters=3, warmup=1))
+    say(f"restore step bf16 b4 (no R1), VSPBFR_FUSED_EPI off / on (ms, "
+        f"medians of 3 in turns off, on, on, off): {ab['0']} / {ab['1']}")
+    res["bf16_fused_ab_ms"] = {"off": ab["0"], "on": ab["1"]}
+    del tr
+
+
+def phase_restore():
+    import torch
+
+    res = {}
+    _restore_step_card_vs_cpu(res)
+    torch.cuda.empty_cache()
+    faces = synthetic_faces(8, 512, seed=8)
+    gt_u8 = np.round((faces + 1.0) * 127.5).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        for i, f in enumerate(gt_u8):
+            np.save(os.path.join(d, f"face{i}.npy"), f)
+        for mode, fused in (("f32", "0"), ("bf16", "0"), ("bf16", "1")):
+            _restore_cli(res, d, mode, fused)
+            torch.cuda.empty_cache()
+    _restore_fused_ab(res)
+    torch.cuda.empty_cache()
+    REPORT["restore"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -708,7 +1283,9 @@ def main() -> None:
 
     kernels = []
     launches = {"serve": REPORT["cli"]["f32"]["launches"],
-                "train": REPORT["train"]["f32"]["launches"]}
+                "train": REPORT["train"]["f32"]["launches"],
+                "restore": REPORT["restore"]["f32"]["launches"],
+                "restore_fused": REPORT["restore"]["bf16_fused"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]
@@ -719,6 +1296,9 @@ def main() -> None:
                         "launches": launches[path][name],
                         "max_abs_err": big["max_abs_err"],
                         "ms": big["ms"], "plain_ms": big["plain_ms"],
+                        "bound_ms": big["bound_ms"],
+                        "bound_by": big["bound_by"],
+                        "library_ms": big["library_ms"],
                         "case": big["case"], "path": path,
                         "launches_by_path": {p: c[name]
                                              for p, c in launches.items()}})

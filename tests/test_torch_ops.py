@@ -1,14 +1,16 @@
 """Parity of the PyTorch port's ops with the JAX package, on the CPU.
 
-The plain versions of the port's kernels (K1 dense conv, K2
-multi-dilation conv, K3 phase interleave, K4 phase gather) are held against
-the JAX Pallas kernels run in interpret mode, K1's gradient Function
-against `jax.vjp` of the interpret-mode K1, and the port's other ops
-against their JAX counterparts. Inputs come from numpy with a seed.
+The plain versions of the port's kernels (K1 dense conv, K1e its fused
+styled epilogue, K2 multi-dilation conv, K3 phase interleave, K4 phase
+gather) are held against the JAX Pallas kernels run in interpret mode; the
+gradient Functions of K1, K1e and K2 against `jax.vjp` of the
+interpret-mode kernels with their custom VJPs; the port's other ops against
+their JAX counterparts. Inputs come from numpy with a seed.
 
 Tolerance: max |port - jax| <= 1e-4 * max |jax| (f32; the two frameworks
-sum the same products in another order); K1's gradients <= 1e-5; K3 and K4
-exact.
+sum the same products in another order); the K1, K1e and K2 Functions,
+forward and gradients, <= 1e-5; K3 and K4 exact. gradcheck and
+gradgradcheck run in float64 at their default tolerances.
 """
 
 import numpy as np
@@ -22,9 +24,16 @@ import importlib  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from vspbfr_tpu.ops.fused_act import fused_leaky_relu as j_flr  # noqa: E402
-from vspbfr_tpu.ops.pallas_conv import _conv_pallas, conv2d_dense  # noqa: E402
+from vspbfr_tpu.ops.pallas_conv import (  # noqa: E402
+    _conv_pallas,
+    conv2d_dense,
+    conv2d_dense_epilogue,
+)
 from vspbfr_tpu.ops.pallas_d2s import _d2s_pallas, _s2d_pallas  # noqa: E402
-from vspbfr_tpu.ops.pallas_dilated import _multi_pallas  # noqa: E402
+from vspbfr_tpu.ops.pallas_dilated import (  # noqa: E402
+    _multi_pallas,
+    dilated_multi_conv,
+)
 from vspbfr_tpu_torch import ops  # noqa: E402
 
 # the packages' ops/__init__ re-export functions under these module names
@@ -140,10 +149,167 @@ def test_dilated_multi_plain_matches_pallas(rng, hw, ci, cos, dils, isc, osc):
     assert_rel(got, ref)
 
 
+def _leaves(*arrays):
+    return [None if a is None else T(a).requires_grad_() for a in arrays]
+
+
+@pytest.mark.parametrize("isc,osc", [(True, True), (False, True),
+                                     (True, False)])
+def test_dilated_multi_grads_match_jax_vjp(rng, isc, osc):
+    """dx, dws, d_in_scale and d_out_scale of the port's K2 Function (the
+    backward math the card runs) vs `jax.vjp` of the interpret-mode K2
+    with its custom VJP (`_multi_vjp`); <= 1e-5 of max |jax|."""
+    b, ci, cos, dils = 2, 6, (2, 3, 2, 2), (1, 2, 4, 8)
+    x = _rand(rng, b, 7, 9, ci)
+    ws = [_rand(rng, 3, 3, ci, co, scale=0.3) for co in cos]
+    s = _rand(rng, b, ci, scale=0.2, offset=1.0) if isc else None
+    o = _rand(rng, b, sum(cos), scale=0.2, offset=1.0) if osc else None
+    args = [a for a in (x, *ws, s, o) if a is not None]
+
+    def jfn(*a):
+        it = iter(a)
+        x_, ws_ = next(it), [next(it) for _ in cos]
+        return dilated_multi_conv(x_, ws_, dils,
+                                  in_scale=next(it) if isc else None,
+                                  out_scale=next(it) if osc else None,
+                                  interpret=True)
+
+    out, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    g = _rand(rng, *out.shape)
+    refs = vjp(jnp.asarray(g))
+    xt, *wt = _leaves(x, *ws)
+    st, ot = _leaves(s, o)
+    got_out = ops.dilated_multi_conv(xt, wt, dils, in_scale=st, out_scale=ot)
+    assert_rel(got_out, out, rel=1e-5)
+    leaves = [t for t in (xt, *wt, st, ot) if t is not None]
+    got = torch.autograd.grad(got_out, leaves, T(g))
+    assert len(got) == len(refs)
+    for a, r in zip(got, refs):
+        assert_rel(a, r, rel=1e-5)
+
+
 def test_dilated_multi_refuses_groups():
     x = torch.zeros(1, 4, 4, 8)
     with pytest.raises(NotImplementedError):
         ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=4)
+
+
+# --- K1e --------------------------------------------------------------------
+
+@pytest.mark.parametrize("ci,k,post,stage2", [
+    (5, 3, 2, False),    # odd Ci, two post-activation adds (the up-conv)
+    (9, 3, 0, True),     # second stage (the SMART fusion tail)
+    (7, 1, 0, False),    # 1x1 (LargeConv fusion, D stem)
+])
+def test_dense_conv_epilogue_matches_jax(rng, ci, k, post, stage2):
+    """K1e's Function forward and gradients (every operand) vs
+    `conv2d_dense_epilogue(interpret=True)` (the fused Pallas store and its
+    custom VJP `_convepi_bwd`); <= 1e-5 of max |jax|."""
+    b, h, w_, co = 2, 6, 5, 8
+    p = k // 2
+    pads = ((p, p), (p, p))
+    x = _rand(rng, b, h, w_, ci)
+    w = _rand(rng, k, k, ci, co, scale=0.3)
+    arrs = dict(in_scale=_rand(rng, b, ci, scale=0.2, offset=1.0),
+                out_scale=_rand(rng, b, co, scale=0.2, offset=1.0),
+                noise=_rand(rng, b, h, w_, 1, scale=0.3),
+                bias=_rand(rng, co, scale=0.3))
+    if stage2:
+        arrs.update(noise2=_rand(rng, b, h, w_, 1, scale=0.3),
+                    bias2=_rand(rng, co, scale=0.3))
+    posts = [_rand(rng, b, h, w_, co) for _ in range(post)]
+    names = list(arrs)
+
+    def jfn(x_, w_, *a):
+        kw = dict(zip(names, a[:len(names)]))
+        return conv2d_dense_epilogue(x_, w_, pads, act=True,
+                                     post_add=tuple(a[len(names):]),
+                                     act2=stage2, interpret=True, **kw)
+
+    vals = [x, w, *arrs.values(), *posts]
+    out, vjp = jax.vjp(jfn, *map(jnp.asarray, vals))
+    g = _rand(rng, *out.shape)
+    refs = jax.tree.leaves(vjp(jnp.asarray(g)))
+    leaves = _leaves(*vals)
+    kw = dict(zip(names, leaves[2:2 + len(names)]))
+    got_out = ops.dense_conv_epilogue(leaves[0], leaves[1], pads, act=True,
+                                      post_add=tuple(leaves[2 + len(names):]),
+                                      act2=stage2, **kw)
+    assert_rel(got_out, out, rel=1e-5)
+    got = torch.autograd.grad(got_out, leaves, T(g))
+    assert len(got) == len(refs)
+    for a, r in zip(got, refs):
+        assert_rel(a, r, rel=1e-5)
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_conv2d_dense_epilogue_switch_keeps_the_math(rng, monkeypatch,
+                                                     fused):
+    """`VSPBFR_FUSED_EPI` picks K1e or K1 + the torch epilogue; both give
+    the plain version's values."""
+    monkeypatch.setenv("VSPBFR_FUSED_EPI", fused)
+    assert ops.fused_epi_enabled() == (fused == "1")
+    x, w = T(_rand(rng, 2, 5, 6, 3)), T(_rand(rng, 3, 3, 3, 4, scale=0.3))
+    kw = dict(out_scale=T(_rand(rng, 2, 4, offset=1.0)),
+              noise=T(_rand(rng, 2, 5, 6, 1)), bias=T(_rand(rng, 4)),
+              post_add=(T(_rand(rng, 2, 5, 6, 4)),))
+    pads = ((1, 1), (1, 1))
+    ops.reset_launch_counts()
+    got = ops.conv2d_dense_epilogue(x, w, pads, **kw)
+    assert_rel(got, ops.dense_conv_epilogue_plain(x, w, pads, **kw).numpy(),
+               rel=1e-6)
+    assert ops.launch_counts() == {k: 0 for k in ops.launch_counts()}
+
+
+def test_dense_conv_epilogue_refuses_stage2_with_post_add_in_backward():
+    x = torch.zeros(1, 4, 4, 2, requires_grad=True)
+    y = ops.dense_conv_epilogue(x, torch.zeros(3, 3, 2, 2), ((1, 1), (1, 1)),
+                                post_add=(torch.zeros(1, 4, 4, 2),),
+                                act2=True)
+    with pytest.raises(ValueError, match="second stage"):
+        y.sum().backward()
+
+
+# --- gradcheck of the Functions ----------------------------------------------
+
+def _f64(rng, *shape, scale=1.0, offset=0.0):
+    return T(_rand(rng, *shape, scale=scale, offset=offset)).double(
+    ).requires_grad_()
+
+
+@pytest.mark.parametrize("check", [torch.autograd.gradcheck,
+                                   torch.autograd.gradgradcheck])
+@pytest.mark.parametrize("fn", ["dilated_multi", "epilogue_post",
+                                "epilogue_stage2"])
+def test_functions_are_twice_differentiable(rng, check, fn):
+    """K2's and K1e's backwards are built of differentiable calls, so the
+    double backward R1 needs runs through them (float64, finite
+    differences)."""
+    x = _f64(rng, 1, 4, 5, 3)
+    if fn == "dilated_multi":
+        args = (x, _f64(rng, 3, 3, 3, 2, scale=0.3),
+                _f64(rng, 3, 3, 3, 1, scale=0.3),
+                _f64(rng, 1, 3, scale=0.2, offset=1.0),
+                _f64(rng, 1, 3, scale=0.2, offset=1.0))
+
+        def f(x_, w0, w1, s_, o_):
+            return ops.dilated_multi_conv(x_, [w0, w1], (1, 2), in_scale=s_,
+                                          out_scale=o_)
+    else:
+        stage2 = fn == "epilogue_stage2"
+        args = (x, _f64(rng, 3, 3, 3, 2, scale=0.3),
+                _f64(rng, 1, 3, scale=0.2, offset=1.0),
+                _f64(rng, 1, 2, scale=0.2, offset=1.0),
+                _f64(rng, 1, 4, 5, 1), _f64(rng, 2), _f64(rng, 1, 4, 5, 2))
+
+        def f(x_, w_, s_, o_, n_, b_, e_):
+            if stage2:
+                return ops.dense_conv_epilogue(
+                    x_, w_, ((1, 1), (1, 1)), s_, o_, n_, b_,
+                    noise2=e_[..., :1], bias2=b_ * 0.5, act2=True)
+            return ops.dense_conv_epilogue(x_, w_, ((1, 1), (1, 1)), s_, o_,
+                                           n_, b_, post_add=(e_,))
+    assert check(f, args)
 
 
 # --- K3 ---------------------------------------------------------------------

@@ -23,6 +23,12 @@ def _ev(name, start, end, device=DeviceType.CUDA):
 
 @pytest.mark.parametrize("name, group", [
     ("void dense_conv_kernel<float, 8>(float const*, ...)", "K1 dense_conv"),
+    ("void vspbfr::(anonymous namespace)::dense_conv_kernel<float, false>"
+     "(float const*, ...)", "K1 dense_conv"),
+    ("void vspbfr::(anonymous namespace)::dense_conv_kernel<float, true>"
+     "(float const*, ...)", "K1e dense_conv_epilogue"),
+    ("void vspbfr::(anonymous namespace)::dense_conv_kernel<__nv_bfloat16, "
+     "true>(__nv_bfloat16 const*, ...)", "K1e dense_conv_epilogue"),
     ("void dilated_multi_kernel<__nv_bfloat16>(...)",
      "K2 dilated_multi_conv"),
     ("void d2s_kernel<uint4>(uint4 const*, ...)", "K3 d2s"),

@@ -7,7 +7,16 @@ import warnings
 
 from torch import nn
 
+from vspbfr_tpu_torch.models.e4e import TINY_STAGES
 from vspbfr_tpu_torch.utils import load_checkpoint
+
+
+def tiny_pipeline_kwargs(tiny: bool) -> dict:
+    """`RestorationPipeline` arguments of the CLIs' `--tiny` (test-size
+    networks for runs on the CPU: one-unit IR-SE body, 64 px encode, conv
+    towers / 8)."""
+    return (dict(encode_size=64, encoder_stages=TINY_STAGES, channel_div=8)
+            if tiny else {})
 
 
 def wire_loss_nets(lpips: nn.Module, id_net: nn.Module,

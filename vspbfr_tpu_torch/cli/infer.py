@@ -16,6 +16,7 @@ import time
 
 import torch
 
+from vspbfr_tpu_torch.cli.common import tiny_pipeline_kwargs
 from vspbfr_tpu_torch.data import RestoreTestDataset, save_image
 from vspbfr_tpu_torch.evaluation import psnr, ssim
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
@@ -52,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 decoder + RestoreNet, f32 encode and DDPM")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--tiny", action="store_true",
+                   help="test-size networks (as the trainer CLIs' --tiny), "
+                        "for checkpoints they wrote on the CPU")
     return p
 
 
@@ -64,7 +68,8 @@ def main(argv=None) -> dict:
                                mixing_prob=args.mixing,
                                channel_multiplier=args.channel_multiplier,
                                compute_dtype=torch.bfloat16 if args.bf16
-                               else None)
+                               else None,
+                               **tiny_pipeline_kwargs(args.tiny))
     if args.ckpt:
         sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)
         pipe.load_state_dict(sd)

@@ -1,16 +1,22 @@
-"""Trace one `restore` batch, or one stage-2 training step, and say where
-the device time goes.
+"""Trace one `restore` batch, or one stage-2 or stage-3 training step, and
+say where the device time goes.
 
 The port's counterpart of `scripts/profile_stages.py`. Builds the pipeline
 at full width (512 px, 1024 px decoder) from seed 0, runs `restore` on a
 batch of 4 twice to warm up, then once more under `torch.profiler` with
 CUDA activity; with `--train`, the stage-2 trainer at full width (256 px,
-1024 px decoder, b16) and its `train_step` instead. It prints:
+1024 px decoder, b16) and its `train_step` instead; with `--restore`, the
+stage-3 trainer at full width (512 px, 1024 px decoder, b4) and its
+`train_step` (D update, R1, G update, EMA), with R1 made due at every call
+(the G step count is set to 0 before each). `--fused_epi` sets
+`VSPBFR_FUSED_EPI=1` (K1e in place of K1 plus the torch epilogue). It
+prints:
 
 - the card's name and power limit (`nvidia-smi`);
 - the traced call's wall time (host clock, ending in a device sync);
-- device time by group: the hand-written kernels (K1 dense conv, K2
-  multi-dilation conv, K3 phase interleave, K4 phase gather) with their
+- device time by group: the hand-written kernels (K1 dense conv, K1e its
+  fused epilogue form, K2 multi-dilation conv, K3 phase interleave, K4
+  phase gather) with their
   launch counts, the library convs, GEMMs, elementwise, reductions, copies
   and the rest;
 - the device's busy and idle share of the traced window (the union of the
@@ -22,6 +28,7 @@ CUDA activity; with `--train`, the stage-2 trainer at full width (256 px,
     python -m vspbfr_tpu_torch.cli.profile                # f32
     python -m vspbfr_tpu_torch.cli.profile --bf16 --out profile_bf16.json
     python -m vspbfr_tpu_torch.cli.profile --train [--bf16]
+    python -m vspbfr_tpu_torch.cli.profile --restore [--bf16] [--fused_epi]
 
 Needs a CUDA device: a trace that holds no device kernel raises.
 """
@@ -44,11 +51,17 @@ from vspbfr_tpu_torch.train.diffuser_train import (
     DiffuserTrainConfig,
     DiffuserTrainer,
 )
+from vspbfr_tpu_torch.train.restore_train import (
+    RestoreTrainConfig,
+    RestoreTrainer,
+)
 
 BATCH, SIZE, DECODER_SIZE, SEED, WARMUP = 4, 512, 1024, 0, 2
 TRAIN_BATCH, TRAIN_SIZE = 16, 256
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
+    ("K1e dense_conv_epilogue", ("dense_conv_kernel<float, true>",
+                                 "dense_conv_kernel<__nv_bfloat16, true>")),
     ("K1 dense_conv", ("dense_conv_kernel",)),
     ("K2 dilated_multi_conv", ("dilated_multi_kernel",)),
     ("K3 d2s", ("d2s_kernel",)),
@@ -123,11 +136,19 @@ def profile_restore(pipe: RestorationPipeline, low: torch.Tensor) -> dict:
     return _profile(run)
 
 
-def profile_train_step(trainer: DiffuserTrainer, low: torch.Tensor,
-                       real: torch.Tensor) -> dict:
-    """Warm up, then trace one `train_step` (forward, backward, Adam)."""
+def profile_train_step(trainer, low: torch.Tensor, real: torch.Tensor,
+                       r1_every_call: bool = False) -> dict:
+    """Warm up, then trace one `train_step` (forward, backward, Adam) of a
+    `DiffuserTrainer` or a `RestoreTrainer`; with r1_every_call the
+    latter's G step count is set to 0 before each call, so its R1 runs."""
     gen = torch.Generator(device=low.device).manual_seed(SEED)
-    return _profile(lambda: trainer.train_step(low, real, generator=gen))
+
+    def run():
+        if r1_every_call:
+            trainer.g_state.step = 0
+        return trainer.train_step(low, real, generator=gen)
+
+    return _profile(run)
 
 
 def _profile(run) -> dict:
@@ -152,13 +173,31 @@ def main(argv=None) -> dict:
                         "with --train); encode and DDPM stay f32")
     p.add_argument("--train", action="store_true",
                    help="trace a stage-2 training step instead of restore")
+    p.add_argument("--restore", action="store_true",
+                   help="trace a stage-3 training step (with R1) instead")
+    p.add_argument("--fused_epi", action="store_true",
+                   help="VSPBFR_FUSED_EPI=1: the styled convs through K1e")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["VSPBFR_FUSED_EPI"] = "1" if args.fused_epi else "0"
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    if args.train:
+    call = "restore"
+    if args.restore:
+        call, batch, size = "restore_train_step", BATCH, SIZE
+        trainer = RestoreTrainer(
+            RestoreTrainConfig(size=size, batch=batch,
+                               compute_dtype="bfloat16" if args.bf16
+                               else None),
+            RestorationPipeline(size=size, decoder_size=DECODER_SIZE))
+        trainer = trainer.init_from_seed(SEED).to("cuda")
+        low, real = (torch.rand((batch, size, size, 3), generator=gen,
+                                device="cuda") * 2 - 1 for _ in range(2))
+        res = profile_train_step(trainer, low, real, r1_every_call=True)
+    elif args.train:
+        call = "train_step"
         batch, size = TRAIN_BATCH, TRAIN_SIZE
         trainer = DiffuserTrainer(
             DiffuserTrainConfig(compute_dtype="bfloat16" if args.bf16
@@ -182,7 +221,8 @@ def main(argv=None) -> dict:
                           text=True, timeout=60, check=True).stdout
     res.update(card=card.splitlines()[0].strip(), batch=batch, size=size,
                decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32",
-               call="train_step" if args.train else "restore")
+               call=call, fused_epi=args.fused_epi,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"[{res['card']}] {res['call']} {res['dtype']} b{batch} {size}px: "
           f"wall {res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} "
           f"ms of a {res['window_ms']:.3f} ms window (idle share "

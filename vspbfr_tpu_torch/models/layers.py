@@ -29,8 +29,12 @@ from vspbfr_tpu_torch.ops import (
     modulated_conv2d_multi,
     upsample2d,
 )
-from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
-from vspbfr_tpu_torch.ops.modulated_conv import apply_epilogue
+from vspbfr_tpu_torch.ops.dense_conv import (
+    apply_epilogue,
+    conv2d_dense_epilogue,
+    conv_nhwc,
+)
+from vspbfr_tpu_torch.ops.modulated_conv import fused_blur_strided_conv
 
 BLUR_KERNEL = (1, 3, 3, 1)  # the FIR taps of every up/down path
 RATES = (1, 2, 4, 8)       # SMART / LargeConv dilation rates
@@ -178,25 +182,44 @@ class EqualLinear(nn.Module):
 
 
 class EqualConv2d(nn.Module):
-    """Equalized-lr stride-1 conv, optional dilation, no bias of its own
-    (`models/RestoreNet.py:104-139`; on the serving path every one is
-    followed by a FusedLeakyReLU that owns the bias)."""
+    """Equalized-lr conv (`models/RestoreNet.py:104-139`; dilated variant
+    `:683-722`), bias only with use_bias. pre_blur=(pad0, pad1) composes a
+    FIR blur with those pads into the kernel of a strided conv (one conv
+    instead of blur + conv, as the JAX package does)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
-                 padding: int = 0, dilation: int = 1):
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 use_bias: bool = False, pre_blur: tuple | None = None):
         super().__init__()
-        self.padding, self.dilation = padding, dilation
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.pre_blur = pre_blur
         self.scale = 1.0 / math.sqrt(in_ch * kernel_size ** 2)
         self.weight = nn.Parameter(
             torch.empty(kernel_size, kernel_size, in_ch, features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def init_from(self, gen):
         _normal(self.weight, gen)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x, epi=None):
-        """epi: optional epilogue dict (see `apply_epilogue`)."""
-        out = conv2d(x, self.weight * self.scale, padding=self.padding,
-                     dilation=self.dilation)
+        """epi: optional epilogue dict (see `apply_epilogue`); a stride-1
+        conv without a bias of its own takes it in its store
+        (`conv2d_dense_epilogue`)."""
+        w = self.weight * self.scale
+        if self.pre_blur is not None:
+            out = fused_blur_strided_conv(x, w, BLUR_KERNEL, self.pre_blur,
+                                          stride=self.stride)
+        elif (epi is not None and self.stride == 1 and self.dilation == 1
+              and self.bias is None):
+            p = self.padding
+            return conv2d_dense_epilogue(x, w, ((p, p), (p, p)), **epi)
+        else:
+            out = conv2d(x, w, stride=self.stride, padding=self.padding,
+                         dilation=self.dilation)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
         return out if epi is None else apply_epilogue(out, **epi)
 
 
@@ -307,21 +330,55 @@ class ToRGB(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    """Stride-1 EqualConv2d + fused lrelu (`models/RestoreNet.py:1130-1172`;
-    the blur + stride-2 and activation-free forms belong to the
-    discriminator and wait)."""
+    """[Blur + stride 2] EqualConv2d [+ fused lrelu]
+    (`models/RestoreNet.py:1130-1172`). The activation's bias (module
+    `activate`) rides the conv's epilogue; without activation the conv owns
+    the bias (use_bias)."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: int):
+    def __init__(self, in_ch: int, features: int, kernel_size: int,
+                 downsample: bool = False, use_bias: bool = True,
+                 activate: bool = True):
         super().__init__()
-        self.conv = EqualConv2d(in_ch, features, kernel_size,
-                                padding=kernel_size // 2)
-        self.activate = FusedLeakyReLU(features)
+        k = kernel_size
+        conv_bias = use_bias and not activate
+        if downsample:
+            p = (len(BLUR_KERNEL) - 2) + (k - 1)
+            self.conv = EqualConv2d(in_ch, features, k, stride=2,
+                                    use_bias=conv_bias,
+                                    pre_blur=((p + 1) // 2, p // 2))
+        else:
+            self.conv = EqualConv2d(in_ch, features, k, padding=k // 2,
+                                    use_bias=conv_bias)
+        self.act = activate
+        self.activate = (FusedLeakyReLU(features) if activate and use_bias
+                         else None)
 
     def forward(self, x, epi_extra=None):
         """epi_extra: extra epilogue pieces (noise2/bias2/act2: the SMART
         tail) applied after the activation."""
-        return self.conv(x, epi=dict(bias=self.activate.bias, act=True,
+        if not self.act:
+            if epi_extra:
+                raise ValueError("ConvLayer: epi_extra needs activate=True")
+            return self.conv(x)
+        bias = None if self.activate is None else self.activate.bias
+        return self.conv(x, epi=dict(bias=bias, act=True,
                                      **(epi_extra or {})))
+
+
+class ResBlock(nn.Module):
+    """StyleGAN2 discriminator residual block
+    (`models/RestoreNet.py:1175-1200`)."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3)
+        self.conv2 = ConvLayer(in_ch, features, 3, downsample=True)
+        self.skip = ConvLayer(in_ch, features, 1, downsample=True,
+                              activate=False, use_bias=False)
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        return (out + self.skip(x)) / math.sqrt(2)
 
 
 class SMARTLayer(nn.Module):
@@ -401,6 +458,22 @@ class StyleMLP(nn.Module):
         for i in range(self.n_mlp):
             x = getattr(self, f"fc{i}")(x)
         return x
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
+                     num_new_features: int = 1,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Append the cross-sample stddev statistic channel
+    (`models/RestoreNet.py:1243-1252`): per group of min(B, group_size)
+    samples, the biased stddev over the group, averaged over H, W and the
+    channel groups, tiled over the image."""
+    b, h, w, c = x.shape
+    g = min(b, group_size)
+    y = x.reshape(g, -1, h, w, num_new_features, c // num_new_features)
+    y = y - y.mean(dim=0, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=0) + eps)
+    y = y.mean(dim=(1, 2, 4), keepdim=True).squeeze(4)   # (B/g, 1, 1, F)
+    return torch.cat([x, y.repeat(g, h, w, 1)], dim=-1)
 
 
 def styles_to_latent(styles: torch.Tensor, n_latent: int,

@@ -67,12 +67,16 @@ class PSPFacade(nn.Module):
 
     def decode_with_feats(self, codes: torch.Tensor,
                           generator: torch.Generator | None = None,
-                          return_image: bool = True):
+                          return_image: bool = True, noise=None,
+                          decoder: nn.Module | None = None):
         """W+ code -> (image pooled to out_size or None,
         features[:out_n_latent]). Without the image the decode stops at
-        out_size, the last feature RestoreNet reads."""
-        image, feats = self.decoder(
-            codes, return_features=True, return_image=return_image,
+        out_size, the last feature RestoreNet reads. noise: optional list of
+        the decoder's per-layer maps (else drawn from `generator`); decoder:
+        a stand-in for the own one (a copy in another dtype)."""
+        image, feats = (decoder or self.decoder)(
+            codes, noise=noise, return_features=True,
+            return_image=return_image,
             max_feature_res=None if return_image else self.out_size,
             generator=generator)
         if image is not None:

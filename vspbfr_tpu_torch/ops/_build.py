@@ -1,5 +1,6 @@
-"""Build and load the port's CUDA kernels (K1 dense conv, K2 multi-dilation
-conv, K3 phase interleave, K4 phase gather).
+"""Build and load the port's CUDA kernels (K1 dense conv and its fused
+epilogue form K1e, K2 multi-dilation conv, K3 phase interleave, K4 phase
+gather).
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 Here the sources under `vspbfr_tpu_torch/csrc/` are compiled by `nvcc` for
@@ -35,6 +36,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, in_scale, y, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, stream
     "vspbfr_dense_conv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # x, w, in_scale, y, out_scale, noise, bias, post0, post1, noise2, bias2,
+    # mask, n_post, act, act2, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH,
+    # OW, stream
+    "vspbfr_dense_conv_epi": [_P] * 12 + [_I] * 15 + [_P],
     # x, w, in_scale, out_scale, y, dtype, B, H, W, Ci, n, dils, cos, stream
     "vspbfr_dilated_multi_conv": [_P] * 5 + [_I] * 6
     + [ctypes.POINTER(_I), ctypes.POINTER(_I), _P],

@@ -7,9 +7,11 @@ the unpacked subpixel up-conv needs). The input-scaled formulation
     y = demod(style) * conv(x * style, W / sqrt(fan_in))
 
 routes as the JAX package does: stride-1 dilation-1 convs to K1
-(`dense_conv`, with the style folded in as `in_scale`), SMART's dilated
-branches to K2 (`dilated_multi_conv`), and up-convs with c_out < 128 to the
-subpixel composed conv (K1) followed by the phase interleave K3 (`d2s`).
+(`dense_conv`, with the style folded in as `in_scale`; with an epilogue,
+to `conv2d_dense_epilogue`, which is K1e under `VSPBFR_FUSED_EPI=1`),
+SMART's dilated branches to K2 (`dilated_multi_conv`), and up-convs with
+c_out < 128 to the subpixel composed conv (K1) followed by the phase
+interleave K3 (`d2s`).
 Strided and dilated single convs and the c_out >= 128 transposed conv go to
 `F.conv2d` / `F.conv_transpose2d`, as the JAX package leaves them to XLA.
 The space-to-depth layout is not ported.
@@ -22,9 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from vspbfr_tpu_torch.ops.d2s import d2s
-from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc, dense_conv
+from vspbfr_tpu_torch.ops.dense_conv import (
+    apply_epilogue,
+    conv2d_dense_epilogue,
+    conv_nhwc,
+    dense_conv,
+)
 from vspbfr_tpu_torch.ops.dilated_conv import dilated_multi_conv
-from vspbfr_tpu_torch.ops.fused_act import fused_leaky_relu
 from vspbfr_tpu_torch.ops.upfirdn2d import blur as _blur
 
 
@@ -152,33 +158,6 @@ def modulated_conv2d_multi(x: torch.Tensor, ws, rates, style: torch.Tensor,
         tuple(rates), in_scale=style.to(x.dtype).contiguous(), out_scale=dv)
 
 
-def apply_epilogue(z: torch.Tensor, out_scale=None, noise=None, bias=None,
-                   act: bool = True, post_add=(), noise2=None, bias2=None,
-                   act2: bool = False) -> torch.Tensor:
-    """The styled-conv epilogue on a conv output (`_epi_ref`,
-    pallas_conv.py:387): demod scale, noise (B, H, W, 1) already scaled by
-    its weight, bias, lrelu*sqrt2, post-activation adds, then an optional
-    second noise/bias/lrelu stage (the SMART tail)."""
-    out = z
-    if out_scale is not None:
-        out = out * out_scale[:, None, None, :]
-    if noise is not None:
-        out = out + noise
-    if act:
-        out = fused_leaky_relu(out, bias)
-    elif bias is not None:
-        out = out + bias.reshape(1, 1, 1, -1)
-    for p in post_add:
-        out = out + p
-    if noise2 is not None:
-        out = out + noise2
-    if act2:
-        out = fused_leaky_relu(out, bias2)
-    elif bias2 is not None:
-        out = out + bias2.reshape(1, 1, 1, -1)
-    return out
-
-
 def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
                      demodulate: bool = True, up: bool = False,
                      down: bool = False, dilation: int = 1,
@@ -231,6 +210,10 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
             wb = sty[:, :, None] * ws[0, 0]
             out = torch.einsum("bhwc,bco->bhwo", x, wb)
         elif dilation == 1:
+            if epilogue is not None:
+                return conv2d_dense_epilogue(
+                    x, ws, _pads(padding), in_scale=sty.contiguous(),
+                    out_scale=d, **epilogue)
             out = dense_conv(x.contiguous(), ws.contiguous(),
                              _pads(padding), in_scale=sty.contiguous())
         else:

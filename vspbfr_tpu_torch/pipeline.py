@@ -26,7 +26,7 @@ from vspbfr_tpu_torch.diffusion import DDPMSchedule, LatentDDPM
 from vspbfr_tpu_torch.models.code_diffuser import CodeDiffuser
 from vspbfr_tpu_torch.models.layers import init_module
 from vspbfr_tpu_torch.models.psp import PSPFacade
-from vspbfr_tpu_torch.models.restorenet import RestorationNet
+from vspbfr_tpu_torch.models.restorenet import Discriminator, RestorationNet
 
 STAGES = ("encode", "ddpm", "decode", "full")
 
@@ -40,6 +40,8 @@ class RestorationPipeline(nn.Module):
                  channel_div: int = 1):
         super().__init__()
         self.style_dim, self.mixing_prob = style_dim, mixing_prob
+        self.size, self.channel_multiplier = size, channel_multiplier
+        self.channel_div = channel_div
         self.compute_dtype = compute_dtype
         self.psp = PSPFacade(out_size=size, size=decoder_size,
                              encode_size=encode_size,
@@ -132,3 +134,10 @@ class RestorationPipeline(nn.Module):
         if return_sample:
             return out.to(out_dtype), sample.to(out_dtype)
         return out.to(out_dtype)
+
+    def make_discriminator(self) -> Discriminator:
+        """The stage-3 discriminator at this pipeline's size and widths
+        (not a submodule: the serving checkpoint does not hold it)."""
+        return Discriminator(size=self.size,
+                             channel_multiplier=self.channel_multiplier,
+                             channel_div=self.channel_div)

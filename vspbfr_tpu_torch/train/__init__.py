@@ -1,5 +1,6 @@
 """Trainers of the PyTorch port (counterpart of `vspbfr_tpu/train`):
-stage 2 (code diffuser). Stage 3 (RestoreNet GAN training) waits."""
+stage 2 (`diffuser_train`, the code diffuser) and stage 3
+(`restore_train`, RestoreNet GAN training without ADA)."""
 
 from vspbfr_tpu_torch.train.state import (
     EMA_DECAY_DEFAULT,

@@ -38,7 +38,12 @@ class TrainState:
         self.step = 0
 
     def apply_gradients(self) -> None:
-        """One Adam update from the gradients in `.grad`, which it clears."""
+        """One Adam update from the gradients in `.grad`, which it clears.
+        A parameter the loss did not reach takes a zero gradient, as every
+        leaf does in optax (its second moment decays)."""
+        for p in self.module.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
