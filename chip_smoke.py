@@ -10,13 +10,16 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              TF32 otherwise).
 2. build   - build or load the kernels' shared library from `csrc/`.
 3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
-             epilogue, K2 multi-dilation conv, K3 phase interleave) against
-             its plain torch version at the main paths' full-width shapes,
+             epilogue, K2 multi-dilation conv, K3 phase interleave, K5 fused
+             SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU)
+             against its plain torch version at the main paths' full-width
+             shapes,
              batch 4, in f32 and bf16: error relative to max |plain|,
              median CUDA-event times of the kernel, the plain version and
              (where one call computes the same function) the library's
              call, and the bound (the larger of operations over the card's
-             peak rate for the dtype and bytes over its memory rate).
+             peak rate for the dtype and bytes over its memory rate); for
+             K5 also the K2 + K1 composition SMARTLayer runs.
 4. slice   - the whole restoration path at a mid-size config, card
              (kernels) against CPU (plain versions), same weights and
              draws; every kernel's launch counter must rise on the card.
@@ -26,7 +29,7 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              launch counts and peak memory; then, on the same 4 inputs,
              the stage split and imgs/s from CUDA-event medians of
              `restore`, with the `VSPBFR_FUSED_EPI` switch off and on (K1
-             plus the torch epilogue, or K1e), and the bf16-vs-f32 PSNR.
+             plus K6, or K1e), and the bf16-vs-f32 PSNR.
 6. grads   - the kernels' gradients against plain torch autograd on the
              card: K1's Function (dx, whose K1 launch is timed, d_in_scale
              and dw) at the decoder's full-width shapes, K1e's Function
@@ -34,8 +37,10 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              activation's kink get no incoming gradient, see `kink_free`),
              K2's Function (dx, the four
              branch weights, d_in_scale, d_out_scale) at the SMART shapes,
-             and K4 (the gradient of K3) at its two up-conv shapes, in f32
-             and bf16.
+             K4 (the gradient of K3) at its two up-conv shapes, K6's and
+             K7's Functions (every operand, the kink rule) and K6's double
+             backward (R1's pattern), and K5's Function (every input; K2
+             and K1 launch in its backward), in f32 and bf16.
 7. train   - stage-2 training (the second main path): one step at the
              phase-4 config on the card (kernels) against the CPU (plain
              versions), K1 and K4 launching during backward(); then the
@@ -52,6 +57,14 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              in f32 and bf16 with the epilogue switch off and in bf16 with
              it on: step ms, imgs/s, peak memory, launch counts; and the
              bf16 step with the switch off and on in turns on one trainer.
+9. smart   - K5's entry, `python -m vspbfr_tpu_torch.cli.profile --smart`,
+             in process, f32 and bf16: K5 against the K2 + K1 composition
+             at every RestoreNet SMART shape, b4 (SMARTLayer itself runs
+             the composition, as in the JAX package).
+
+Phases 5, 7 and 8 also count the calls of K6's and K7's plain versions
+on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on the card
+the main paths run the kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -71,8 +84,13 @@ import time
 
 import numpy as np
 
+# the card's published peaks, the bound and the CUDA-event timer are the
+# profiler's (`cli/profile.py`), so both report the same numbers
+from vspbfr_tpu_torch.cli.profile import bound_ms as bound
+from vspbfr_tpu_torch.cli.profile import cuda_ms
+
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
-          "restore")
+          "restore", "smart")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -85,20 +103,27 @@ KERNEL_INFO = {
             "vspbfr_tpu/ops/pallas_d2s.py:75"),
     "s2d": ("vspbfr_tpu_torch/csrc/s2d.cu",
             "vspbfr_tpu/ops/pallas_d2s.py:109"),
+    "smart_core": ("vspbfr_tpu_torch/csrc/smart_fused.cu",
+                   "vspbfr_tpu/ops/pallas_smart.py:193"),
+    "conv_epilogue": ("vspbfr_tpu_torch/csrc/epilogue.cu",
+                      "vspbfr_tpu/ops/pallas_epilogue.py:96"),
+    "fused_leaky_relu": ("vspbfr_tpu_torch/csrc/fused_act.cu",
+                         "vspbfr_tpu/ops/fused_act.py:52"),
 }
 # the kernels each main path must launch: serving (phase 5), stage-2
 # training (phase 7), stage-3 training (phase 8) with the epilogue switch
-# off and on
-PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s"),
-                "train": ("dense_conv", "d2s", "s2d"),
-                "restore": ("dense_conv", "dilated_multi_conv", "d2s", "s2d"),
+# off and on, and K5's entry (phase 9)
+PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
+                          "conv_epilogue", "fused_leaky_relu"),
+                "train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
+                          "fused_leaky_relu"),
+                "restore": ("dense_conv", "dilated_multi_conv", "d2s", "s2d",
+                            "conv_epilogue", "fused_leaky_relu"),
                 "restore_fused": ("dense_conv_epilogue", "dense_conv",
-                                  "dilated_multi_conv", "d2s", "s2d")}
+                                  "dilated_multi_conv", "d2s", "s2d",
+                                  "conv_epilogue", "fused_leaky_relu"),
+                "smart": ("smart_core",)}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
-# the card's published peaks (NVIDIA's H100 SXM data sheet, dense): f32 on
-# the CUDA cores, bf16 on the tensor cores, and the HBM rate
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
-PEAK_BYTES = 3.35e12
 REPORT: dict = {}
 CARD = ""
 
@@ -107,23 +132,20 @@ def say(*parts) -> None:
     print(f"[{CARD}]", *parts, flush=True)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
-    import torch
+@contextlib.contextmanager
+def no_plain_on_card(phase: str):
+    """Require that the block makes no call of K6's or K7's plain version
+    on a CUDA tensor (the main paths run the kernels on the card)."""
+    from vspbfr_tpu_torch import ops
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    ops.reset_plain_cuda_calls()
+    yield
+    calls = ops.plain_cuda_calls()
+    say(f"{phase}: plain versions called on CUDA tensors: {calls}")
+    REPORT.setdefault("plain_cuda_calls", {})[phase] = calls
+    if any(calls.values()):
+        raise AssertionError(f"{phase}: a plain version ran on the card: "
+                             f"{calls}")
 
 
 @contextlib.contextmanager
@@ -226,6 +248,51 @@ def _k1e_cases():
     ]
 
 
+def _k6_cases():
+    """(x shape, epilogue pieces, label) of K6 on the main paths at full
+    width, b4: "s" out_scale, "n" noise, "b" bias, "a" the activation."""
+    return [
+        ((4, 1024, 1024, 32), "snba", "decoder styled 1024px C32"),
+        ((4, 512, 512, 64), "nba", "SMART tail stage 2 512px C64"),
+        ((4, 64, 64, 512), "snba", "styled 64px C512"),
+        ((4, 512, 512, 64), "b", "bias only 512px C64"),
+        ((4, 512, 512, 3), "nba", "C3 512px"),
+    ]
+
+
+def _k7_cases():
+    return [((4, 512, 512, 64), "LargeConv down_from_big 512px C64"),
+            ((4, 512), "StyleMLP / final_linear (4, 512)"),
+            ((4, 256, 256, 3), "odd C3 256px")]
+
+
+def _k5_cases():
+    return [((4, h, h, c), "SMART %dpx C%d" % (h, c))
+            for h, c in ((512, 64), (64, 512), (4, 512))]
+
+
+def k6_operands(rand, dt, xs, pieces) -> tuple:
+    """(x, kwargs of `conv_epilogue`) for a `_k6_cases` entry, in dt."""
+    b, h, w, c = xs
+    kw = {"act": "a" in pieces}
+    if "s" in pieces:
+        kw["out_scale"] = rand(b, c, scale=0.2, offset=1.0).to(dt)
+    if "n" in pieces:
+        kw["noise"] = rand(b, h, w, 1, scale=0.3).to(dt)
+    if "b" in pieces:
+        kw["bias"] = rand(c, scale=0.3).to(dt)
+    return rand(*xs).to(dt), kw
+
+
+def k5_operands(rand, dt, xs) -> tuple:
+    """(x, style, ws, wf) of a SMART layer at x's shape, in dt: Cb = C / 4,
+    Cout = C, unscaled N(0, 1) weights (K5 scales them by 1/sqrt(fan_in))."""
+    b, _, _, c = xs
+    return (rand(*xs).to(dt), rand(b, c, scale=0.2, offset=1.0).to(dt),
+            [rand(3, 3, c, c // 4).to(dt) for _ in range(4)],
+            rand(3, 3, c, c).to(dt))
+
+
 def k1e_operands(rand, dt, xs, ws, pieces) -> tuple:
     """(x, w, pads, kwargs of `dense_conv_epilogue`) for a `_k1e_cases`
     entry; every tensor in dt."""
@@ -271,16 +338,6 @@ def torch_is_tensor(v) -> bool:
     return isinstance(v, torch.Tensor)
 
 
-def bound(flops: float, nbytes: float, dt_name: str) -> tuple[float, str]:
-    """The least time the card could take (ms) and what bounds it: the
-    larger of the operations over the dtype's peak rate and the bytes
-    (each input read once, each output written once) over the memory
-    rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -317,7 +374,9 @@ def phase_kernels():
     import torch
 
     from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli.profile import smart_composition, smart_work
     from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
+    from vspbfr_tpu_torch.ops.smart import smart_tile
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -394,6 +453,47 @@ def phase_kernels():
             _check("d2s", label, dt_name, got, ref, ms, pms, rows,
                    moved=nbytes(x, got))
             del x, got, ref
+        for xs, pieces, label in _k6_cases():
+            x, kw = k6_operands(rand, dt, xs, pieces)
+            got = ops.conv_epilogue(x, **kw)
+            ref = ops.epilogue_plain(x.float(), **f32(kw))
+            ms = cuda_ms(lambda: ops.conv_epilogue(x, **kw))
+            pms = cuda_ms(lambda: ops.epilogue_plain(x, **kw))
+            # per element one operation per piece, two for the activation
+            per = sum(k in kw for k in ("out_scale", "noise", "bias")) \
+                + 2 * kw["act"]
+            _check("conv_epilogue", label, dt_name, got, ref, ms, pms, rows,
+                   flops=per * x.numel(),
+                   moved=nbytes(x, got, *(v for v in kw.values()
+                                          if torch_is_tensor(v))))
+            del x, kw, got, ref
+        for xs, label in _k7_cases():
+            x = rand(*xs).to(dt)
+            bias = rand(xs[-1], scale=0.3).to(dt)
+            got = ops.fused_leaky_relu(x, bias)
+            ref = ops.fused_leaky_relu_plain(x.float(), bias.float())
+            ms = cuda_ms(lambda: ops.fused_leaky_relu(x, bias))
+            pms = cuda_ms(lambda: ops.fused_leaky_relu_plain(x, bias))
+            _check("fused_leaky_relu", label, dt_name, got, ref, ms, pms,
+                   rows, flops=3 * x.numel(), moved=nbytes(x, bias, got))
+            del x, bias, got, ref
+        for xs, label in _k5_cases():
+            b, h, w, c = xs
+            x, style, wl, wf = k5_operands(rand, dt, xs)
+            got = ops.smart_core(x, style, wl, wf)
+            ref = ops.smart_core_plain(x.float(), style.float(),
+                                       [t.float() for t in wl], wf.float())
+            ms = cuda_ms(lambda: ops.smart_core(x, style, wl, wf))
+            pms = cuda_ms(lambda: ops.smart_core_plain(x, style, wl, wf))
+            comp_ms = cuda_ms(lambda: smart_composition(x, style, wl, wf))
+            flops, moved = smart_work(b, h, w, c, c // 4, c,
+                                      x.element_size())
+            _check("smart_core", label, dt_name, got, ref, ms, pms, rows,
+                   flops=flops, moved=moved, composition_ms=comp_ms,
+                   tile=smart_tile(h, w, c // 4))
+            say(f"{'':20s} {label:28s} {dt_name:4s} K2 + K1 composition "
+                f"{comp_ms:.4f} ms (tile {smart_tile(h, w, c // 4)})")
+            del x, style, wl, wf, got, ref
         torch.cuda.empty_cache()
     REPORT["kernels"] = rows
 
@@ -678,7 +778,7 @@ def kink_free(x, w, pads, kw, band: float = 1e-5):
     def f32(t):
         return None if t is None else t.float()
 
-    u = ops.apply_epilogue(
+    u = ops.epilogue_plain_chain(
         ops.dense_conv_plain(x.float(), w.float(), pads,
                              f32(kw.get("in_scale"))),
         f32(kw.get("out_scale")), f32(kw.get("noise")), f32(kw.get("bias")),
@@ -687,7 +787,7 @@ def kink_free(x, w, pads, kw, band: float = 1e-5):
     if kw.get("act"):
         keep &= u.abs() > band * u.abs().max()
     if kw.get("act2"):
-        t = ops.apply_epilogue(u, act=kw.get("act", False),
+        t = ops.epilogue_plain_chain(u, act=kw.get("act", False),
                                post_add=tuple(f32(p) for p in
                                               kw.get("post_add", ())),
                                noise2=f32(kw.get("noise2")),
@@ -739,10 +839,17 @@ def phase_grads():
             pms = cuda_ms(lambda: torch.autograd.grad(out_p, (xp, sp), g,
                                                       retain_graph=True))
             del out_p
+            # the library's dx: cuDNN's dgrad of the conv on the same
+            # gradient (the in_scale multiply aside)
+            gn, wn = g.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1)
+            xn_shape = (xs[0], xs[3], xs[1], xs[2])
+            lms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+                xn_shape, wn, gn, padding=(pads[0][0], pads[1][0])))
             # dx is a conv of the same size as the forward; d_in_scale one
             # multiply-add per input element
             work = dict(flops=conv_flops(x.shape, w.shape, g.shape)
-                        + 2 * x.numel(), moved=nbytes(g, w, x, s, x, s))
+                        + 2 * x.numel(), moved=nbytes(g, w, x, s, x, s),
+                        library_ms=lms)
             for name, a, b in zip(("dx", "d_in_scale", "dw"), got, ref):
                 timed = name == "dx"
                 _check(f"dense_conv_grad {name}", label, dt_name, a, b,
@@ -834,8 +941,129 @@ def phase_grads():
             _check("s2d", label, dt_name, got, ref, ms, pms, rows,
                    moved=nbytes(y, got))
             del y, got, ref
+        _elementwise_grads(rows, rand, dt_name, dt)
+        _smart_grads(rows, rand, dt_name, dt)
         torch.cuda.empty_cache()
     REPORT["grads"] = rows
+
+
+def _kink_keep(u, band: float = 1e-5):
+    """Where an activation's input u (from the plain version in f32) lies
+    more than band x max |u| away from the kink (see `kink_free`)."""
+    return u.abs() > band * u.abs().max()
+
+
+def _elementwise_grads(rows, rand, dt_name, dt):
+    """K6's and K7's Functions (every operand; the activations' kink
+    elements get no incoming gradient) against plain autograd, and K6's
+    double backward in R1's pattern (D's strided ConvLayers: the bias
+    gradient of |dL/dx|^2)."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    for xs, pieces, label in _k6_cases():
+        x, kw = k6_operands(rand, dt, xs, pieces)
+        act = kw.pop("act")
+        names = list(kw)
+        leaves = [x, *kw.values()]
+        for t in leaves:
+            t.requires_grad_()
+
+        def k6(x_, *o, fn=ops.conv_epilogue):
+            return fn(x_, act=act, **dict(zip(names, o)))
+
+        def plain(x_, *o):
+            return k6(x_, *o, fn=ops.epilogue_plain)
+
+        keep = torch.ones(xs, dtype=torch.bool, device=x.device)
+        if act:
+            keep = _kink_keep(ops.epilogue_plain(
+                x.detach().float(), act=False,
+                **{k: f32(v.detach()) for k, v in kw.items()}))
+        g = (rand(*xs) * keep).to(dt)
+        kinks = 1.0 - float(keep.float().mean())
+        del keep
+        got, ref, ms, pms = _grads_vs_plain(k6, plain, leaves, g)
+        # the timed backward reads g and y (or x) and writes dx
+        work = dict(flops=2 * x.numel(), moved=nbytes(g, x, x))
+        for i, (name, a, b) in enumerate(zip(["dx", *names], got, ref)):
+            _check(f"conv_epilogue_grad {name}", label, dt_name, a, b,
+                   ms if i == 0 else float("nan"),
+                   pms if i == 0 else float("nan"), rows, kink_share=kinks,
+                   **(work if i == 0 else {}))
+        del x, kw, leaves, g, got, ref
+
+    # R1 through K6: D's ConvLayer at 512 px C64 (bias + lrelu)
+    x = rand(4, 512, 512, 64).to(dt)
+    bias = rand(64, scale=0.3).to(dt)
+
+    def r1(fn, x_, b_):
+        x_ = x_.detach().requires_grad_()
+        b_ = b_.detach().requires_grad_()
+        (gx,) = torch.autograd.grad((fn(x_, bias=b_).float() ** 2).sum(),
+                                    x_, create_graph=True)
+        return torch.autograd.grad((gx.float() ** 2).sum(), b_)[0]
+
+    got = r1(ops.conv_epilogue, x, bias)
+    ref = r1(ops.epilogue_plain, x.float(), bias.float())
+    ms = cuda_ms(lambda: r1(ops.conv_epilogue, x, bias), iters=5)
+    pms = cuda_ms(lambda: r1(ops.epilogue_plain, x, bias), iters=5)
+    _check("conv_epilogue_grad r1 d_bias", "D ConvLayer 512px C64", dt_name,
+           got, ref, ms, pms, rows)
+    del x, bias, got, ref
+
+    for xs, label in _k7_cases():
+        x = rand(*xs).to(dt).requires_grad_()
+        bias = rand(xs[-1], scale=0.3).to(dt).requires_grad_()
+        keep = _kink_keep(x.detach().float() + bias.detach().float())
+        g = (rand(*xs) * keep).to(dt)
+        kinks = 1.0 - float(keep.float().mean())
+        got, ref, ms, pms = _grads_vs_plain(
+            ops.fused_leaky_relu, ops.fused_leaky_relu_plain, [x, bias], g)
+        work = dict(flops=2 * x.numel(), moved=nbytes(g, x, x))
+        for i, (name, a, b) in enumerate(zip(["dx", "d_bias"], got, ref)):
+            _check(f"fused_leaky_relu_grad {name}", label, dt_name, a, b,
+                   ms if i == 0 else float("nan"),
+                   pms if i == 0 else float("nan"), rows, kink_share=kinks,
+                   **(work if i == 0 else {}))
+        del x, bias, g, got, ref
+
+
+def _smart_grads(rows, rand, dt_name, dt):
+    """K5's Function (its backward recomputes the K2 + K1 composition, so
+    both launch in it) against plain autograd, every input."""
+    from vspbfr_tpu_torch import ops
+
+    for xs, label in _k5_cases():
+        x, style, wl, wf = k5_operands(rand, dt, xs)
+        leaves = [x, style, *wl, wf]
+        for t in leaves:
+            t.requires_grad_()
+
+        def k5(x_, s_, w1, w2, w4, w8, f_, fn=ops.smart_core):
+            return fn(x_, s_, [w1, w2, w4, w8], f_)
+
+        def plain(*a):
+            return k5(*a, fn=ops.smart_core_plain)
+
+        g = rand(*xs).to(dt)
+        before = ops.launch_counts()
+        got, ref, ms, pms = _grads_vs_plain(k5, plain, leaves, g)
+        after = ops.launch_counts()
+        if any(after[k] == before[k] for k in ("dilated_multi_conv",
+                                               "dense_conv")):
+            raise AssertionError(f"smart_core grad {label}: K2 and K1 did "
+                                 "not launch in the backward")
+        names = ["dx", "d_style", "dw1", "dw2", "dw4", "dw8", "dwf"]
+        for i, (name, a, b) in enumerate(zip(names, got, ref)):
+            _check(f"smart_core_grad {name}", label, dt_name, a, b,
+                   ms if i == 0 else float("nan"),
+                   pms if i == 0 else float("nan"), rows)
+        del x, style, wl, wf, leaves, g, got, ref
 
 
 # --- phase 7 ----------------------------------------------------------------
@@ -1096,9 +1324,12 @@ def _restore_launches(tr, low, real, clean, feats, draws) -> dict:
                              "gradient through K2's Function")
     for m in (tr.gen, tr.disc):
         m.zero_grad(set_to_none=True)
-    need = {"D backward()": "dense_conv", "R1 double backward": "dense_conv",
-            "G forward": "dilated_multi_conv", "G backward()": "dense_conv"}
-    for part, k in need.items():
+    need = (("D forward", "conv_epilogue"), ("D backward()", "dense_conv"),
+            ("R1 double backward", "dense_conv"),
+            ("G forward", "dilated_multi_conv"),
+            ("G forward", "conv_epilogue"), ("G forward", "fused_leaky_relu"),
+            ("G backward()", "dense_conv"))
+    for part, k in need:
         if out[part][k] == 0:
             raise AssertionError(f"restore: {k} never launched in {part}")
     out["smart_branch_weights_with_grad"] = len(branch)
@@ -1271,6 +1502,29 @@ def phase_restore():
     REPORT["restore"] = res
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+def phase_smart():
+    """K5's entry point in process, f32 and bf16: K5 against the K2 + K1
+    composition at every RestoreNet SMART shape, b4."""
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import profile
+
+    res = {}
+    for mode in ("f32", "bf16"):
+        ops.reset_launch_counts()
+        rows = profile.main(["--smart"] + (["--bf16"] if mode == "bf16"
+                                           else []))["rows"]
+        counts = ops.launch_counts()
+        for r in rows:
+            if r["k5_launches"] == 0 or r["max_rel_diff"] > TOL[mode]:
+                raise AssertionError(f"smart {mode} {r['size']}px: K5 "
+                                     f"launches {r['k5_launches']}, rel "
+                                     f"diff {r['max_rel_diff']:.3e}")
+        res[mode] = dict(rows=rows, launches=counts)
+    REPORT["smart"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -1278,14 +1532,19 @@ def main() -> None:
 
     for name in PHASES:
         t0 = time.perf_counter()
-        globals()[f"phase_{name}"]()
+        # the path phases: no plain K6 / K7 on the card
+        with (no_plain_on_card(name) if name in ("slice", "cli", "train",
+                                                 "restore")
+              else contextlib.nullcontext()):
+            globals()[f"phase_{name}"]()
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     launches = {"serve": REPORT["cli"]["f32"]["launches"],
                 "train": REPORT["train"]["f32"]["launches"],
                 "restore": REPORT["restore"]["f32"]["launches"],
-                "restore_fused": REPORT["restore"]["bf16_fused"]["launches"]}
+                "restore_fused": REPORT["restore"]["bf16_fused"]["launches"],
+                "smart": REPORT["smart"]["f32"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]
@@ -1301,7 +1560,9 @@ def main() -> None:
                         "library_ms": big["library_ms"],
                         "case": big["case"], "path": path,
                         "launches_by_path": {p: c[name]
-                                             for p, c in launches.items()}})
+                                             for p, c in launches.items()},
+                        **({"composition_ms": big["composition_ms"]}
+                           if "composition_ms" in big else {})})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

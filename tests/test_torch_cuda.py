@@ -13,7 +13,12 @@ larger than the image, uneven branch widths, sub-16-byte interleave and
 gather units, K1's gradients (odd channel counts, asymmetric pads, 1x1 and
 2x2 kernels) against plain torch autograd, K1e (the fused styled epilogue:
 odd Ci, post-activation adds, the second stage, 1x1) and its gradient, K2's
-gradient, the `VSPBFR_FUSED_EPI` switch, and the wrappers' refusals.
+gradient, the `VSPBFR_FUSED_EPI` switch, and the wrappers' refusals; K6
+(the styled epilogue pass) and K7 (bias + leaky ReLU) at odd C, C = 3,
+pixel counts that are no multiple of a block, each piece absent, a
+misaligned view, with their gradients and K6's double backward; K5 (the
+fused SMART core) at 4 and 8 px, odd sizes, narrow and uneven-tile widths,
+demod off, with its gradient (a K2 + K1 recomputation).
 
 Tolerance: f32 <= 1e-4 of max |plain| (the same products summed in another
 order); bf16 <= 2e-2 (plain runs in f32 on the same bf16 inputs, so the
@@ -161,9 +166,13 @@ def test_launch_counters_count_launches(dev):
     ops.d2s(x, 2)
     ops.d2s(x, 2)
     ops.s2d(x, 8)
+    ops.conv_epilogue(x, bias=torch.zeros(8, device=dev))
+    ops.fused_leaky_relu(x)
+    ops.fused_leaky_relu(x)
     assert ops.launch_counts() == {"dense_conv": 1, "dense_conv_epilogue": 0,
                                    "dilated_multi_conv": 0, "d2s": 2,
-                                   "s2d": 1}
+                                   "s2d": 1, "smart_core": 0,
+                                   "conv_epilogue": 1, "fused_leaky_relu": 2}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -277,18 +286,23 @@ def test_dense_conv_epilogue_grads_match_plain_autograd(dev, dtype, shape, k,
         _assert_close(a, r, dtype)
 
 
-@pytest.mark.parametrize("fused,kernel", [("0", "dense_conv"),
-                                          ("1", "dense_conv_epilogue")])
-def test_fused_epi_switch_picks_the_kernel(dev, monkeypatch, fused, kernel):
+@pytest.mark.parametrize("fused,kernels", [
+    ("0", {"dense_conv": 1, "conv_epilogue": 1}),
+    ("1", {"dense_conv_epilogue": 1})])
+def test_fused_epi_switch_picks_the_kernel(dev, monkeypatch, fused, kernels):
+    """Off: K1, then K6 (one stage; the post-activation add in torch); on:
+    one K1e launch. No plain epilogue runs on the card either way."""
     monkeypatch.setenv("VSPBFR_FUSED_EPI", fused)
     gen = torch.Generator(device=dev).manual_seed(7)
     x = _rand(gen, dev, 2, 8, 8, 16)
     w = _rand(gen, dev, 3, 3, 16, 8) * 0.2
     kw = _epilogue_operands(gen, dev, torch.float32, 2, 8, 8, 8, 1, False)
     ops.reset_launch_counts()
+    ops.reset_plain_cuda_calls()
     got = ops.conv2d_dense_epilogue(x, w, ((1, 1), (1, 1)), **kw)
     counts = ops.launch_counts()
-    assert counts[kernel] == 1 and sum(counts.values()) == 1
+    assert {k: v for k, v in counts.items() if v} == kernels
+    assert sum(ops.plain_cuda_calls().values()) == 0
     _assert_close(got, ops.dense_conv_epilogue_plain(
         x, w, ((1, 1), (1, 1)), **kw), torch.float32)
 
@@ -323,3 +337,186 @@ def test_dilated_multi_grads_match_plain_autograd(dev, dtype, hw, ci, cos,
     ref = torch.autograd.grad(ref_out, rl, g.float())
     for a, r in zip(got, ref):
         _assert_close(a, r, dtype)
+
+
+# --- K6 ---------------------------------------------------------------------
+
+EPI_PIECES = [   # (shape, out_scale, noise, bias, act)
+    ((2, 7, 9, 12), True, True, True, True),     # every piece, f32 vector
+    ((2, 5, 7, 3), True, True, True, True),      # C = 3 (ToRGB-like)
+    ((1, 6, 5, 13), True, False, True, True),    # odd C
+    ((3, 11, 13, 16), False, True, False, True),  # pixels no block multiple
+    ((2, 4, 4, 24), True, True, False, False),   # no bias, no act
+    ((2, 4, 4, 64), False, False, True, False),  # bias only
+    ((1, 3, 3, 8), False, False, False, True),   # act only
+]
+
+
+def _epi_case(gen, dev, dtype, shape, osc, nz, bias):
+    b, h, w, c = shape
+    x = _rand(gen, dev, *shape).to(dtype)
+    kw = {}
+    if osc:
+        kw["out_scale"] = _rand(gen, dev, b, c, scale=0.2,
+                                offset=1.0).to(dtype)
+    if nz:
+        kw["noise"] = _rand(gen, dev, b, h, w, 1, scale=0.3).to(dtype)
+    if bias:
+        kw["bias"] = _rand(gen, dev, c, scale=0.3).to(dtype)
+    return x, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,osc,nz,bias,act", EPI_PIECES)
+def test_conv_epilogue_matches_plain(dev, dtype, shape, osc, nz, bias, act):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, kw = _epi_case(gen, dev, dtype, shape, osc, nz, bias)
+    ops.reset_launch_counts()
+    got = ops.conv_epilogue(x, act=act, **kw)
+    assert ops.launch_counts()["conv_epilogue"] == 1
+    ref = ops.epilogue_plain(x.float(), act=act,
+                             **{k: v.float() for k, v in kw.items()})
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,osc,nz,bias,act", EPI_PIECES[:5])
+def test_conv_epilogue_grads_match_plain_autograd(dev, dtype, shape, osc, nz,
+                                                  bias, act):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x, kw = _epi_case(gen, dev, dtype, shape, osc, nz, bias)
+    leaves = [x, *kw.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = ops.conv_epilogue(x, act=act, **kw)
+    g = _rand(gen, dev, *out.shape).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref_out = ops.epilogue_plain(rl[0], act=act, **dict(zip(kw, rl[1:])))
+    ref = torch.autograd.grad(ref_out, rl, g.float())
+    for a, r in zip(got, ref):
+        _assert_close(a, r, dtype)
+
+
+def test_conv_epilogue_double_backward_matches_plain(dev):
+    """R1's pattern through K6 (D's strided ConvLayers): the bias gradient
+    of |dL/dx|^2."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _rand(gen, dev, 2, 8, 8, 32)
+    bias = _rand(gen, dev, 32, scale=0.5)
+
+    def r1(fn):
+        xt, bt = x.clone().requires_grad_(), bias.clone().requires_grad_()
+        (gx,) = torch.autograd.grad((fn(xt, bias=bt) ** 2).sum(), xt,
+                                    create_graph=True)
+        return torch.autograd.grad((gx ** 2).sum(), bt)[0]
+
+    _assert_close(r1(ops.conv_epilogue), r1(ops.epilogue_plain),
+                  torch.float32)
+
+
+def test_conv_epilogue_takes_a_misaligned_view(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    base = _rand(gen, dev, 2 * 4 * 4 * 8 + 1)
+    x = base[1:].view(2, 4, 4, 8)       # 4 bytes past a 16-byte boundary
+    bias = _rand(gen, dev, 8)
+    _assert_close(ops.conv_epilogue(x, bias=bias),
+                  ops.epilogue_plain(x, bias=bias), torch.float32)
+    _assert_close(ops.fused_leaky_relu(x, bias),
+                  ops.fused_leaky_relu_plain(x, bias), torch.float32)
+
+
+# --- K7 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bias", [((4, 512), True),
+                                        ((2, 7, 9, 16), True),
+                                        ((3, 5, 13), True),       # odd C
+                                        ((2, 5, 7, 3), False),    # C = 3
+                                        ((2, 18, 1000), False)])
+def test_fused_leaky_relu_and_grads_match_plain(dev, dtype, shape, bias):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _rand(gen, dev, *shape).to(dtype).requires_grad_(True)
+    b = (_rand(gen, dev, shape[-1], scale=0.3).to(dtype).requires_grad_(True)
+         if bias else None)
+    leaves = [t for t in (x, b) if t is not None]
+    ops.reset_launch_counts()
+    out = ops.fused_leaky_relu(x, b)
+    assert ops.launch_counts()["fused_leaky_relu"] == 1
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = ops.fused_leaky_relu_plain(rl[0], rl[1] if bias else None)
+    _assert_close(out, ref, dtype)
+    g = _rand(gen, dev, *shape).to(dtype)
+    for a, r in zip(torch.autograd.grad(out, leaves, g),
+                    torch.autograd.grad(ref, rl, g.float())):
+        _assert_close(a, r, dtype)
+
+
+# --- K5 ---------------------------------------------------------------------
+
+SMART_CASES = [   # (B, H, W, C, Cb, Cout, demod)
+    (2, 4, 4, 16, 4, 16, True),     # 4 px: dilation 8 all padding
+    (2, 8, 8, 32, 8, 32, True),     # 8 px
+    (1, 9, 13, 12, 3, 10, True),    # odd sizes, Cb % 4 != 0, Cout < 64
+    (2, 16, 16, 8, 2, 8, False),    # demod off
+    (1, 12, 10, 64, 16, 70, True),  # Cout above one 64-channel pass
+    (1, 6, 6, 256, 64, 256, True),  # the 4-px tile width class (4Cb 256)
+]
+
+
+def _smart_case(gen, dev, dtype, b, h, w, c, cb, co):
+    x = _rand(gen, dev, b, h, w, c).to(dtype)
+    style = _rand(gen, dev, b, c, scale=0.2, offset=1.0).to(dtype)
+    ws = [_rand(gen, dev, 3, 3, c, cb).to(dtype) for _ in range(4)]
+    wf = _rand(gen, dev, 3, 3, 4 * cb, co).to(dtype)
+    return x, style, ws, wf
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,cb,co,demod", SMART_CASES)
+def test_smart_core_matches_plain(dev, dtype, b, h, w, c, cb, co, demod):
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x, style, ws, wf = _smart_case(gen, dev, dtype, b, h, w, c, cb, co)
+    ops.reset_launch_counts()
+    got = ops.smart_core(x, style, ws, wf, demodulate=demod)
+    assert ops.launch_counts()["smart_core"] == 1
+    ref = ops.smart_core_plain(x.float(), style.float(),
+                               [t.float() for t in ws], wf.float(),
+                               demodulate=demod)
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,cb,co,demod", SMART_CASES[:4])
+def test_smart_core_grads_match_plain_autograd(dev, dtype, b, h, w, c, cb,
+                                               co, demod):
+    """Every input's gradient of K5's Function, whose backward recomputes
+    the composition (K2, then K1), against plain autograd in f32."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x, style, ws, wf = _smart_case(gen, dev, dtype, b, h, w, c, cb, co)
+    leaves = [x, style, *ws, wf]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = ops.smart_core(x, style, ws, wf, demodulate=demod)
+    g = _rand(gen, dev, *out.shape).to(dtype)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(out, leaves, g)
+    counts = ops.launch_counts()
+    assert counts["dilated_multi_conv"] == 1 and counts["dense_conv"] >= 1
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref_out = ops.smart_core_plain(rl[0], rl[1], rl[2:6], rl[6],
+                                   demodulate=demod)
+    for a, r in zip(got, torch.autograd.grad(ref_out, rl, g.float())):
+        _assert_close(a, r, dtype)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 4, 4, 8, device=dev)
+    with pytest.raises(TypeError):
+        ops.conv_epilogue(x.half())
+    with pytest.raises(ValueError, match="bias"):
+        ops.fused_leaky_relu(x, torch.zeros(4, device=dev))
+    with pytest.raises(TypeError):
+        ops.smart_core(x.half(), torch.ones(1, 8, device=dev).half(),
+                       [torch.zeros(3, 3, 8, 2, device=dev).half()] * 4,
+                       torch.zeros(3, 3, 8, 8, device=dev).half())

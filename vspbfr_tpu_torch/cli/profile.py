@@ -9,26 +9,34 @@ CUDA activity; with `--train`, the stage-2 trainer at full width (256 px,
 stage-3 trainer at full width (512 px, 1024 px decoder, b4) and its
 `train_step` (D update, R1, G update, EMA), with R1 made due at every call
 (the G step count is set to 0 before each). `--fused_epi` sets
-`VSPBFR_FUSED_EPI=1` (K1e in place of K1 plus the torch epilogue). It
-prints:
+`VSPBFR_FUSED_EPI=1` (K1e in place of K1 plus K6). It prints:
 
 - the card's name and power limit (`nvidia-smi`);
 - the traced call's wall time (host clock, ending in a device sync);
 - device time by group: the hand-written kernels (K1 dense conv, K1e its
   fused epilogue form, K2 multi-dilation conv, K3 phase interleave, K4
-  phase gather) with their
-  launch counts, the library convs, GEMMs, elementwise, reductions, copies
-  and the rest;
+  phase gather, K5 fused SMART core, K6 styled epilogue, K7 bias + leaky
+  ReLU) with their launch counts, the library convs, GEMMs, elementwise,
+  reductions, copies and the rest;
 - the device's busy and idle share of the traced window (the union of the
   kernels' intervals over the time from the call's first host op to the
   last kernel's end);
 - the 15 kernels with the most device time, so a group's contents can be
   checked.
 
+`--smart` is K5's entry point (the counterpart of
+`scripts/exp_smart_kernel.py`): at each distinct SMART shape of RestoreNet
+at full width, b4, it times K5 (`ops.smart_core`) against the composition
+`SMARTLayer` runs (K2 through `modulated_conv2d_multi`, then K1 for the
+fusion conv, without the epilogue): CUDA-event medians, their max
+difference relative to max |composition|, K5's tile side, the bound
+(operations over the taps inside the image, or bytes) and the launches.
+
     python -m vspbfr_tpu_torch.cli.profile                # f32
     python -m vspbfr_tpu_torch.cli.profile --bf16 --out profile_bf16.json
     python -m vspbfr_tpu_torch.cli.profile --train [--bf16]
     python -m vspbfr_tpu_torch.cli.profile --restore [--bf16] [--fused_epi]
+    python -m vspbfr_tpu_torch.cli.profile --smart [--bf16]
 
 Needs a CUDA device: a trace that holds no device kernel raises.
 """
@@ -37,7 +45,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import statistics
 import subprocess
 import time
 
@@ -46,6 +56,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from vspbfr_tpu_torch import ops
+from vspbfr_tpu_torch.ops.smart import RATES, smart_tile
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.diffuser_train import (
     DiffuserTrainConfig,
@@ -58,6 +69,13 @@ from vspbfr_tpu_torch.train.restore_train import (
 
 BATCH, SIZE, DECODER_SIZE, SEED, WARMUP = 4, 512, 1024, 0, 2
 TRAIN_BATCH, TRAIN_SIZE = 16, 256
+# RestoreNet's distinct SMART shapes at full width: (image side, channels)
+SMART_SHAPES = ((512, 64), (256, 128), (128, 256), (64, 512), (32, 512),
+                (16, 512), (8, 512), (4, 512))
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense): f32 on
+# the CUDA cores, bf16 on the tensor cores, and the HBM rate
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
     ("K1e dense_conv_epilogue", ("dense_conv_kernel<float, true>",
@@ -66,6 +84,9 @@ GROUPS = (
     ("K2 dilated_multi_conv", ("dilated_multi_kernel",)),
     ("K3 d2s", ("d2s_kernel",)),
     ("K4 s2d", ("s2d_kernel",)),
+    ("K5 smart_core", ("smart_fused_kernel",)),
+    ("K6 conv_epilogue", ("epilogue_kernel",)),
+    ("K7 fused_leaky_relu", ("fused_lrelu_kernel",)),
     ("library conv", ("cudnn", "fprop", "dgrad", "conv", "winograd",
                       "implicit")),
     ("gemm", ("gemm", "gemv")),
@@ -166,6 +187,115 @@ def _profile(run) -> dict:
             **summarize(prof.events())}
 
 
+def bound_ms(flops: float, moved: float, dt_name: str) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: the
+    larger of the operations over the dtype's peak rate and the bytes over
+    the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt_name], moved / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _taps_inside(n: int, d: int) -> int:
+    """(output, tap) pairs of a 3-tap dilation-d 'same' conv along an axis
+    of n whose input lies inside the image."""
+    return n + 2 * max(0, n - d)
+
+
+def smart_work(b: int, h: int, w: int, c: int, cb: int, cout: int,
+               itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of one K5 call: two per multiply-add over the
+    taps that land inside the image (the four branches, then the fusion
+    conv over the 4Cb branch channels), one multiply per input element for
+    the style; x, style, both weight sets, the demod and y moved once."""
+    mac = b * c * cb * sum(_taps_inside(h, d) * _taps_inside(w, d)
+                           for d in RATES)
+    mac += b * 4 * cb * cout * _taps_inside(h, 1) * _taps_inside(w, 1)
+    elems = (b * h * w * c + b * c + 9 * c * 4 * cb + b * 4 * cb
+             + 9 * 4 * cb * cout + b * h * w * cout)
+    return 2 * mac + b * h * w * c, elems * itemsize
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median CUDA-event time of fn() in ms, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def smart_composition(x, style, ws, wf) -> torch.Tensor:
+    """The SMART core as `SMARTLayer` computes it, with K5's inputs: K2
+    through `modulated_conv2d_multi`, then K1 for the fusion conv (without
+    its epilogue)."""
+    scale_f = 1.0 / math.sqrt(9 * wf.shape[2])
+    br = ops.modulated_conv2d_multi(x, ws, RATES, style)
+    return ops.dense_conv(br, (scale_f * wf).to(x.dtype).contiguous(),
+                          ((1, 1), (1, 1)))
+
+
+def profile_smart(dtype: torch.dtype, device="cuda", shapes=SMART_SHAPES,
+                  batch: int = BATCH, timer=cuda_ms) -> list[dict]:
+    """K5 against the composition SMARTLayer runs at each (side, C) of
+    `shapes`, batch `batch`, in `dtype`: times (by `timer`), the max
+    difference relative to max |composition|, the bound and the launches
+    of each side's timed calls (counted as differences, so the launch
+    counters keep running across the call)."""
+    dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + offset).to(dtype)
+
+    rows = []
+    for side, c in shapes:
+        cb = c // len(RATES)
+        x = rand(batch, side, side, c)
+        style = rand(batch, c, scale=0.2, offset=1.0)
+        ws = [rand(3, 3, c, cb) for _ in RATES]
+        wf = rand(3, 3, 4 * cb, c)
+
+        def k5():
+            return ops.smart_core(x, style, ws, wf)
+
+        def composition():
+            return smart_composition(x, style, ws, wf)
+
+        with torch.no_grad():
+            ref = composition().float()
+            diff = float((k5().float() - ref).abs().max()
+                         / ref.abs().max().clamp_min(1e-12))
+            before = ops.launch_counts()
+            k5_ms = timer(k5)
+            mid = ops.launch_counts()
+            comp_ms = timer(composition)
+            after = ops.launch_counts()
+        flops, moved = smart_work(batch, side, side, c, cb, c,
+                                  x.element_size())
+        b_ms, b_by = bound_ms(flops, moved, dt_name)
+        rows.append(dict(
+            size=side, channels=c, batch=batch, dtype=dt_name,
+            tile=smart_tile(side, side, cb) if dev.type == "cuda" else None,
+            k5_ms=k5_ms, composition_ms=comp_ms,
+            composition_over_k5=comp_ms / k5_ms, max_rel_diff=diff,
+            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved,
+            k5_launches=mid["smart_core"] - before["smart_core"],
+            composition_launches={k: after[k] - mid[k] for k in
+                                  ("dilated_multi_conv", "dense_conv")}))
+    return rows
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--bf16", action="store_true",
@@ -177,6 +307,9 @@ def main(argv=None) -> dict:
                    help="trace a stage-3 training step (with R1) instead")
     p.add_argument("--fused_epi", action="store_true",
                    help="VSPBFR_FUSED_EPI=1: the styled convs through K1e")
+    p.add_argument("--smart", action="store_true",
+                   help="time K5 against the K2 + K1 composition at every "
+                        "RestoreNet SMART shape instead of tracing")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
@@ -185,7 +318,11 @@ def main(argv=None) -> dict:
     os.environ["VSPBFR_FUSED_EPI"] = "1" if args.fused_epi else "0"
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     call = "restore"
-    if args.restore:
+    if args.smart:
+        call, batch, size = "smart_core", BATCH, SIZE
+        res = {"rows": profile_smart(torch.bfloat16 if args.bf16
+                                     else torch.float32)}
+    elif args.restore:
         call, batch, size = "restore_train_step", BATCH, SIZE
         trainer = RestoreTrainer(
             RestoreTrainConfig(size=size, batch=batch,
@@ -223,14 +360,25 @@ def main(argv=None) -> dict:
                decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32",
                call=call, fused_epi=args.fused_epi,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    print(f"[{res['card']}] {res['call']} {res['dtype']} b{batch} {size}px: "
-          f"wall {res['wall_ms']:.3f} ms, device busy {res['busy_ms']:.3f} "
-          f"ms of a {res['window_ms']:.3f} ms window (idle share "
-          f"{res['idle_share']:.4f}), launches {res['launches']}")
-    for g, ms in res["device_ms_by_group"].items():
-        print(f"  {g:24s} {ms:10.3f} ms")
-    for k in res["top_kernels"]:
-        print(f"  {k['ms']:10.3f} ms {k['calls']:5d}x  {k['name']}")
+    if args.smart:
+        for r in res["rows"]:
+            print(f"[{res['card']}] smart_core {r['dtype']} b{r['batch']} "
+                  f"{r['size']}px C{r['channels']} (tile {r['tile']}): K5 "
+                  f"{r['k5_ms']:.4f} ms, K2 + K1 {r['composition_ms']:.4f} "
+                  f"ms (x{r['composition_over_k5']:.3f}), max rel diff "
+                  f"{r['max_rel_diff']:.3e}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), launches K5 {r['k5_launches']} / "
+                  f"{r['composition_launches']}")
+    else:
+        print(f"[{res['card']}] {res['call']} {res['dtype']} b{batch} "
+              f"{size}px: wall {res['wall_ms']:.3f} ms, device busy "
+              f"{res['busy_ms']:.3f} ms of a {res['window_ms']:.3f} ms "
+              f"window (idle share {res['idle_share']:.4f}), launches "
+              f"{res['launches']}")
+        for g, ms in res["device_ms_by_group"].items():
+            print(f"  {g:24s} {ms:10.3f} ms")
+        for k in res["top_kernels"]:
+            print(f"  {k['ms']:10.3f} ms {k['calls']:5d}x  {k['name']}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -51,10 +51,6 @@ struct Epilogue {
   int n_post, act, act2;
 };
 
-__device__ __forceinline__ float lrelu_sqrt2(float v) {
-  return (v >= 0.f ? v : 0.2f * v) * 1.41421356237309515f;
-}
-
 template <typename T>
 __device__ __forceinline__ float apply_epilogue(const Epilogue<T>& e, float v,
                                                 int b, size_t pix, int co,

@@ -2,9 +2,14 @@
 
 The hand-written CUDA kernels live in `dense_conv` (K1 with its gradient,
 and K1e, K1 with the styled epilogue in its store), `dilated_conv` (K2,
-with its gradient) and `d2s` (K3 and its inverse K4, each the other's
-gradient), each beside its plain torch version; `_build` compiles and
-loads them.
+with its gradient), `d2s` (K3 and its inverse K4, each the other's
+gradient), `smart` (K5, the fused SMART core, whose gradient is the
+K2 + K1 composition's), `epilogue` (K6, the styled epilogue as its own
+pass) and `fused_act` (K7, bias + leaky ReLU), each beside its plain torch
+version; `_build` compiles and loads them. `launch_counts` reports each
+kernel's launches; `plain_cuda_calls` reports the calls of the two
+elementwise plain versions (K6's and K7's) on CUDA tensors, which no main
+path on the card should make.
 """
 
 from vspbfr_tpu_torch.ops.d2s import d2s, d2s_plain, s2d, s2d_plain
@@ -15,19 +20,26 @@ from vspbfr_tpu_torch.ops.dense_conv import (
     dense_conv_epilogue,
     dense_conv_epilogue_plain,
     dense_conv_plain,
+    epilogue_plain_chain,
     fused_epi_enabled,
 )
 from vspbfr_tpu_torch.ops.dilated_conv import (
     dilated_multi_conv,
     dilated_multi_conv_plain,
 )
-from vspbfr_tpu_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
+from vspbfr_tpu_torch.ops.epilogue import conv_epilogue, epilogue_plain
+from vspbfr_tpu_torch.ops.fused_act import (
+    fused_leaky_relu,
+    fused_leaky_relu_plain,
+    scaled_leaky_relu,
+)
 from vspbfr_tpu_torch.ops.modulated_conv import (
     conv2d,
     demod_coeffs,
     modulated_conv2d,
     modulated_conv2d_multi,
 )
+from vspbfr_tpu_torch.ops.smart import smart_core, smart_core_plain
 from vspbfr_tpu_torch.ops.upfirdn2d import (
     blur,
     downsample2d,
@@ -36,7 +48,9 @@ from vspbfr_tpu_torch.ops.upfirdn2d import (
     upsample2d,
 )
 
-KERNELS = (dense_conv, dense_conv_epilogue, dilated_multi_conv, d2s, s2d)
+KERNELS = (dense_conv, dense_conv_epilogue, dilated_multi_conv, d2s, s2d,
+           smart_core, conv_epilogue, fused_leaky_relu)
+PLAIN_ON_CARD = (epilogue_plain, fused_leaky_relu_plain)
 
 
 def reset_launch_counts() -> None:
@@ -48,13 +62,25 @@ def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def reset_plain_cuda_calls() -> None:
+    for fn in PLAIN_ON_CARD:
+        fn.cuda_calls = 0
+
+
+def plain_cuda_calls() -> dict[str, int]:
+    return {fn.__name__: fn.cuda_calls for fn in PLAIN_ON_CARD}
+
+
 __all__ = [
-    "KERNELS", "apply_epilogue", "blur", "conv2d", "conv2d_dense_epilogue",
-    "d2s", "d2s_plain", "demod_coeffs", "dense_conv", "dense_conv_epilogue",
+    "KERNELS", "PLAIN_ON_CARD", "apply_epilogue", "blur", "conv2d",
+    "conv2d_dense_epilogue", "conv_epilogue", "d2s", "d2s_plain",
+    "demod_coeffs", "dense_conv", "dense_conv_epilogue",
     "dense_conv_epilogue_plain", "dense_conv_plain", "dilated_multi_conv",
-    "dilated_multi_conv_plain", "downsample2d", "fused_epi_enabled",
-    "fused_leaky_relu",
-    "launch_counts", "make_resample_kernel", "modulated_conv2d",
-    "modulated_conv2d_multi", "reset_launch_counts", "s2d", "s2d_plain",
-    "scaled_leaky_relu", "upfirdn2d", "upsample2d",
+    "dilated_multi_conv_plain", "downsample2d", "epilogue_plain",
+    "epilogue_plain_chain", "fused_epi_enabled", "fused_leaky_relu",
+    "fused_leaky_relu_plain", "launch_counts", "make_resample_kernel",
+    "modulated_conv2d", "modulated_conv2d_multi", "plain_cuda_calls",
+    "reset_launch_counts", "reset_plain_cuda_calls", "s2d", "s2d_plain",
+    "scaled_leaky_relu", "smart_core", "smart_core_plain", "upfirdn2d",
+    "upsample2d",
 ]

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (K1 dense conv and its fused
 epilogue form K1e, K2 multi-dilation conv, K3 phase interleave, K4 phase
-gather).
+gather, K5 fused SMART core, K6 styled epilogue, K7 bias + leaky ReLU).
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 Here the sources under `vspbfr_tpu_torch/csrc/` are compiled by `nvcc` for
@@ -32,7 +32,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, in_scale, y, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, stream
     "vspbfr_dense_conv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
@@ -47,6 +47,14 @@ _SIGNATURES = {
     "vspbfr_d2s": [_P, _P] + [_I] * 5 + [_P],
     # x, y, B, h, w (the output grid), inner_bytes, unit_bytes, stream
     "vspbfr_s2d": [_P, _P] + [_I] * 5 + [_P],
+    # x, sty, wb, dv, wf, y, dtype, B, H, W, C, Cb, Co, stream
+    "vspbfr_smart_fused": [_P] * 6 + [_I] * 7 + [_P],
+    # H, W, Cb -> the tile side K5 picks
+    "vspbfr_smart_tile": [_I] * 3,
+    # x, out_scale, noise, bias, y, act, dtype, n, C, HW, aligned, stream
+    "vspbfr_conv_epilogue": [_P] * 5 + [_I] * 6 + [_P],
+    # x, bias, y, dtype, n, C, aligned, slope, gain, stream
+    "vspbfr_fused_lrelu": [_P] * 3 + [_I] * 4 + [_F, _F, _P],
 }
 
 
@@ -69,6 +77,10 @@ class KernelLibrary:
         err = getattr(self.lib, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+    def query(self, name: str, *args) -> int:
+        """An entry point that returns a value, not an error code."""
+        return int(getattr(self.lib, name)(*args))
 
 
 # the library loaded in this process (a cache of the build, not state:

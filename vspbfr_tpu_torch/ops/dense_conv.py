@@ -41,8 +41,14 @@ sign a bf16 output flips wherever that value is within rounding of 0 (each
 flip moves that element's gradient by a factor of 5); when a gradient is
 needed the kernel stores the sign as one byte per output element.
 `conv2d_dense_epilogue` chooses between the two kernel forms with the JAX
-package's switch, `VSPBFR_FUSED_EPI=1` (default off: K1, then the
-epilogue in torch).
+package's switch, `VSPBFR_FUSED_EPI=1`: on, one K1e launch; off (the
+default), the two-pass form the JAX package's `_epi_ref` describes, K1
+and then `apply_epilogue` (K6, the post-activation adds in torch, K6 again
+for a second stage).
+
+`apply_epilogue` is that routed chain; `epilogue_plain_chain` is the same
+chain in plain torch, which the plain versions (`dense_conv_epilogue_plain`
+and the CPU branch of K1e) use, so a plain version never reaches a kernel.
 
 Both backwards are built from differentiable calls (the Functions again,
 torch ops), so a double backward (stage 3's R1) runs through them.
@@ -50,16 +56,15 @@ torch ops), so a double backward (stage 3's R1) runs through them.
 
 from __future__ import annotations
 
-import math
 import os
 
 import torch
 import torch.nn.functional as F
 
 from vspbfr_tpu_torch.ops import _build
-from vspbfr_tpu_torch.ops.fused_act import fused_leaky_relu
+from vspbfr_tpu_torch.ops.epilogue import conv_epilogue, epilogue_plain
+from vspbfr_tpu_torch.ops.fused_act import SQRT2, act_slope, sum_f32
 
-SQRT2 = math.sqrt(2.0)
 MAX_POST = 2   # post_add tensors K1e's store takes
 
 
@@ -203,46 +208,53 @@ dense_conv.launches = 0
 def fused_epi_enabled() -> bool:
     """The JAX package's A/B switch for the in-store epilogue
     (`pallas_conv.py:407-419`): `VSPBFR_FUSED_EPI=1` routes the styled
-    convs through K1e; default off (K1, then the epilogue in torch). Read
-    at each call."""
+    convs through K1e; default off (K1, then K6). Read at each call."""
     return os.environ.get("VSPBFR_FUSED_EPI", "0") == "1"
+
+
+def _epilogue_chain(stage, z, out_scale, noise, bias, act, post_add, noise2,
+                    bias2, act2):
+    """`_epi_ref` (pallas_conv.py:387) with `stage` for `epilogue_ref`: the
+    first stage (skipped when it has nothing to do), the post-activation
+    adds, then the second stage if it has a piece."""
+    out = z
+    if out_scale is not None or noise is not None or bias is not None or act:
+        out = stage(z, out_scale, noise, bias, act)
+    for p in post_add:
+        out = out + p
+    if noise2 is not None or bias2 is not None or act2:
+        out = stage(out, None, noise2, bias2, act2)
+    return out
 
 
 def apply_epilogue(z: torch.Tensor, out_scale=None, noise=None, bias=None,
                    act: bool = True, post_add=(), noise2=None, bias2=None,
                    act2: bool = False) -> torch.Tensor:
-    """The styled-conv epilogue on a conv output (`_epi_ref`,
-    pallas_conv.py:387): demod scale, noise (B, H, W, 1) already scaled by
-    its weight, bias, lrelu*sqrt2, post-activation adds, then an optional
-    second noise/bias/lrelu stage (the SMART tail)."""
-    out = z
-    if out_scale is not None:
-        out = out * out_scale[:, None, None, :]
-    if noise is not None:
-        out = out + noise
-    if act:
-        out = fused_leaky_relu(out, bias)
-    elif bias is not None:
-        out = out + bias.reshape(1, 1, 1, -1)
-    for p in post_add:
-        out = out + p
-    if noise2 is not None:
-        out = out + noise2
-    if act2:
-        out = fused_leaky_relu(out, bias2)
-    elif bias2 is not None:
-        out = out + bias2.reshape(1, 1, 1, -1)
-    return out
+    """The styled-conv epilogue on a conv output, routed: demod scale,
+    noise (B, H, W, 1) already scaled by its weight, bias, lrelu*sqrt2 in
+    one K6 pass; the post-activation adds; then the optional second
+    noise/bias/lrelu stage (the SMART tail) in another K6 pass."""
+    return _epilogue_chain(conv_epilogue, z, out_scale, noise, bias, act,
+                           tuple(post_add), noise2, bias2, act2)
+
+
+def epilogue_plain_chain(z: torch.Tensor, out_scale=None, noise=None,
+                         bias=None, act: bool = True, post_add=(),
+                         noise2=None, bias2=None,
+                         act2: bool = False) -> torch.Tensor:
+    """`apply_epilogue` in plain torch (`epilogue_plain` for each stage)."""
+    return _epilogue_chain(epilogue_plain, z, out_scale, noise, bias, act,
+                           tuple(post_add), noise2, bias2, act2)
 
 
 def dense_conv_epilogue_plain(x, w, pads, in_scale=None, out_scale=None,
                               noise=None, bias=None, act=True, post_add=(),
                               noise2=None, bias2=None, act2=False):
     """What K1e computes, in plain torch: `dense_conv_plain`, then
-    `apply_epilogue`."""
-    return apply_epilogue(dense_conv_plain(x, w, pads, in_scale), out_scale,
-                          noise, bias, act, tuple(post_add), noise2, bias2,
-                          act2).contiguous()
+    `epilogue_plain_chain`."""
+    return epilogue_plain_chain(dense_conv_plain(x, w, pads, in_scale),
+                                out_scale, noise, bias, act, tuple(post_add),
+                                noise2, bias2, act2).contiguous()
 
 
 def _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias, act, post, nz2,
@@ -255,10 +267,10 @@ def _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias, act, post, nz2,
             return dense_conv_epilogue_plain(x, w, pads, isc, osc, nz, bias,
                                              act, post, nz2, bias2,
                                              act2), None
-        u = apply_epilogue(dense_conv_plain(x, w, pads, isc), osc, nz, bias,
-                           act=False)
-        y = apply_epilogue(u, act=act, post_add=post, noise2=nz2,
-                           bias2=bias2, act2=act2)
+        u = epilogue_plain_chain(dense_conv_plain(x, w, pads, isc), osc, nz,
+                                 bias, act=False)
+        y = epilogue_plain_chain(u, act=act, post_add=post, noise2=nz2,
+                                 bias2=bias2, act2=act2)
         return y.contiguous(), u >= 0
     name = "dense_conv_epilogue"
     if x.device.type != "cuda":
@@ -296,24 +308,9 @@ def _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias, act, post, nz2,
     return y, mask
 
 
-def _slope(v: torch.Tensor, dtype) -> torch.Tensor:
-    """d(lrelu(u) * sqrt2)/du as a function of the sign (preserved by the
-    activation); v is a value of that sign or a bool mask of u >= 0."""
-    pos = v if v.dtype == torch.bool else v >= 0
-    return torch.where(pos, torch.tensor(SQRT2, dtype=dtype,
-                                            device=v.device),
-                       torch.tensor(0.2 * SQRT2, dtype=dtype,
-                                    device=v.device))
-
-
 def _unact(y: torch.Tensor, act: bool) -> torch.Tensor:
     """Invert lrelu*sqrt2 elementwise (`_unact`, pallas_conv.py:402)."""
     return torch.where(y >= 0, y, y / 0.2) / SQRT2 if act else y
-
-
-def _sum_f32(t: torch.Tensor, dims, dtype) -> torch.Tensor:
-    acc = torch.promote_types(t.dtype, torch.float32)
-    return t.to(acc).sum(dim=dims).to(dtype)
 
 
 class _DenseConvEpi(torch.autograd.Function):
@@ -343,9 +340,9 @@ class _DenseConvEpi(torch.autograd.Function):
                              "the JAX package)")
         dnz2 = dbias2 = None
         if has2:
-            du2 = g * _slope(y, g.dtype) if act2 else g
+            du2 = g * act_slope(y, g.dtype) if act2 else g
             if bias2 is not None:
-                dbias2 = _sum_f32(du2, (0, 1, 2), bias2.dtype)
+                dbias2 = sum_f32(du2, (0, 1, 2), bias2.dtype)
             if nz2 is not None:
                 dnz2 = du2.sum(dim=-1, keepdim=True)
             # the stage-1 activated value: invert stage 2 on y
@@ -362,8 +359,9 @@ class _DenseConvEpi(torch.autograd.Function):
             g1 = g
         # the first activation's slope: from the kernel's sign mask where
         # it kept one (something was added after it), else from the value
-        du = g1 * _slope(v if mask is None else mask, g.dtype) if act else g1
-        dbias = _sum_f32(du, (0, 1, 2), bias.dtype) if bias is not None \
+        du = (g1 * act_slope(v if mask is None else mask, g.dtype) if act
+              else g1)
+        dbias = sum_f32(du, (0, 1, 2), bias.dtype) if bias is not None \
             else None
         dnz = du.sum(dim=-1, keepdim=True) if nz is not None else None
         dosc = None
@@ -375,7 +373,7 @@ class _DenseConvEpi(torch.autograd.Function):
             if bias is not None:
                 u = u - bias.reshape(1, 1, 1, -1)
             z = u / osc[:, None, None, :]
-            dosc = _sum_f32(du * z, (1, 2), osc.dtype)
+            dosc = sum_f32(du * z, (1, 2), osc.dtype)
             dz = du * osc[:, None, None, :]
         need = ctx.needs_input_grad
         dx, dw, dis = _conv_grads(x, w, isc, ctx.pads, dz, need[3], need[4],
@@ -409,7 +407,7 @@ def conv2d_dense_epilogue(x: torch.Tensor, w: torch.Tensor, pads,
     """The styled conv with its epilogue (`conv2d_dense_epilogue`,
     pallas_conv.py:524): with `VSPBFR_FUSED_EPI=1` one K1e launch, the
     epilogue operands cast to x's dtype as the JAX wrapper casts them;
-    otherwise K1 followed by `apply_epilogue`."""
+    otherwise K1 followed by `apply_epilogue` (K6)."""
     post_add = tuple(post_add)
     if not fused_epi_enabled():
         return apply_epilogue(dense_conv(x.contiguous(),

@@ -33,7 +33,8 @@ import ctypes
 import torch
 
 from vspbfr_tpu_torch.ops import _build
-from vspbfr_tpu_torch.ops.dense_conv import _sum_f32, conv_nhwc
+from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
+from vspbfr_tpu_torch.ops.fused_act import sum_f32
 
 MAX_BRANCHES = 8
 
@@ -110,7 +111,7 @@ class _DilatedMulti(torch.autograd.Function):
         if out_scale is not None:
             osc = out_scale[:, None, None, :].to(g.dtype)
             if need[3]:
-                dosc = _sum_f32(g * (y / osc), (1, 2), out_scale.dtype)
+                dosc = sum_f32(g * (y / osc), (1, 2), out_scale.dtype)
             g = g * osc
         xs = x if in_scale is None else x * in_scale[:, None, None, :]
         dxs, dws, c0 = None, [], 0
@@ -130,7 +131,7 @@ class _DilatedMulti(torch.autograd.Function):
         if need[1]:
             dx = dxs if in_scale is None else dxs * in_scale[:, None, None, :]
         if need[2]:
-            dis = _sum_f32(dxs * x, (1, 2), in_scale.dtype)
+            dis = sum_f32(dxs * x, (1, 2), in_scale.dtype)
         return (None, dx, dis, dosc, *dws)
 
 

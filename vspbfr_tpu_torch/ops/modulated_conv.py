@@ -8,7 +8,9 @@ the unpacked subpixel up-conv needs). The input-scaled formulation
 
 routes as the JAX package does: stride-1 dilation-1 convs to K1
 (`dense_conv`, with the style folded in as `in_scale`; with an epilogue,
-to `conv2d_dense_epilogue`, which is K1e under `VSPBFR_FUSED_EPI=1`),
+to `conv2d_dense_epilogue`, which is K1e under `VSPBFR_FUSED_EPI=1` and
+K1 then K6 otherwise; the up and down convs' epilogue is K6,
+`apply_epilogue`),
 SMART's dilated branches to K2 (`dilated_multi_conv`), and up-convs with
 c_out < 128 to the subpixel composed conv (K1) followed by the phase
 interleave K3 (`d2s`).
