@@ -8,12 +8,18 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
 1. device  - require CUDA; print the card's name and power limit; turn TF32
              off for matmuls and cuDNN (the plain f32 convs would run in
              TF32 otherwise).
-2. build   - build or load the kernels' shared library from `csrc/`.
+2. build   - build or load the kernels' shared library from `csrc/`; count
+             the tensor-core instructions (HMMA) in each instantiation of
+             the K9 / K10 kernel (`cuobjdump -sass`): its bf16 forms must
+             have them.
 3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
              epilogue, K2 multi-dilation conv, K3 phase interleave, K5 fused
-             SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU)
-             against its plain torch version at the main paths' full-width
-             shapes,
+             SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU, K8
+             the interleave's stack and repeat forms, K9 stripe conv, K10
+             its four stripe loads) against its plain torch version at the
+             main paths' full-width shapes (K8-K10: the TPU experiments'
+             shapes; K8 exact, K10 `nomemset` on columns 1 .. W-2 only,
+             `nobranch` against its stripe model),
              batch 4, in f32 and bf16: error relative to max |plain|,
              median CUDA-event times of the kernel, the plain version and
              (where one call computes the same function) the library's
@@ -61,6 +67,11 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              in process, f32 and bf16: K5 against the K2 + K1 composition
              at every RestoreNet SMART shape, b4 (SMARTLayer itself runs
              the composition, as in the JAX package).
+10. experiments - the entries of K8-K10 (`cli.profile --interleave`,
+             `--stripe_conv`, `--inkpad`) in process, f32 and bf16, at the
+             TPU experiments' shapes, b4: every row must launch its kernel
+             and agree with its plain version (K8 exactly). No product path
+             calls K8-K10, as none calls their scripts' kernels.
 
 Phases 5, 7 and 8 also count the calls of K6's and K7's plain versions
 on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on the card
@@ -90,7 +101,7 @@ from vspbfr_tpu_torch.cli.profile import bound_ms as bound
 from vspbfr_tpu_torch.cli.profile import cuda_ms
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
-          "restore", "smart")
+          "restore", "smart", "experiments")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -109,10 +120,18 @@ KERNEL_INFO = {
                       "vspbfr_tpu/ops/pallas_epilogue.py:96"),
     "fused_leaky_relu": ("vspbfr_tpu_torch/csrc/fused_act.cu",
                          "vspbfr_tpu/ops/fused_act.py:52"),
+    "interleave_stack": ("vspbfr_tpu_torch/csrc/interleave.cu",
+                         "scripts/exp_interleave.py:73"),
+    "interleave_repeat": ("vspbfr_tpu_torch/csrc/interleave.cu",
+                          "scripts/exp_interleave.py:87"),
+    "stripe_conv": ("vspbfr_tpu_torch/csrc/stripe_conv.cu",
+                    "scripts/exp_pallas_conv.py:30"),
+    "inkpad_conv": ("vspbfr_tpu_torch/csrc/stripe_conv.cu",
+                    "scripts/exp_inkpad.py:96"),
 }
 # the kernels each main path must launch: serving (phase 5), stage-2
 # training (phase 7), stage-3 training (phase 8) with the epilogue switch
-# off and on, and K5's entry (phase 9)
+# off and on, K5's entry (phase 9) and the entries of K8-K10 (phase 10)
 PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                           "conv_epilogue", "fused_leaky_relu"),
                 "train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
@@ -122,7 +141,9 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                 "restore_fused": ("dense_conv_epilogue", "dense_conv",
                                   "dilated_multi_conv", "d2s", "s2d",
                                   "conv_epilogue", "fused_leaky_relu"),
-                "smart": ("smart_core",)}
+                "smart": ("smart_core",),
+                "experiments": ("interleave_stack", "interleave_repeat",
+                                "stripe_conv", "inkpad_conv")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 CARD = ""
@@ -201,6 +222,32 @@ def phase_build():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("  ptxas:", line.strip())
     REPORT["build_seconds"] = lib.build_seconds
+    hmma = hmma_counts(lib.path, "stripe_conv_kernel")
+    for fn, n in sorted(hmma.items()):
+        say(f"  HMMA instructions: {n:5d} in {fn}")
+    bf16 = {fn: n for fn, n in hmma.items() if "nv_bfloat16" in fn}
+    if not bf16 or min(bf16.values()) == 0:
+        raise AssertionError(f"stripe_conv's bf16 kernels lack HMMA: {hmma}")
+    REPORT["stripe_conv_hmma"] = hmma
+
+
+def hmma_counts(so, kernel: str) -> dict[str, int]:
+    """Lines of tensor-core MMA (HMMA) in the SASS of each function of the
+    library whose (mangled) name holds `kernel`."""
+    from vspbfr_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -354,20 +401,30 @@ def _check(name, label, dt_name, got, ref, ms, plain_ms, rows, flops=0,
     ref = ref.float()
     scale = float(ref.abs().max().clamp_min(1e-12))
     abs_err = float((got.float() - ref).abs().max())
-    rel = abs_err / scale
-    ok = rel <= TOL[dt_name]
     b_ms, b_by = bound(flops, moved, dt_name)
-    lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
+    _record(rows, dict(kernel=name, case=label, dtype=dt_name,
+                       rel_err=abs_err / scale, max_abs_err=abs_err, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=b_ms, bound_by=b_by, flops=flops,
+                       bytes=moved, **extra))
+
+
+def _record(rows, r, exact=True):
+    """Print a phase-3 row and keep it; raise if it missed its dtype's TOL,
+    or was not `exact`."""
+    name, label = r["kernel"], r["case"]
+    dt_name, rel = r["dtype"], r["rel_err"]
+    ok = rel <= TOL[dt_name] and exact
+    lib = ("" if r["library_ms"] is None
+           else f" library {r['library_ms']:.4f} ms")
     say(f"{name:20s} {label:28s} {dt_name:4s} rel_err {rel:.3e} "
-        f"(abs {abs_err:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-        f"{lib} bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
-    rows.append(dict(kernel=name, case=label, dtype=dt_name, rel_err=rel,
-                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                     library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                     flops=flops, bytes=moved, **extra))
+        f"(abs {r['max_abs_err']:.3e}) kernel {r['ms']:.4f} ms plain "
+        f"{r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) {'ok' if ok else 'FAIL'}")
+    rows.append(r)
     if not ok:
-        raise AssertionError(f"{name} {label} {dt_name}: rel err {rel:.3e} > "
-                             f"{TOL[dt_name]}")
+        raise AssertionError(f"{name} {label} {dt_name}: rel err {rel:.3e} "
+                             f"(limit {TOL[dt_name]}), exact {exact}")
 
 
 def phase_kernels():
@@ -495,7 +552,37 @@ def phase_kernels():
                 f"{comp_ms:.4f} ms (tile {smart_tile(h, w, c // 4)})")
             del x, style, wl, wf, got, ref
         torch.cuda.empty_cache()
+        _experiment_kernels(rows, dt_name, dt)
+        torch.cuda.empty_cache()
     REPORT["kernels"] = rows
+
+
+def _experiment_kernels(rows, dt_name, dt):
+    """K8, K9 and K10 at the TPU experiments' full shapes, b4, in dt,
+    measured by the functions of their `cli.profile` entries: K8 exactly
+    (K3's time beside it), K9 and K10 against their plain versions in the
+    region each defines (`nomemset`: columns 1 .. W-2), cuDNN's conv as
+    their library call."""
+    from vspbfr_tpu_torch.cli import profile
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "flops", "bytes")
+
+    def record(name, label, r, exact=True, **extra):
+        _record(rows, dict(kernel=name, case=label, dtype=dt_name,
+                           rel_err=r["max_rel_diff"],
+                           **{k: r[k] for k in keys}, **extra), exact)
+
+    for r in profile.profile_interleave(dt):
+        record(f"interleave_{r['form']}",
+               f"b{r['batch']} h{r['h']} inner {r['inner']}", r, r["exact"],
+               k3_ms=r["k3_ms"])
+    for r in profile.profile_stripe_conv(dt):
+        xs, ws = r["x"], r["w"]
+        record("stripe_conv", f"{xs[1]}px C{xs[3]} {ws[0]}x{ws[1]}->{ws[3]}",
+               r)
+    for r in profile.profile_inkpad(dt):
+        record("inkpad_conv", f"{r['variant']} h_t {r['h_t']}", r)
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -1037,6 +1124,7 @@ def _smart_grads(rows, rand, dt_name, dt):
     """K5's Function (its backward recomputes the K2 + K1 composition, so
     both launch in it) against plain autograd, every input."""
     from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli.profile import smart_grad_work
 
     for xs, label in _k5_cases():
         x, style, wl, wf = k5_operands(rand, dt, xs)
@@ -1059,10 +1147,15 @@ def _smart_grads(rows, rand, dt_name, dt):
             raise AssertionError(f"smart_core grad {label}: K2 and K1 did "
                                  "not launch in the backward")
         names = ["dx", "d_style", "dw1", "dw2", "dw4", "dw8", "dwf"]
+        # the bound of the whole backward stands on the dx row, with its time
+        flops, moved = smart_grad_work(xs[0], xs[1], xs[2], xs[3],
+                                       xs[3] // 4, xs[3], x.element_size())
         for i, (name, a, b) in enumerate(zip(names, got, ref)):
             _check(f"smart_core_grad {name}", label, dt_name, a, b,
                    ms if i == 0 else float("nan"),
-                   pms if i == 0 else float("nan"), rows)
+                   pms if i == 0 else float("nan"), rows,
+                   flops=flops if i == 0 else 0,
+                   moved=moved if i == 0 else 0)
         del x, style, wl, wf, leaves, g, got, ref
 
 
@@ -1525,6 +1618,31 @@ def phase_smart():
     REPORT["smart"] = res
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+def phase_experiments():
+    """The entries of K8-K10 in process, f32 and bf16, with the launch
+    counts set to 0 before the first and read after the last: each row
+    must launch its kernel and agree with its plain version."""
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import profile
+
+    res = {}
+    ops.reset_launch_counts()
+    for entry in ("interleave", "stripe_conv", "inkpad"):
+        for mode in ("f32", "bf16"):
+            rows = profile.main([f"--{entry}"] + (["--bf16"] if mode == "bf16"
+                                                  else []))["rows"]
+            for r in rows:
+                if (r["launches"] == 0 or r["max_rel_diff"] > TOL[mode]
+                        or not r.get("exact", True)):
+                    raise AssertionError(f"{entry} {mode}: {r}")
+            res[f"{entry}_{mode}"] = rows
+    res["launches"] = ops.launch_counts()
+    say(f"experiments: launches {res['launches']}")
+    REPORT["experiments"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -1544,7 +1662,8 @@ def main() -> None:
                 "train": REPORT["train"]["f32"]["launches"],
                 "restore": REPORT["restore"]["f32"]["launches"],
                 "restore_fused": REPORT["restore"]["bf16_fused"]["launches"],
-                "smart": REPORT["smart"]["f32"]["launches"]}
+                "smart": REPORT["smart"]["f32"]["launches"],
+                "experiments": REPORT["experiments"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]

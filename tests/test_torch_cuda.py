@@ -18,7 +18,13 @@ gradient, the `VSPBFR_FUSED_EPI` switch, and the wrappers' refusals; K6
 pixel counts that are no multiple of a block, each piece absent, a
 misaligned view, with their gradients and K6's double backward; K5 (the
 fused SMART core) at 4 and 8 px, odd sizes, narrow and uneven-tile widths,
-demod off, with its gradient (a K2 + K1 recomputation).
+demod off, with its gradient (a K2 + K1 recomputation); K8 (the
+interleave's stack and repeat forms) at odd widths, h not divisible by
+a block's rows, offset views that shrink its unit, a staged column of
+16-32 KB; K9 (the stripe conv) at odd W, H not divisible by its tile, Ci
+and Co that are no multiple of 16 (Ci 5 and 6 fill the stripe with plain loads), 1x1 and
+2x2 kernels with asymmetric pads; K10's four stripe loads at H not
+divisible by h_t (`nomemset` on columns 1 .. W-2).
 
 Tolerance: f32 <= 1e-4 of max |plain| (the same products summed in another
 order); bf16 <= 2e-2 (plain runs in f32 on the same bf16 inputs, so the
@@ -172,7 +178,10 @@ def test_launch_counters_count_launches(dev):
     assert ops.launch_counts() == {"dense_conv": 1, "dense_conv_epilogue": 0,
                                    "dilated_multi_conv": 0, "d2s": 2,
                                    "s2d": 1, "smart_core": 0,
-                                   "conv_epilogue": 1, "fused_leaky_relu": 2}
+                                   "conv_epilogue": 1, "fused_leaky_relu": 2,
+                                   "interleave_stack": 0,
+                                   "interleave_repeat": 0, "stripe_conv": 0,
+                                   "inkpad_conv": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -520,3 +529,93 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.smart_core(x.half(), torch.ones(1, 8, device=dev).half(),
                        [torch.zeros(3, 3, 8, 2, device=dev).half()] * 4,
                        torch.zeros(3, 3, 8, 8, device=dev).half())
+
+
+# --- K8 (interleave forms), K9 (stripe conv), K10 (its stripe loads) -------
+
+def _offset_view(t, elems):
+    """A contiguous copy of t whose data starts `elems` elements past a
+    16-byte boundary (so the interleave's unit shrinks)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    v = buf[elems:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,inner,offset", [
+    ((2, 3, 5, 12), 3, 0),         # odd w, h below a block's rows, 2-4 B
+    ((1, 5, 7, 256), 64, 0),       # 16-byte units, ragged last row group
+    ((2, 8, 8, 64), 16, 1),        # an offset view: 2-4 byte units
+    ((1, 6, 6, 32), 8, 2),         # an offset view: 4-8 byte units, ragged
+    ((1, 2, 9, 8192), 2048, 0),    # a column of 16-32 KB: 1-2 a stage
+])
+def test_interleave_forms_match_plain_exactly(dev, dtype, shape, inner,
+                                              offset):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = _rand(gen, dev, *shape).to(dtype)
+    if offset:
+        x = _offset_view(x, offset)
+    ref = ops.d2s_plain(x, inner)
+    assert torch.equal(ops.interleave_stack(x, inner), ref)
+    assert torch.equal(ops.interleave_repeat(x, inner), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,co,pads", [
+    ((2, 7, 9, 5), (3, 3), 12, ((1, 1), (1, 1))),     # odd W, Ci 5: plain
+    ((1, 13, 21, 24), (3, 3), 70, ((1, 1), (1, 1))),  # Ci, Co not 16k
+    ((2, 10, 11, 40), (2, 2), 9, ((0, 1), (0, 1))),   # 2x2, asymmetric pads
+    ((1, 6, 5, 8), (3, 3), 20, ((0, 2), (2, 0))),
+    ((2, 5, 7, 16), (1, 1), 3, ((0, 0), (0, 0))),
+    ((1, 19, 33, 136), (3, 3), 130, ((1, 1), (1, 1))),
+])
+def test_stripe_conv_matches_plain(dev, dtype, shape, k, co, pads):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, *k, shape[3], co) * 0.2).to(dtype)
+    got = ops.stripe_conv(x, w, pads)
+    _assert_close(got, ops.stripe_conv_plain(x.float(), w.float(), pads),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["legacy", "inkpad", "nomemset",
+                                     "nobranch"])
+@pytest.mark.parametrize("shape,co,h_t", [
+    ((2, 20, 9, 24), 40, 4),     # H not divisible by h_t, odd W
+    ((1, 37, 13, 6), 16, 16),    # Ci 6: plain loads; ragged last tile
+    ((1, 16, 16, 64), 64, 1),
+])
+def test_inkpad_conv_matches_plain(dev, dtype, variant, shape, co, h_t):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, 3, 3, shape[3], co) * 0.2).to(dtype)
+    got = ops.inkpad_conv(x, w, variant, h_t)
+    ref = ops.inkpad_conv_plain(x.float(), w.float(), variant, h_t)
+    if variant == "nomemset":
+        got, ref = got[:, :, 1:-1], ref[:, :, 1:-1]
+    _assert_close(got, ref, dtype)
+
+
+def test_experiment_kernels_count_launches_and_refuse(dev):
+    x = torch.zeros(1, 8, 8, 16, device=dev)
+    w = torch.zeros(3, 3, 16, 8, device=dev)
+    ops.reset_launch_counts()
+    ops.interleave_stack(x, 4)
+    ops.interleave_repeat(x, 4)
+    ops.stripe_conv(x, w, ((1, 1), (1, 1)))
+    ops.inkpad_conv(x, w, "legacy", 4)
+    ops.inkpad_conv(x, w, "inkpad", 4)
+    counts = ops.launch_counts()
+    assert (counts["interleave_stack"], counts["interleave_repeat"],
+            counts["stripe_conv"], counts["inkpad_conv"]) == (1, 1, 1, 2)
+    with pytest.raises(TypeError):
+        ops.stripe_conv(x.half(), w.half(), ((1, 1), (1, 1)))
+    with pytest.raises(TypeError):
+        ops.interleave_stack(x.half()[..., :12].contiguous(), 3)
+    with pytest.raises(ValueError):
+        ops.inkpad_conv(x, w, "nobranch", 8)   # H < h_t + 2
+    with pytest.raises(RuntimeError):
+        ops.stripe_conv(x, torch.zeros(9, 9, 16, 8, device=dev),
+                        ((4, 4), (4, 4)))       # weights exceed the block

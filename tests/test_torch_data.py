@@ -153,7 +153,8 @@ def test_device_degrade_loader(tmp_path):
                              seed=2)
 
     def grab(n):
-        it = tdd.DeviceDegradeLoader(ds, 2, num_workers=2, seed=2).forever()
+        it = tdd.DeviceDegradeLoader(ds, 2, device="cpu", num_workers=2,
+                                     seed=2).forever()
         return [next(it) for _ in range(n)]
 
     a, b = grab(3), grab(3)
@@ -170,4 +171,5 @@ def test_device_degrade_loader(tmp_path):
 def test_loader_refuses_a_set_smaller_than_a_batch(tmp_path):
     ds = RestoreTrainDataset(_pngs(tmp_path, n=3), im_size=(SIZE, SIZE))
     with pytest.raises(ValueError, match="no full batch"):
-        next(tdd.DeviceDegradeLoader(ds, 4, num_workers=1).forever())
+        next(tdd.DeviceDegradeLoader(ds, 4, device="cpu",
+                                     num_workers=1).forever())

@@ -21,6 +21,7 @@ from vspbfr_tpu_torch.cli.profile import (  # noqa: E402
     bound_ms,
     kernel_group,
     profile_smart,
+    smart_grad_work,
     smart_work,
     summarize,
 )
@@ -51,6 +52,12 @@ def _ev(name, start, end, device=DeviceType.CUDA):
      "K6 conv_epilogue"),
     ("void vspbfr::(anonymous namespace)::fused_lrelu_kernel<float, 4>"
      "(float const*, ...)", "K7 fused_leaky_relu"),
+    ("void vspbfr::(anonymous namespace)::interleave_stack_kernel<uint4>"
+     "(uint4 const*, ...)", "K8 interleave"),
+    ("void vspbfr::(anonymous namespace)::interleave_repeat_kernel<uint2>"
+     "(uint2 const*, ...)", "K8 interleave"),
+    ("void vspbfr::(anonymous namespace)::stripe_conv_kernel<__nv_bfloat16,"
+     " 1>(__nv_bfloat16 const*, ...)", "K9/K10 stripe_conv"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32", "library conv"),
     ("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise"),
@@ -99,6 +106,14 @@ def test_smart_work_counts_the_taps_inside_the_image():
     assert moved == 4 * (64 + 4 + 144 + 4 + 144 + 64)
     assert bound_ms(67e12, 0, "f32") == (pytest.approx(1e3), "operations")
     assert bound_ms(0, 3.35e12, "bf16") == (pytest.approx(1e3), "bytes")
+
+
+def test_smart_grad_work_is_the_recompute_plus_dx_and_dw():
+    flops, _ = smart_work(1, 4, 4, 4, 1, 4, 4)
+    mac = 4 * 1 * (10 * 10 + 8 * 8 + 4 * 4 + 4 * 4) + 4 * 4 * 100
+    gflops, gmoved = smart_grad_work(1, 4, 4, 4, 1, 4, 4)
+    assert gflops == flops + 4 * mac
+    assert gmoved == 4 * (2 * (64 + 4 + 144 + 144) + 64)
 
 
 def test_profile_smart_summary_on_the_cpu():

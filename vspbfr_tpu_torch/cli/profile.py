@@ -37,6 +37,29 @@ difference relative to max |composition|, K5's tile side, the bound
     python -m vspbfr_tpu_torch.cli.profile --train [--bf16]
     python -m vspbfr_tpu_torch.cli.profile --restore [--bf16] [--fused_epi]
     python -m vspbfr_tpu_torch.cli.profile --smart [--bf16]
+    python -m vspbfr_tpu_torch.cli.profile --interleave [--bf16]
+    python -m vspbfr_tpu_torch.cli.profile --stripe_conv [--bf16]
+    python -m vspbfr_tpu_torch.cli.profile --inkpad [--bf16]
+
+`--interleave`, `--stripe_conv` and `--inkpad` are the counterparts of the
+TPU experiments `scripts/exp_interleave.py`, `exp_pallas_conv.py` and
+`exp_inkpad.py`, at their shapes, b4:
+
+- `--interleave`: K8's two forms (`interleave_stack`, `interleave_repeat`)
+  at (h, inner) (256, 128), (512, 128) and (128, 512), against their plain
+  version (`d2s_plain`) and K3 (`ops.d2s`); exact equality is required;
+- `--stripe_conv`: K9 at the script's four decoder shapes against its
+  plain version and cuDNN's conv (`F.conv2d`, TF32 off), the script's
+  yardstick (XLA's conv there);
+- `--inkpad`: K10's four variants at (4, 256, 256, 256) x (3, 3, 256,
+  256), h_t 16, each against its plain version in the region where the
+  variant is defined, its difference from `legacy` there, its count of
+  non-finite outputs, and cuDNN's conv.
+
+Each row holds the CUDA-event medians (`ms`, `plain_ms`, `library_ms`, "-"
+where no one library call computes the function), the bound with what
+bounds it, the max difference relative to max |plain| and the launches of
+the timed kernel calls.
 
 Needs a CUDA device: a trace that holds no device kernel raises.
 """
@@ -56,6 +79,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from vspbfr_tpu_torch import ops
+from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
 from vspbfr_tpu_torch.ops.smart import RATES, smart_tile
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.diffuser_train import (
@@ -72,6 +96,16 @@ TRAIN_BATCH, TRAIN_SIZE = 16, 256
 # RestoreNet's distinct SMART shapes at full width: (image side, channels)
 SMART_SHAPES = ((512, 64), (256, 128), (128, 256), (64, 512), (32, 512),
                 (16, 512), (8, 512), (4, 512))
+# the TPU experiments' shapes: K8 (h = w, inner) with 4*inner input
+# channels; K9 (x, w, pads), pads as the script derives them from KH; K10
+INTERLEAVE_SHAPES = ((256, 128), (512, 128), (128, 512))
+STRIPE_SHAPES = (
+    ((4, 512, 512, 128), (3, 3, 128, 128), ((1, 1), (1, 1))),
+    ((4, 256, 256, 256), (3, 3, 256, 256), ((1, 1), (1, 1))),
+    ((4, 256, 256, 256), (2, 2, 256, 512), ((0, 1), (0, 1))),
+    ((4, 256, 256, 256), (3, 3, 256, 64), ((1, 1), (1, 1))),
+)
+INKPAD_SHAPE, INKPAD_CO, INKPAD_ROWS = (4, 256, 256, 256), 256, 16
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense): f32 on
 # the CUDA cores, bf16 on the tensor cores, and the HBM rate
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
@@ -87,6 +121,9 @@ GROUPS = (
     ("K5 smart_core", ("smart_fused_kernel",)),
     ("K6 conv_epilogue", ("epilogue_kernel",)),
     ("K7 fused_leaky_relu", ("fused_lrelu_kernel",)),
+    ("K8 interleave", ("interleave_stack_kernel",
+                       "interleave_repeat_kernel")),
+    ("K9/K10 stripe_conv", ("stripe_conv_kernel",)),
     ("library conv", ("cudnn", "fprop", "dgrad", "conv", "winograd",
                       "implicit")),
     ("gemm", ("gemm", "gemv")),
@@ -216,6 +253,22 @@ def smart_work(b: int, h: int, w: int, c: int, cb: int, cout: int,
     return 2 * mac + b * h * w * c, elems * itemsize
 
 
+def smart_grad_work(b: int, h: int, w: int, c: int, cb: int, cout: int,
+                    itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of one backward of K5's Function: the K2 + K1
+    forward it recomputes (`smart_work`'s operations), then dx and dw of
+    K2 and of K1, each as many multiply-adds as that conv's forward over
+    the taps inside the image; x, style, both weight sets and the incoming
+    gradient read once, their gradients written once."""
+    flops, _ = smart_work(b, h, w, c, cb, cout, itemsize)
+    mac = b * c * cb * sum(_taps_inside(h, d) * _taps_inside(w, d)
+                           for d in RATES)
+    mac += b * 4 * cb * cout * _taps_inside(h, 1) * _taps_inside(w, 1)
+    elems = 2 * (b * h * w * c + b * c + 9 * c * 4 * cb
+                 + 9 * 4 * cb * cout) + b * h * w * cout
+    return flops + 2 * 2 * mac, elems * itemsize
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     """Median CUDA-event time of fn() in ms, after warm-up."""
     for _ in range(warmup):
@@ -296,6 +349,182 @@ def profile_smart(dtype: torch.dtype, device="cuda", shapes=SMART_SHAPES,
     return rows
 
 
+def _rand_fn(dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    return rand
+
+
+def _diffs(got, ref, region=(...,)) -> dict:
+    """The max difference of got from ref in `region`: absolute, and
+    relative to max |ref| there."""
+    got, ref = got[region].float(), ref[region].float()
+    abs_err = float((got - ref).abs().max())
+    return dict(max_abs_err=abs_err, max_rel_diff=abs_err / float(
+        ref.abs().max().clamp_min(1e-12)))
+
+
+def _timed(timer, fn, name) -> tuple[float, int]:
+    """(time of fn by timer, launches of kernel `name` in those calls)."""
+    before = ops.launch_counts()[name]
+    ms = timer(fn)
+    return ms, ops.launch_counts()[name] - before
+
+
+def interleave_work(b: int, h: int, w: int, inner: int,
+                    itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of one K8 call: no arithmetic, the input read
+    once and the output, as large, written once."""
+    return 0, 2 * b * h * w * 4 * inner * itemsize
+
+
+def profile_interleave(dtype: torch.dtype, device="cuda",
+                       shapes=INTERLEAVE_SHAPES, batch: int = BATCH,
+                       timer=cuda_ms) -> list[dict]:
+    """K8's two forms against their plain version and K3 at each (h,
+    inner) of `shapes` (square images), batch `batch`, in `dtype`."""
+    dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    rand = _rand_fn(dtype, torch.device(device))
+    rows = []
+    for h, inner in shapes:
+        x = rand(batch, h, h, 4 * inner)
+        with torch.no_grad():
+            ref = ops.d2s_plain(x, inner)
+            plain_ms = timer(lambda: ops.d2s_plain(x, inner))
+            k3_ms = timer(lambda: ops.d2s(x, inner))
+            for form, fn in (("stack", ops.interleave_stack),
+                             ("repeat", ops.interleave_repeat)):
+                got = fn(x, inner)
+                exact = bool(torch.equal(got, ref))
+                ms, n = _timed(timer, lambda: fn(x, inner),
+                               f"interleave_{form}")
+                flops, moved = interleave_work(batch, h, h, inner,
+                                               x.element_size())
+                b_ms, b_by = bound_ms(flops, moved, dt_name)
+                rows.append(dict(
+                    form=form, h=h, inner=inner, batch=batch, dtype=dt_name,
+                    exact=exact, **_diffs(got, ref), ms=ms,
+                    plain_ms=plain_ms, k3_ms=k3_ms, library_ms=None,
+                    bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved,
+                    launches=n))
+                del got
+        del x, ref
+    return rows
+
+
+def _taps_in(n: int, k: int, p0: int, out: int) -> int:
+    """(output, tap) pairs of a k-tap stride-1 conv along an axis of n,
+    padded by p0 before it, with `out` outputs, whose input lies inside the
+    image."""
+    return sum(max(0, min(out, n + p0 - t) - max(0, p0 - t))
+               for t in range(k))
+
+
+def stripe_work(b: int, h: int, w: int, ci: int, kh: int, kw: int, co: int,
+                pads, itemsize: int) -> tuple[int, int]:
+    """(operations, bytes) of one K9 / K10 call: two per multiply-add over
+    the taps that land inside the image, as `smart_work` counts; x, w and y
+    moved once."""
+    (py0, py1), (px0, px1) = pads
+    oh, ow = h + py0 + py1 - kh + 1, w + px0 + px1 - kw + 1
+    flops = (2 * b * ci * co * _taps_in(h, kh, py0, oh)
+             * _taps_in(w, kw, px0, ow))
+    return flops, (b * h * w * ci + kh * kw * ci * co
+                   + b * oh * ow * co) * itemsize
+
+
+def profile_stripe_conv(dtype: torch.dtype, device="cuda",
+                        shapes=STRIPE_SHAPES, timer=cuda_ms) -> list[dict]:
+    """K9 against its plain version (diff against it in f32 on the same
+    inputs) and cuDNN's conv at each (x, w, pads) of `shapes`."""
+    dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    rand = _rand_fn(dtype, torch.device(device))
+    rows = []
+    for xs, ws, pads in shapes:
+        x, w = rand(*xs), rand(*ws, scale=0.05)
+        with torch.no_grad():
+            got = ops.stripe_conv(x, w, pads)
+            ref = ops.stripe_conv_plain(x.float(), w.float(), pads)
+            diff = _diffs(got, ref)
+            del got, ref
+            ms, n = _timed(timer, lambda: ops.stripe_conv(x, w, pads),
+                           "stripe_conv")
+            plain_ms = timer(lambda: ops.stripe_conv_plain(x, w, pads))
+            library_ms = timer(lambda: conv_nhwc(x, w, 1, pads))
+        flops, moved = stripe_work(*xs, ws[0], ws[1], ws[3], pads,
+                                   x.element_size())
+        b_ms, b_by = bound_ms(flops, moved, dt_name)
+        rows.append(dict(
+            x=list(xs), w=list(ws), pads=[list(p) for p in pads],
+            dtype=dt_name, **diff, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            flops=flops, bytes=moved, launches=n))
+        del x, w
+    return rows
+
+
+def profile_inkpad(dtype: torch.dtype, device="cuda", shape=INKPAD_SHAPE,
+                   co: int = INKPAD_CO, h_t: int = INKPAD_ROWS,
+                   timer=cuda_ms) -> list[dict]:
+    """K10's four variants at `shape`, 3x3 to `co` channels, h_t rows a
+    tile: each against its plain version where the variant is defined
+    (nomemset: columns 1 .. W-2), its max difference from `legacy` there,
+    its non-finite outputs, and cuDNN's pad-1 conv."""
+    from vspbfr_tpu_torch.ops.stripe_conv import VARIANTS
+
+    dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    rand = _rand_fn(dtype, torch.device(device))
+    x, w = rand(*shape), rand(3, 3, shape[3], co, scale=0.05)
+    pads = ((1, 1), (1, 1))
+    flops, moved = stripe_work(*shape, 3, 3, co, pads, x.element_size())
+    b_ms, b_by = bound_ms(flops, moved, dt_name)
+    rows = []
+    with torch.no_grad():
+        legacy = ops.inkpad_conv(x, w, "legacy", h_t).float()
+        library_ms = timer(lambda: conv_nhwc(x, w, 1, pads))
+        for variant in VARIANTS:
+            region = ((..., slice(1, -1), slice(None)) if variant == "nomemset"
+                      else (...,))
+            got = ops.inkpad_conv(x, w, variant, h_t)
+            ref = ops.inkpad_conv_plain(x.float(), w.float(), variant, h_t)
+            row = dict(
+                variant=variant, x=list(shape), co=co, h_t=h_t,
+                dtype=dt_name, **_diffs(got, ref, region),
+                vs_legacy_max_abs=float((got[region].float()
+                                         - legacy[region]).abs().max()),
+                nonfinite=int((~torch.isfinite(got)).sum()))
+            del got, ref
+            ms, n = _timed(timer, lambda: ops.inkpad_conv(x, w, variant, h_t),
+                           "inkpad_conv")
+            plain_ms = timer(lambda: ops.inkpad_conv_plain(x, w, variant,
+                                                           h_t))
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=b_ms, bound_by=b_by, flops=flops,
+                       bytes=moved, launches=n)
+            rows.append(row)
+    return rows
+
+
+def _print_experiment_row(card: str, entry: str, r: dict) -> None:
+    if entry == "interleave":
+        what = (f"{r['form']} b{r['batch']} h{r['h']} inner {r['inner']}: "
+                f"exact {r['exact']}, K3 {r['k3_ms']:.4f} ms")
+    elif entry == "stripe_conv":
+        what = f"x {r['x']} w {r['w']} pads {r['pads']}"
+    else:
+        what = (f"{r['variant']:8s} x {r['x']} h_t {r['h_t']}: vs legacy "
+                f"{r['vs_legacy_max_abs']:.3e}, non-finite {r['nonfinite']}")
+    lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    print(f"[{card}] {entry} {r['dtype']} {what}; kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max rel diff "
+          f"{r['max_rel_diff']:.3e}, launches {r['launches']}")
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--bf16", action="store_true",
@@ -310,6 +539,15 @@ def main(argv=None) -> dict:
     p.add_argument("--smart", action="store_true",
                    help="time K5 against the K2 + K1 composition at every "
                         "RestoreNet SMART shape instead of tracing")
+    p.add_argument("--interleave", action="store_true",
+                   help="time K8's two forms against K3 and their plain "
+                        "version at exp_interleave.py's shapes")
+    p.add_argument("--stripe_conv", action="store_true",
+                   help="time K9 against cuDNN and its plain version at "
+                        "exp_pallas_conv.py's shapes")
+    p.add_argument("--inkpad", action="store_true",
+                   help="time K10's four stripe loads at exp_inkpad.py's "
+                        "shape")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
@@ -318,7 +556,15 @@ def main(argv=None) -> dict:
     os.environ["VSPBFR_FUSED_EPI"] = "1" if args.fused_epi else "0"
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     call = "restore"
-    if args.smart:
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    experiments = {"interleave": profile_interleave,
+                   "stripe_conv": profile_stripe_conv,
+                   "inkpad": profile_inkpad}
+    entry = next((k for k in experiments if getattr(args, k)), None)
+    if entry:
+        call, batch, size = entry, BATCH, None
+        res = {"rows": experiments[entry](dtype)}
+    elif args.smart:
         call, batch, size = "smart_core", BATCH, SIZE
         res = {"rows": profile_smart(torch.bfloat16 if args.bf16
                                      else torch.float32)}
@@ -360,7 +606,10 @@ def main(argv=None) -> dict:
                decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32",
                call=call, fused_epi=args.fused_epi,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    if args.smart:
+    if entry:
+        for r in res["rows"]:
+            _print_experiment_row(res["card"], entry, r)
+    elif args.smart:
         for r in res["rows"]:
             print(f"[{res['card']}] smart_core {r['dtype']} b{r['batch']} "
                   f"{r['size']}px C{r['channels']} (tile {r['tile']}): K5 "

@@ -243,7 +243,8 @@ class DeviceDegrader:
 
 
 class DeviceDegradeLoader:
-    """(lq, gt) training batches, degraded on `device`.
+    """(lq, gt) training batches, degraded on `device` (the card unless
+    the caller asks for another).
 
     Wraps the threaded `DataLoader` over a GT-only view of a
     `RestoreTrainDataset` (uint8 GT and a per-sample seed, from the
@@ -252,7 +253,7 @@ class DeviceDegradeLoader:
     dataset's quantize_gt, gray_prob and config apply. Yields (lq, gt),
     both (B, H, W, 3) f32 in [-1, 1] on `device`."""
 
-    def __init__(self, dataset, batch_size: int, *, device="cpu",
+    def __init__(self, dataset, batch_size: int, *, device="cuda",
                  num_workers: int = 8, prefetch: int = 4, seed: int = 0):
         self.ds = dataset
         self.device = torch.device(device)

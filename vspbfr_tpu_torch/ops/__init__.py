@@ -5,8 +5,11 @@ and K1e, K1 with the styled epilogue in its store), `dilated_conv` (K2,
 with its gradient), `d2s` (K3 and its inverse K4, each the other's
 gradient), `smart` (K5, the fused SMART core, whose gradient is the
 K2 + K1 composition's), `epilogue` (K6, the styled epilogue as its own
-pass) and `fused_act` (K7, bias + leaky ReLU), each beside its plain torch
-version; `_build` compiles and loads them. `launch_counts` reports each
+pass), `fused_act` (K7, bias + leaky ReLU), `interleave` (K8, two more
+forms of K3's permutation) and `stripe_conv` (K9, the per-tap stripe conv,
+and K10, its in-kernel padding variants), each beside its plain torch
+version; `_build` compiles and loads them. No product path calls K8-K10:
+`cli.profile --interleave / --stripe_conv / --inkpad` measure them. `launch_counts` reports each
 kernel's launches; `plain_cuda_calls` reports the calls of the two
 elementwise plain versions (K6's and K7's) on CUDA tensors, which no main
 path on the card should make.
@@ -33,6 +36,10 @@ from vspbfr_tpu_torch.ops.fused_act import (
     fused_leaky_relu_plain,
     scaled_leaky_relu,
 )
+from vspbfr_tpu_torch.ops.interleave import (
+    interleave_repeat,
+    interleave_stack,
+)
 from vspbfr_tpu_torch.ops.modulated_conv import (
     conv2d,
     demod_coeffs,
@@ -40,6 +47,12 @@ from vspbfr_tpu_torch.ops.modulated_conv import (
     modulated_conv2d_multi,
 )
 from vspbfr_tpu_torch.ops.smart import smart_core, smart_core_plain
+from vspbfr_tpu_torch.ops.stripe_conv import (
+    inkpad_conv,
+    inkpad_conv_plain,
+    stripe_conv,
+    stripe_conv_plain,
+)
 from vspbfr_tpu_torch.ops.upfirdn2d import (
     blur,
     downsample2d,
@@ -49,7 +62,8 @@ from vspbfr_tpu_torch.ops.upfirdn2d import (
 )
 
 KERNELS = (dense_conv, dense_conv_epilogue, dilated_multi_conv, d2s, s2d,
-           smart_core, conv_epilogue, fused_leaky_relu)
+           smart_core, conv_epilogue, fused_leaky_relu, interleave_stack,
+           interleave_repeat, stripe_conv, inkpad_conv)
 PLAIN_ON_CARD = (epilogue_plain, fused_leaky_relu_plain)
 
 
@@ -78,9 +92,11 @@ __all__ = [
     "dense_conv_epilogue_plain", "dense_conv_plain", "dilated_multi_conv",
     "dilated_multi_conv_plain", "downsample2d", "epilogue_plain",
     "epilogue_plain_chain", "fused_epi_enabled", "fused_leaky_relu",
-    "fused_leaky_relu_plain", "launch_counts", "make_resample_kernel",
+    "fused_leaky_relu_plain", "inkpad_conv", "inkpad_conv_plain",
+    "interleave_repeat", "interleave_stack", "launch_counts", "make_resample_kernel",
     "modulated_conv2d", "modulated_conv2d_multi", "plain_cuda_calls",
     "reset_launch_counts", "reset_plain_cuda_calls", "s2d", "s2d_plain",
-    "scaled_leaky_relu", "smart_core", "smart_core_plain", "upfirdn2d",
+    "scaled_leaky_relu", "smart_core", "smart_core_plain", "stripe_conv",
+    "stripe_conv_plain", "upfirdn2d",
     "upsample2d",
 ]

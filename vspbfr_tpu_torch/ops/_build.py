@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels (K1 dense conv and its fused
 epilogue form K1e, K2 multi-dilation conv, K3 phase interleave, K4 phase
-gather, K5 fused SMART core, K6 styled epilogue, K7 bias + leaky ReLU).
+gather, K5 fused SMART core, K6 styled epilogue, K7 bias + leaky ReLU, K8
+the interleave's stack and repeat forms, K9 stripe conv and K10 its
+in-kernel padding variants).
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 Here the sources under `vspbfr_tpu_torch/csrc/` are compiled by `nvcc` for
@@ -55,6 +57,12 @@ _SIGNATURES = {
     "vspbfr_conv_epilogue": [_P] * 5 + [_I] * 6 + [_P],
     # x, bias, y, dtype, n, C, aligned, slope, gain, stream
     "vspbfr_fused_lrelu": [_P] * 3 + [_I] * 4 + [_F, _F, _P],
+    # x, y, B, h, w, inner_bytes, unit_bytes, stream (both K8 forms)
+    "vspbfr_interleave_stack": [_P, _P] + [_I] * 5 + [_P],
+    "vspbfr_interleave_repeat": [_P, _P] + [_I] * 5 + [_P],
+    # x, wt, y, dtype, load, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, TH,
+    # stream
+    "vspbfr_stripe_conv": [_P] * 3 + [_I] * 14 + [_P],
 }
 
 

@@ -35,6 +35,19 @@ def s2d_plain(y: torch.Tensor, inner: int) -> torch.Tensor:
     return o.reshape(b, h2 // 2, w2 // 2, 4 * inner)
 
 
+def unit_bytes(name: str, x: torch.Tensor, y: torch.Tensor,
+               inner_bytes: int) -> int:
+    """The widest unit (16, 8, 4 or 2 bytes) that inner's bytes and both
+    pointers allow; a permutation kernel moves opaque units of it."""
+    unit = next(u for u in (16, 8, 4, 2, 1)
+                if inner_bytes % u == 0 and x.data_ptr() % u == 0
+                and y.data_ptr() % u == 0)
+    if unit < 2:
+        raise ValueError(f"{name}: inner of {inner_bytes} bytes is not a "
+                         "multiple of 2")
+    return unit
+
+
 def _launch(name: str, x: torch.Tensor, out_shape, h: int, w: int,
             inner: int) -> torch.Tensor:
     """Launch vspbfr_<name> on the grid (h, w) of 2x2 phase groups, moving
@@ -42,12 +55,7 @@ def _launch(name: str, x: torch.Tensor, out_shape, h: int, w: int,
     _build.check_cuda_inputs(name, x)
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     inner_bytes = inner * x.element_size()
-    unit = next(u for u in (16, 8, 4, 2, 1)
-                if inner_bytes % u == 0 and x.data_ptr() % u == 0
-                and y.data_ptr() % u == 0)
-    if unit < 2:
-        raise ValueError(f"{name}: inner of {inner_bytes} bytes is not a "
-                         "multiple of 2")
+    unit = unit_bytes(name, x, y, inner_bytes)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         lib.call(f"vspbfr_{name}", x.data_ptr(), y.data_ptr(), x.shape[0], h,
