@@ -8,22 +8,26 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
 1. device  - require CUDA; print the card's name and power limit; turn TF32
              off for matmuls and cuDNN (the plain f32 convs would run in
              TF32 otherwise).
-2. build   - build or load the kernels' shared library from `csrc/`; count
-             the tensor-core instructions (HMMA) in each instantiation of
-             the K9 / K10 kernel (`cuobjdump -sass`): its bf16 forms must
-             have them.
+2. build   - build or load the kernels' shared library from `csrc/`;
+             print ptxas's registers and spill bytes of each K1 / K1e / K2
+             instantiation; count the tensor-core instructions (HMMA, of
+             mma.sync) in each instantiation of the K9 / K10, K1 / K1e and
+             K2 kernels (`cuobjdump -sass`): every bf16 one must have
+             them.
 3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
              epilogue, K2 multi-dilation conv, K3 phase interleave, K5 fused
              SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU, K8
              the interleave's stack and repeat forms, K9 stripe conv, K10
              its four stripe loads) against its plain torch version at the
-             main paths' full-width shapes (K8-K10: the TPU experiments'
-             shapes; K8 exact, K10 `nomemset` on columns 1 .. W-2 only,
+             main paths' full-width shapes (K1e also as a styled conv at
+             each other K1 shape; K8-K10: the TPU experiments' shapes; K8 exact, K10 `nomemset` on columns 1 .. W-2 only,
              `nobranch` against its stripe model),
              batch 4, in f32 and bf16: error relative to max |plain|,
              median CUDA-event times of the kernel, the plain version and
              (where one call computes the same function) the library's
-             call, and the bound (the larger of operations over the card's
+             call (K1: cuDNN on x * in_scale; K2 has none, and a
+             composition stands beside it: cuDNN's four dilated convs and
+             the concatenation), and the bound (the larger of operations over the card's
              peak rate for the dtype and bytes over its memory rate); for
              K5 also the K2 + K1 composition SMARTLayer runs.
 4. slice   - the whole restoration path at a mid-size config, card
@@ -38,9 +42,11 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              plus K6, or K1e), and the bf16-vs-f32 PSNR.
 6. grads   - the kernels' gradients against plain torch autograd on the
              card: K1's Function (dx, whose K1 launch is timed, d_in_scale
-             and dw) at the decoder's full-width shapes, K1e's Function
+             and dw) at phase 3's nine K1 shapes, K1e's Function
              (every operand; dx a K1 launch; elements within 1e-5 of an
-             activation's kink get no incoming gradient, see `kink_free`),
+             activation's kink get no incoming gradient, see `kink_free`;
+             the f32 reference rounds x * in_scale where the kernel does,
+             see `scaled_input`),
              K2's Function (dx, the four
              branch weights, d_in_scale, d_out_scale) at the SMART shapes,
              K4 (the gradient of K3) at its two up-conv shapes, K6's and
@@ -87,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -212,28 +219,78 @@ def phase_device():
 
 # --- phase 2 ----------------------------------------------------------------
 
+# the kernels whose bf16 instantiations must run on the tensor cores: K9 /
+# K10, K1 and K1e (one template), K2
+TENSOR_CORE_KERNELS = ("stripe_conv_kernel", "dense_conv_kernel",
+                       "dilated_multi_kernel")
+
+
 def phase_build():
     from vspbfr_tpu_torch.ops import _build
 
     lib = _build.load_library()
     say(f"kernel library {lib.path} built/loaded in "
         f"{lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say("  ptxas:", line.strip())
+    regs = ptxas_report(lib.log, TENSOR_CORE_KERNELS[1:])
+    for fn, r in sorted(regs.items()):
+        say(f"  ptxas: {r['registers']:3d} registers, spill stores "
+            f"{r['spill_stores']} B, loads {r['spill_loads']} B: "
+            f"{demangle(fn)}")
     REPORT["build_seconds"] = lib.build_seconds
-    hmma = hmma_counts(lib.path, "stripe_conv_kernel")
-    for fn, n in sorted(hmma.items()):
-        say(f"  HMMA instructions: {n:5d} in {fn}")
-    bf16 = {fn: n for fn, n in hmma.items() if "nv_bfloat16" in fn}
-    if not bf16 or min(bf16.values()) == 0:
-        raise AssertionError(f"stripe_conv's bf16 kernels lack HMMA: {hmma}")
-    REPORT["stripe_conv_hmma"] = hmma
+    REPORT["ptxas"] = {demangle(fn): r for fn, r in regs.items()}
+    REPORT["tensor_core_lines"] = {}
+    for kernel in TENSOR_CORE_KERNELS:
+        counts = hmma_counts(lib.path, kernel)
+        for fn, hmma in sorted(counts.items()):
+            say(f"  HMMA {hmma:5d} lines in {demangle(fn)}")
+        bf16 = {fn: n for fn, n in counts.items() if "nv_bfloat16" in fn}
+        if not bf16 or min(bf16.values()) == 0:
+            raise AssertionError(f"{kernel}: a bf16 instantiation runs no "
+                                 f"tensor-core instruction: {counts}")
+        REPORT["tensor_core_lines"][kernel] = {
+            demangle(fn): n for fn, n in counts.items()}
+
+
+def demangle(name: str) -> str:
+    """The C++ name of a mangled symbol (c++filt), or the symbol as it is
+    where c++filt is missing."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, timeout=30,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return name
+
+
+def ptxas_report(log: str, kernels) -> dict[str, dict]:
+    """Registers and spill bytes that `ptxas -v` reported in the build log
+    for each entry function whose (mangled) name holds one of `kernels`."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in kernels) else None
+            if fn:
+                out[fn] = {"registers": 0, "spill_stores": 0,
+                           "spill_loads": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            fn = None
+    return out
 
 
 def hmma_counts(so, kernel: str) -> dict[str, int]:
-    """Lines of tensor-core MMA (HMMA) in the SASS of each function of the
-    library whose (mangled) name holds `kernel`."""
+    """Lines of tensor-core MMA (HMMA, the `mma.sync` form) in the SASS of
+    each function of the library whose (mangled) name holds `kernel`."""
     from vspbfr_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -253,26 +310,16 @@ def hmma_counts(so, kernel: str) -> dict[str, int]:
 # --- phase 3 ----------------------------------------------------------------
 
 def _k1_cases():
-    # (x shape, w shape, pads, label): 3x3 StyledConvs across the decoder and
-    # RestoreNet widths, the subpixel up-convs, LargeConv 1x1 fusion and
-    # rate-1 branch
-    p1, p0 = ((1, 1), (1, 1)), ((0, 0), (0, 0))
-    return [
-        ((4, 32, 32, 512), (3, 3, 512, 512), p1, "styled 32px C512"),
-        ((4, 128, 128, 256), (3, 3, 256, 256), p1, "styled 128px C256"),
-        ((4, 256, 256, 128), (3, 3, 128, 128), p1, "styled 256px C128"),
-        ((4, 512, 512, 64), (3, 3, 64, 64), p1, "styled 512px C64"),
-        ((4, 1024, 1024, 32), (3, 3, 32, 32), p1, "styled 1024px C32"),
-        ((4, 256, 256, 128), (3, 3, 128, 256), p1, "up-conv 256->512"),
-        ((4, 512, 512, 64), (3, 3, 64, 128), p1, "up-conv 512->1024"),
-        ((4, 512, 512, 64), (1, 1, 64, 64), p0, "LargeConv fusion 1x1"),
-        ((4, 512, 512, 3), (1, 1, 3, 16), p0, "LargeConv rate-1 1x1"),
-    ]
+    # (x shape, w shape, pads, label): the profiler's K1_CASES
+    from vspbfr_tpu_torch.cli.profile import K1_CASES
+
+    return list(K1_CASES)
 
 
 def _k2_cases():
-    return [((4, h, h, c), "SMART %dpx C%d" % (h, c)) for h, c in
-            ((8, 512), (64, 512), (128, 256), (256, 128), (512, 64))]
+    from vspbfr_tpu_torch.cli.profile import K2_SHAPES
+
+    return [((4, h, h, c), "SMART %dpx C%d" % (h, c)) for h, c in K2_SHAPES]
 
 
 def _k3_cases():
@@ -282,10 +329,11 @@ def _k3_cases():
 
 def _k1e_cases():
     """(x shape, w shape, epilogue pieces, label) of the K1e convs on the
-    stage-3 path at full width, b4: "s" in_scale + out_scale (a styled
-    conv), "n" noise, "b" bias + lrelu, "p" one post-activation add, "2"
-    the second noise / bias / lrelu stage."""
-    return [
+    stage-3 path at full width, b4, then K1e as a styled conv at each
+    other shape of `_k1_cases`: "s" in_scale + out_scale (a styled conv),
+    "n" noise, "b" bias + lrelu, "p" one post-activation add, "2" the
+    second noise / bias / lrelu stage."""
+    own = [
         ((4, 512, 512, 64), (3, 3, 64, 64), "b2",
          "SMART fusion 512px C64 +stage2"),
         ((4, 1024, 1024, 32), (3, 3, 32, 32), "snb", "styled 1024px C32"),
@@ -293,6 +341,9 @@ def _k1e_cases():
         ((4, 4, 4, 513), (3, 3, 513, 512), "b", "final_conv 4px Ci513"),
         ((4, 128, 128, 256), (3, 3, 256, 256), "snb", "styled 128px C256"),
     ]
+    seen = {case[:3] for case in own}
+    return own + [(xs, ws, "snb", label) for xs, ws, _, label in _k1_cases()
+                  if (xs, ws, "snb") not in seen]
 
 
 def _k6_cases():
@@ -495,10 +546,19 @@ def phase_kernels():
                 x, wl, dils, in_scale=s, out_scale=o))
             pms = cuda_ms(lambda: ops.dilated_multi_conv_plain(
                 x, wl, dils, s, o))
+            # no one library call computes K2: the yardstick is a
+            # composition, cuDNN's four dilated convs on x * in_scale and
+            # the concatenation (out_scale left out)
+            xs_ = x * s[:, None, None, :]
+            cms = cuda_ms(lambda: torch.cat(
+                [conv_nhwc(xs_, w, 1, ((d, d), (d, d)), dilation=d)
+                 for w, d in zip(wl, dils)], dim=-1))
             _check("dilated_multi_conv", label, dt_name, got, ref, ms, pms,
                    rows, flops=2 * got.numel() * 9 * c,
-                   moved=nbytes(x, *wl, s, o, got))
-            del x, wl, s, o, got, ref
+                   moved=nbytes(x, *wl, s, o, got), composition_ms=cms)
+            say(f"{'':20s} {label:28s} {dt_name:4s} cuDNN 4 dilated convs + "
+                f"cat (composition) {cms:.4f} ms")
+            del x, wl, s, o, got, ref, xs_
         for xs, inner, label in _k3_cases():
             x = rand(*xs).to(dt)
             got = ops.d2s(x, inner)
@@ -817,11 +877,10 @@ def phase_cli():
 # --- phase 6 ----------------------------------------------------------------
 
 def _k1_grad_cases():
-    # the decoder's K1 convs at full width, b4: 3x3 StyledConvs and the
-    # assembled subpixel up-convs (K1 + K3 in the forward, K4 + K1's dx in
-    # the backward)
-    p1 = ((1, 1), (1, 1))
-    return [c for c in _k1_cases() if c[2] == p1]
+    # every K1 shape of phase 3: the 3x3 StyledConvs, the assembled
+    # subpixel up-convs (K1 + K3 in the forward, K4 + K1's dx in the
+    # backward) and LargeConv's two 1x1 convs
+    return _k1_cases()
 
 
 def _timed_grads(fn, leaves, g):
@@ -850,6 +909,19 @@ def _grads_vs_plain(kernel_fn, plain_fn, leaves, g):
     return got, ref, ms, pms
 
 
+def scaled_input(x, s, dt):
+    """x * in_scale rounded to dt where x is wider (its gradient unchanged):
+    K1 and K1e, like the TPU kernel and the plain version at the working
+    dtype, round the scaled input to x's dtype before the products. The f32
+    references of the K1e gradient checks round there too: where the
+    rounding moves a pre-activation across 0, the slope changes by 5x in
+    that element."""
+    xs = x * s[:, None, None, :]
+    if xs.dtype == dt:
+        return xs
+    return xs + (xs.to(dt).to(xs.dtype) - xs).detach()
+
+
 def kink_free(x, w, pads, kw, band: float = 1e-5):
     """The output elements where each activation's input (from the plain
     version in f32) lies more than band x its max |.| away from 0. The
@@ -865,9 +937,11 @@ def kink_free(x, w, pads, kw, band: float = 1e-5):
     def f32(t):
         return None if t is None else t.float()
 
+    xs = x.float()
+    if kw.get("in_scale") is not None:
+        xs = scaled_input(xs, kw["in_scale"].float(), x.dtype)
     u = ops.epilogue_plain_chain(
-        ops.dense_conv_plain(x.float(), w.float(), pads,
-                             f32(kw.get("in_scale"))),
+        ops.dense_conv_plain(xs, w.float(), pads),
         f32(kw.get("out_scale")), f32(kw.get("noise")), f32(kw.get("bias")),
         act=False)
     keep = torch.ones_like(u, dtype=torch.bool)
@@ -957,7 +1031,12 @@ def phase_grads():
                 return fn(x_, w_, pads, **dict(zip(names, ops_)), **flags)
 
             def plain(x_, w_, *ops_):
-                return k1e(x_, w_, *ops_, fn=ops.dense_conv_epilogue_plain)
+                kw_ = dict(zip(names, ops_))
+                s_ = kw_.pop("in_scale", None)
+                if s_ is not None:
+                    x_ = scaled_input(x_, s_, dt)
+                return ops.dense_conv_epilogue_plain(x_, w_, pads, **kw_,
+                                                     **flags)
 
             out = k1e(*leaves)
             keep = kink_free(x, w, pads, kw)

@@ -24,7 +24,12 @@ a block's rows, offset views that shrink its unit, a staged column of
 16-32 KB; K9 (the stripe conv) at odd W, H not divisible by its tile, Ci
 and Co that are no multiple of 16 (Ci 5 and 6 fill the stripe with plain loads), 1x1 and
 2x2 kernels with asymmetric pads; K10's four stripe loads at H not
-divisible by h_t (`nomemset` on columns 1 .. W-2).
+divisible by h_t (`nomemset` on columns 1 .. W-2). K1, K1e and K2 share
+one tile body (`csrc/conv_tile.cuh`) with several tiles; the tile-edge
+cases put H, W and Co off each tile's multiples, take Ci 3, 8 and 513,
+misaligned views (the plain-load fill), 1x1 and 2x2 taps, pads (0, 1) and
+(1, 0), 4 and 8 px images with dilation 8, unequal branch widths, and
+K1e with every epilogue piece and its sign mask.
 
 Tolerance: f32 <= 1e-4 of max |plain| (the same products summed in another
 order); bf16 <= 2e-2 (plain runs in f32 on the same bf16 inputs, so the
@@ -53,6 +58,27 @@ def dev():
 
 def _rand(gen, dev, *shape, scale=1.0, offset=0.0):
     return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+
+def _offset_view(t, elems):
+    """A contiguous copy of t whose data starts `elems` elements past a
+    16-byte boundary (so the interleave's unit shrinks, and the convs fill
+    their stage with plain loads)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    v = buf[elems:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _scaled_input(x, s, dtype):
+    """x * in_scale in f32, rounded to `dtype` (its gradient unchanged): the
+    kernels, like the TPU kernel and the plain version at the working
+    dtype, round the scaled input to x's dtype before the products. A
+    gradient reference across an activation must round there too: where
+    the rounding moves a pre-activation across 0, the slope changes by 5x
+    in that element."""
+    xs = x * s[:, None, None, :]
+    return xs + (xs.to(dtype).to(xs.dtype) - xs).detach()
 
 
 def _assert_close(got, ref, dtype):
@@ -288,8 +314,9 @@ def test_dense_conv_epilogue_grads_match_plain_autograd(dev, dtype, shape, k,
     ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
     rkw = dict(kw, **dict(zip(names, ref_leaves[3:3 + len(names)])),
                post_add=tuple(ref_leaves[3 + len(names):]))
-    ref_out = ops.dense_conv_epilogue_plain(*ref_leaves[:2], pads,
-                                            ref_leaves[2], **rkw)
+    ref_out = ops.dense_conv_epilogue_plain(
+        _scaled_input(ref_leaves[0], ref_leaves[2], dtype), ref_leaves[1],
+        pads, **rkw)
     ref = torch.autograd.grad(ref_out, ref_leaves, g.float())
     for a, r in zip(got, ref):
         _assert_close(a, r, dtype)
@@ -346,6 +373,142 @@ def test_dilated_multi_grads_match_plain_autograd(dev, dtype, hw, ci, cos,
     ref = torch.autograd.grad(ref_out, rl, g.float())
     for a, r in zip(got, ref):
         _assert_close(a, r, dtype)
+
+
+# --- K1 / K1e / K2 tile edges -----------------------------------------------
+# K1 and K2 run one tile body (csrc/conv_tile.cuh) with four tiles: 64
+# channels by 256 px (bf16) / 128 px (f32), 32 channels, 16 channels, and
+# 64 px for images of at most 64 px. These cases sit on each tile's edges.
+
+K1_TILE_CASES = [   # (x shape, (KH, KW), Co, pads)
+    ((2, 19, 23, 32), (3, 3), 64, ((1, 1), (1, 1))),    # H, W no tile mult.
+    ((1, 21, 37, 24), (3, 3), 70, ((1, 1), (1, 1))),    # Co past a 64 tile
+    ((2, 35, 18, 16), (3, 3), 40, ((1, 1), (1, 1))),    # Co 40: two tiles
+    ((1, 40, 33, 32), (3, 3), 24, ((1, 1), (1, 1))),    # the 32 tile, ragged
+    ((2, 17, 30, 8), (3, 3), 12, ((1, 1), (1, 1))),     # the 16 tile, Ci 8
+    ((1, 33, 20, 3), (3, 3), 16, ((1, 1), (1, 1))),     # Ci 3: plain loads
+    ((2, 12, 11, 5), (1, 1), 3, ((0, 0), (0, 0))),      # 1x1, Co 3
+    ((1, 16, 24, 40), (2, 2), 33, ((0, 1), (0, 1))),    # 2x2 (0, 1)
+    ((2, 15, 9, 24), (2, 2), 64, ((1, 0), (1, 0))),     # 2x2 (1, 0)
+    ((1, 14, 13, 16), (3, 3), 20, ((0, 1), (1, 0))),    # pads (0, 1), (1, 0)
+    ((2, 4, 4, 513), (3, 3), 96, ((1, 1), (1, 1))),     # 4 px, Ci 513
+    ((1, 8, 8, 36), (3, 3), 130, ((1, 1), (1, 1))),     # 8 px, Co 130
+    ((1, 5, 3, 12), (3, 3), 7, ((2, 0), (0, 2))),       # halo > image
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,co,pads", K1_TILE_CASES)
+def test_dense_conv_tile_edges(dev, dtype, shape, k, co, pads):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, *k, shape[3], co) / (k[0] * k[1] * shape[3]) ** 0.5
+         ).to(dtype)
+    s = _rand(gen, dev, shape[0], shape[3], scale=0.2, offset=1.0).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.dense_conv(x, w, pads, in_scale=s)
+    assert ops.launch_counts()["dense_conv"] == 1
+    ref = ops.dense_conv_plain(x.float(), w.float(), pads, s.float())
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_dense_conv_takes_misaligned_views(dev, dtype, offset):
+    """x, w and in_scale start off a 16-byte boundary, so the stage is
+    filled by plain loads (and the store by scalars where y is also)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = _offset_view(_rand(gen, dev, 2, 13, 18, 32).to(dtype), offset)
+    w = _offset_view((_rand(gen, dev, 3, 3, 32, 48) * 0.1).to(dtype), offset)
+    s = _offset_view(_rand(gen, dev, 2, 32, scale=0.2, offset=1.0).to(dtype),
+                     offset)
+    pads = ((1, 1), (1, 1))
+    got = ops.dense_conv(x, w, pads, in_scale=s)
+    ref = ops.dense_conv_plain(x.float(), w.float(), pads, s.float())
+    _assert_close(got, ref, dtype)
+    kw = _epilogue_operands(gen, dev, dtype, 2, 13, 18, 48, 1, False)
+    got = ops.dense_conv_epilogue(x, w, pads, in_scale=s, **kw)
+    ref = ops.dense_conv_epilogue_plain(x.float(), w.float(), pads, s.float(),
+                                        **_f32(kw))
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,co,post,stage2", [
+    ((2, 9, 19, 32), 3, 32, 1, False),    # the 32 tile, one post add
+    ((1, 18, 17, 8), 3, 16, 2, False),    # the 16 tile, two post adds
+    ((2, 4, 4, 65), 3, 64, 0, True),      # 4 px, stage 2
+    ((1, 21, 13, 16), 1, 70, 1, False),   # 1x1, Co past a tile
+])
+def test_dense_conv_epilogue_every_piece_and_mask(dev, dtype, shape, k, co,
+                                                  post, stage2):
+    """K1e with every epilogue piece on each tile; the sign byte it stores
+    for the backward equals the plain first-stage pre-activation's sign
+    wherever that lies outside rounding of 0."""
+    from vspbfr_tpu_torch.ops.dense_conv import _dense_conv_epi_forward
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, h, w_, ci = shape
+    pads = ((k // 2, k // 2), (k // 2, k // 2))
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, k, k, ci, co) / (k * k * ci) ** 0.5).to(dtype)
+    s = _rand(gen, dev, b, ci, scale=0.2, offset=1.0).to(dtype)
+    kw = _epilogue_operands(gen, dev, dtype, b, h, w_, co, post, stage2)
+    got, mask = _dense_conv_epi_forward(
+        x, w, pads, s, kw["out_scale"], kw["noise"], kw["bias"], True,
+        kw["post_add"], kw.get("noise2"), kw.get("bias2"),
+        kw.get("act2", False), want_mask=True)
+    f = _f32(kw)
+    ref = ops.dense_conv_epilogue_plain(x.float(), w.float(), pads, s.float(),
+                                        **f)
+    _assert_close(got, ref, dtype)
+    u = ops.epilogue_plain_chain(
+        ops.dense_conv_plain(x.float(), w.float(), pads, s.float()),
+        f["out_scale"], f["noise"], f["bias"], act=False)
+    far = u.abs() > 4 * TOL[dtype] * float(u.abs().max())
+    assert mask.dtype == torch.bool and mask.shape == u.shape
+    assert torch.equal(mask[far], (u >= 0)[far])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,ci,cos,dils", [
+    ((4, 4), 32, (8, 8, 8, 8), (1, 2, 4, 8)),        # 4 px, dilation 8
+    ((8, 8), 64, (16, 16, 16, 16), (1, 2, 4, 8)),    # 8 px, dilation 8
+    ((19, 21), 24, (5, 16, 33, 70), (1, 2, 4, 8)),   # unequal widths
+    ((17, 33), 16, (16, 16, 16, 16), (1, 2, 4, 8)),  # the 16 tile, ragged
+    ((12, 40), 32, (32, 24, 32), (8, 1, 3)),         # the 32 tile
+    ((9, 14), 3, (4, 6), (2, 5)),                    # Ci 3: plain loads
+    ((6, 7), 513, (64, 66), (1, 8)),                 # Ci 513
+])
+def test_dilated_multi_tile_edges(dev, dtype, hw, ci, cos, dils):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b = 2
+    x = _rand(gen, dev, b, *hw, ci).to(dtype)
+    ws = [(_rand(gen, dev, 3, 3, ci, c) / (9 * ci) ** 0.5).to(dtype)
+          for c in cos]
+    s = _rand(gen, dev, b, ci, scale=0.2, offset=1.0).to(dtype)
+    o = _rand(gen, dev, b, sum(cos), scale=0.2, offset=1.0).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.dilated_multi_conv(x, ws, dils, in_scale=s, out_scale=o)
+    assert ops.launch_counts()["dilated_multi_conv"] == 1
+    ref = ops.dilated_multi_conv_plain(x.float(), [t.float() for t in ws],
+                                       dils, s.float(), o.float())
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dilated_multi_takes_misaligned_branch_weights(dev, dtype):
+    """Each branch's weights are read where they lie: views off a 16-byte
+    boundary (plain loads) and views into one shared buffer."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = _offset_view(_rand(gen, dev, 2, 11, 13, 16).to(dtype), 1)
+    full = (_rand(gen, dev, 4, 3, 3, 16, 8) * 0.1).to(dtype)
+    ws = [full[0], full[1], _offset_view(full[2], 1), _offset_view(full[3], 3)]
+    dils = (1, 2, 4, 8)
+    got = ops.dilated_multi_conv(x, ws, dils)
+    ref = ops.dilated_multi_conv_plain(x.float(), [t.float() for t in ws],
+                                       dils)
+    _assert_close(got, ref, dtype)
 
 
 # --- K6 ---------------------------------------------------------------------
@@ -532,15 +695,6 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 # --- K8 (interleave forms), K9 (stripe conv), K10 (its stripe loads) -------
-
-def _offset_view(t, elems):
-    """A contiguous copy of t whose data starts `elems` elements past a
-    16-byte boundary (so the interleave's unit shrinks)."""
-    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
-    v = buf[elems:].view(t.shape)
-    v.copy_(t)
-    return v
-
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,inner,offset", [

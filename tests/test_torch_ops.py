@@ -194,6 +194,40 @@ def test_dilated_multi_refuses_groups():
         ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=4)
 
 
+def test_every_c_entry_point_has_its_signature():
+    """The C entry points in csrc/ and the ctypes signatures the loader
+    sets are the same set, each with as many arguments as its C
+    declaration."""
+    import re
+
+    from vspbfr_tpu_torch.ops import _build
+
+    declared = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                             src.read_text(), re.S):
+            declared[m.group(1)] = len(m.group(2).split(","))
+    assert declared == {k: len(v) for k, v in _build._SIGNATURES.items()}
+
+
+@pytest.mark.parametrize("ws,dils,out_c", [
+    ([(3, 3, 8, 4), (3, 3, 6, 4)], (1, 2), None),   # a branch's Ci differs
+    ([(3, 3, 8, 4), (1, 1, 8, 4)], (1, 2), None),   # a branch is not 3x3
+    ([(3, 3, 8, 4), (3, 3, 8, 2)], (1,), None),     # fewer dilations
+    ([(3, 3, 8, 2)] * 9, (1,) * 9, None),           # more than 8 branches
+    ([(3, 3, 8, 4), (3, 3, 8, 2)], (1, 0), None),   # dilation 0
+    ([(3, 3, 8, 4), (3, 3, 8, 2)], (1, 2), 4),      # out_scale width
+])
+def test_dilated_multi_refuses_mismatched_branches(ws, dils, out_c):
+    """The wrapper's checks, which now guard the kernel's per-branch
+    weight pointers, refuse branches that do not fit x or each other."""
+    x = torch.zeros(1, 4, 4, 8)
+    osc = None if out_c is None else torch.ones(1, out_c)
+    with pytest.raises(ValueError):
+        ops.dilated_multi_conv(x, [torch.zeros(s) for s in ws], dils,
+                               out_scale=osc)
+
+
 # --- K1e --------------------------------------------------------------------
 
 @pytest.mark.parametrize("ci,k,post,stage2", [

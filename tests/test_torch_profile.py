@@ -40,7 +40,18 @@ def _ev(name, start, end, device=DeviceType.CUDA):
      "(float const*, ...)", "K1e dense_conv_epilogue"),
     ("void vspbfr::(anonymous namespace)::dense_conv_kernel<__nv_bfloat16, "
      "true>(__nv_bfloat16 const*, ...)", "K1e dense_conv_epilogue"),
+    ("void vspbfr::(anonymous namespace)::dense_conv_kernel<__nv_bfloat16, "
+     "true, vspbfr::tile::Mma<2, 4, 4>>(__nv_bfloat16 const*, ...)",
+     "K1e dense_conv_epilogue"),
+    ("void vspbfr::(anonymous namespace)::dense_conv_kernel<float, false, "
+     "vspbfr::tile::Fma<8, 2, 4>>(float const*, ...)", "K1 dense_conv"),
     ("void dilated_multi_kernel<__nv_bfloat16>(...)",
+     "K2 dilated_multi_conv"),
+    ("void vspbfr::(anonymous namespace)::dilated_multi_kernel<float, "
+     "vspbfr::tile::Fma<4, 1, 4>>(float const*, ...)",
+     "K2 dilated_multi_conv"),
+    ("void vspbfr::(anonymous namespace)::dilated_multi_kernel<"
+     "__nv_bfloat16, vspbfr::tile::Mma<2, 4, 1>>(__nv_bfloat16 const*, ...)",
      "K2 dilated_multi_conv"),
     ("void d2s_kernel<uint4>(uint4 const*, ...)", "K3 d2s"),
     ("void s2d_kernel<uint4>(uint4 const*, ...)", "K4 s2d"),

@@ -112,8 +112,8 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
-    ("K1e dense_conv_epilogue", ("dense_conv_kernel<float, true>",
-                                 "dense_conv_kernel<__nv_bfloat16, true>")),
+    ("K1e dense_conv_epilogue", ("dense_conv_kernel<float, true",
+                                 "dense_conv_kernel<__nv_bfloat16, true")),
     ("K1 dense_conv", ("dense_conv_kernel",)),
     ("K2 dilated_multi_conv", ("dilated_multi_kernel",)),
     ("K3 d2s", ("d2s_kernel",)),
@@ -507,6 +507,25 @@ def profile_inkpad(dtype: torch.dtype, device="cuda", shape=INKPAD_SHAPE,
                        bytes=moved, launches=n)
             rows.append(row)
     return rows
+
+
+# the main path's K1 convs at full width, b4 (x shape, w shape, pads,
+# label): 3x3 StyledConvs across the decoder and RestoreNet widths, the
+# subpixel up-convs, LargeConv's 1x1 fusion and rate-1 branch
+_P1, _P0 = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+K1_CASES = (
+    ((4, 32, 32, 512), (3, 3, 512, 512), _P1, "styled 32px C512"),
+    ((4, 128, 128, 256), (3, 3, 256, 256), _P1, "styled 128px C256"),
+    ((4, 256, 256, 128), (3, 3, 128, 128), _P1, "styled 256px C128"),
+    ((4, 512, 512, 64), (3, 3, 64, 64), _P1, "styled 512px C64"),
+    ((4, 1024, 1024, 32), (3, 3, 32, 32), _P1, "styled 1024px C32"),
+    ((4, 256, 256, 128), (3, 3, 128, 256), _P1, "up-conv 256->512"),
+    ((4, 512, 512, 64), (3, 3, 64, 128), _P1, "up-conv 512->1024"),
+    ((4, 512, 512, 64), (1, 1, 64, 64), _P0, "LargeConv fusion 1x1"),
+    ((4, 512, 512, 3), (1, 1, 3, 16), _P0, "LargeConv rate-1 1x1"),
+)
+# the SMART shapes K2 is timed at (side, C), b4
+K2_SHAPES = ((8, 512), (64, 512), (128, 256), (256, 128), (512, 64))
 
 
 def _print_experiment_row(card: str, entry: str, r: dict) -> None:

@@ -58,7 +58,7 @@
 // weights and are not stored; pixels past the image are not stored. Where
 // Ci * itemsize is not a multiple of 16 bytes, or a pointer is not 16-byte
 // aligned, the stage is filled by plain loads instead of cp.async.
-#include "common.cuh"
+#include "conv_tile.cuh"
 
 namespace vspbfr {
 namespace {
@@ -79,60 +79,6 @@ struct Geom {
   int tiles_x, tiles_y, co_tiles;
   int vec;                          // cp.async usable
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; the bytes past `valid` (0..16) are zero-filled
-// and the source is not read past them.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void zero16(char* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// One 16-byte segment of a stripe or weight row: `valid` elements from src
-// (0 .. 16 / sizeof(T)), zeros after them.
-template <typename T>
-__device__ __forceinline__ void load_seg(char* dst, const T* src, int valid,
-                                         bool vec) {
-  constexpr int E = 16 / (int)sizeof(T);
-  valid = valid < 0 ? 0 : (valid > E ? E : valid);
-  if (vec) {
-    cp_async16(dst, src, valid * (int)sizeof(T));
-  } else {
-    T* d = reinterpret_cast<T*>(dst);
-#pragma unroll
-    for (int k = 0; k < E; ++k) d[k] = k < valid ? src[k] : from_f<T>(0.f);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The accumulator and the per-pass tile products of each dtype.
 template <typename T>

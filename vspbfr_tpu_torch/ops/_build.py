@@ -42,9 +42,10 @@ _SIGNATURES = {
     # mask, n_post, act, act2, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH,
     # OW, stream
     "vspbfr_dense_conv_epi": [_P] * 12 + [_I] * 15 + [_P],
-    # x, w, in_scale, out_scale, y, dtype, B, H, W, Ci, n, dils, cos, stream
-    "vspbfr_dilated_multi_conv": [_P] * 5 + [_I] * 6
-    + [ctypes.POINTER(_I), ctypes.POINTER(_I), _P],
+    # x, ws (one pointer a branch), in_scale, out_scale, y, dtype, B, H, W,
+    # Ci, n, dils, cos, stream
+    "vspbfr_dilated_multi_conv": [_P, ctypes.POINTER(_P)] + [_P] * 3
+    + [_I] * 6 + [ctypes.POINTER(_I), ctypes.POINTER(_I), _P],
     # x, y, B, h, w, inner_bytes, unit_bytes, stream
     "vspbfr_d2s": [_P, _P] + [_I] * 5 + [_P],
     # x, y, B, h, w (the output grid), inner_bytes, unit_bytes, stream

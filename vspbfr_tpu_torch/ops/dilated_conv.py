@@ -3,7 +3,9 @@
 Counterpart of `vspbfr_tpu/ops/pallas_dilated.py` (`dilated_multi_conv`,
 the Pallas `_multi_pallas`): N same-input 3x3 "same" dilated convs, outputs
 concatenated on channels, with an optional (B, Ci) input scale and a
-(B, sum Co) output scale. The CUDA source is `csrc/dilated_conv.cu`.
+(B, sum Co) output scale. The CUDA source is `csrc/dilated_conv.cu`; it
+reads each branch's weights where they lie (one pointer a branch), so the
+forward copies no weights.
 
 Only `groups=1` (the unpacked layout) is ported; the grouped form served
 the space-to-depth layout, which the port does not carry.
@@ -81,16 +83,16 @@ def _multi_forward(x, ws, dils, in_scale, out_scale) -> torch.Tensor:
     cos = _check(x, ws, dils, in_scale, out_scale)
     _build.check_cuda_inputs(name, x, *ws, in_scale, out_scale)
     b, h, wd, ci = x.shape
-    w_all = torch.cat(ws, dim=3).contiguous()   # (3, 3, Ci, sum Co) HWIO
     y = torch.empty((b, h, wd, sum(cos)), dtype=x.dtype, device=x.device)
+    # the kernel reads each branch's weights in place, one pointer a branch
+    c_ws = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
     c_dils = (ctypes.c_int * len(dils))(*dils)
     c_cos = (ctypes.c_int * len(cos))(*cos)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
-        lib.call("vspbfr_dilated_multi_conv", x.data_ptr(), w_all.data_ptr(),
-                 _build.ptr(in_scale), _build.ptr(out_scale), y.data_ptr(),
-                 _build.dtype_code(x), b, h, wd, ci, len(ws), c_dils, c_cos,
-                 _build.stream_of(x))
+        lib.call("vspbfr_dilated_multi_conv", x.data_ptr(), c_ws, _build.ptr(in_scale),
+                 _build.ptr(out_scale), y.data_ptr(), _build.dtype_code(x),
+                 b, h, wd, ci, len(ws), c_dils, c_cos, _build.stream_of(x))
     dilated_multi_conv.launches += 1
     return y
 
