@@ -9,11 +9,13 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              off for matmuls and cuDNN (the plain f32 convs would run in
              TF32 otherwise).
 2. build   - build or load the kernels' shared library from `csrc/`;
-             print ptxas's registers and spill bytes of each K1 / K1e / K2
-             instantiation; count the tensor-core instructions (HMMA, of
-             mma.sync) in each instantiation of the K9 / K10, K1 / K1e and
-             K2 kernels (`cuobjdump -sass`): every bf16 one must have
-             them.
+             print ptxas's registers and spill bytes of each K9 / K10, K1 /
+             K1e and K2 instantiation; count, in the SASS of each
+             (`cuobjdump -sass`), the tensor-core instructions (HMMA of
+             mma.sync, HGMMA of wgmma) and TMA loads (UTMALDG): every bf16
+             K1 / K1e / K2 one must have HMMA, every bf16 K9 / K10 one
+             (one kernel with the TMA and the plain-load producer) HGMMA
+             and UTMALDG.
 3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
              epilogue, K2 multi-dilation conv, K3 phase interleave, K5 fused
              SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU, K8
@@ -219,10 +221,13 @@ def phase_device():
 
 # --- phase 2 ----------------------------------------------------------------
 
-# the kernels whose bf16 instantiations must run on the tensor cores: K9 /
-# K10, K1 and K1e (one template), K2
-TENSOR_CORE_KERNELS = ("stripe_conv_kernel", "dense_conv_kernel",
-                       "dilated_multi_kernel")
+# the SASS instructions every bf16 instantiation of each kernel must hold:
+# K9 / K10 wgmma (HGMMA) fed by TMA (UTMALDG), K1 and K1e (one template)
+# and K2 mma.sync (HMMA)
+SASS_REQUIRED = {"stripe_conv_kernel": ("HGMMA", "UTMALDG"),
+                 "dense_conv_kernel": ("HMMA",),
+                 "dilated_multi_kernel": ("HMMA",)}
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 
 def phase_build():
@@ -231,7 +236,7 @@ def phase_build():
     lib = _build.load_library()
     say(f"kernel library {lib.path} built/loaded in "
         f"{lib.build_seconds:.2f} s")
-    regs = ptxas_report(lib.log, TENSOR_CORE_KERNELS[1:])
+    regs = ptxas_report(lib.log, SASS_REQUIRED)
     for fn, r in sorted(regs.items()):
         say(f"  ptxas: {r['registers']:3d} registers, spill stores "
             f"{r['spill_stores']} B, loads {r['spill_loads']} B: "
@@ -239,16 +244,19 @@ def phase_build():
     REPORT["build_seconds"] = lib.build_seconds
     REPORT["ptxas"] = {demangle(fn): r for fn, r in regs.items()}
     REPORT["tensor_core_lines"] = {}
-    for kernel in TENSOR_CORE_KERNELS:
-        counts = hmma_counts(lib.path, kernel)
-        for fn, hmma in sorted(counts.items()):
-            say(f"  HMMA {hmma:5d} lines in {demangle(fn)}")
-        bf16 = {fn: n for fn, n in counts.items() if "nv_bfloat16" in fn}
-        if not bf16 or min(bf16.values()) == 0:
-            raise AssertionError(f"{kernel}: a bf16 instantiation runs no "
-                                 f"tensor-core instruction: {counts}")
+    for kernel, required in SASS_REQUIRED.items():
+        counts = sass_counts(lib.path, kernel)
+        for fn, c in sorted(counts.items()):
+            say("  " + " ".join(f"{op} {c[op]:4d}" for op in SASS_OPS)
+                + f" lines in {demangle(fn)}")
+        bf16 = {fn: c for fn, c in counts.items() if "nv_bfloat16" in fn}
+        missing = [fn for fn, c in bf16.items()
+                   if min(c[op] for op in required) == 0]
+        if not bf16 or missing:
+            raise AssertionError(f"{kernel}: a bf16 instantiation lacks "
+                                 f"{required}: {missing or counts}")
         REPORT["tensor_core_lines"][kernel] = {
-            demangle(fn): n for fn, n in counts.items()}
+            demangle(fn): c for fn, c in counts.items()}
 
 
 def demangle(name: str) -> str:
@@ -288,9 +296,10 @@ def ptxas_report(log: str, kernels) -> dict[str, dict]:
     return out
 
 
-def hmma_counts(so, kernel: str) -> dict[str, int]:
-    """Lines of tensor-core MMA (HMMA, the `mma.sync` form) in the SASS of
-    each function of the library whose (mangled) name holds `kernel`."""
+def sass_counts(so, kernel: str) -> dict[str, dict[str, int]]:
+    """Lines of each of SASS_OPS (HMMA: mma.sync; HGMMA: wgmma; UTMALDG: a
+    TMA load) in the SASS of each function of the library whose (mangled)
+    name holds `kernel`."""
     from vspbfr_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -301,9 +310,11 @@ def hmma_counts(so, kernel: str) -> dict[str, int]:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             if kernel in fn:
-                counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
-            counts[fn] += 1
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn in counts:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
     return counts
 
 

@@ -22,9 +22,11 @@ demod off, with its gradient (a K2 + K1 recomputation); K8 (the
 interleave's stack and repeat forms) at odd widths, h not divisible by
 a block's rows, offset views that shrink its unit, a staged column of
 16-32 KB; K9 (the stripe conv) at odd W, H not divisible by its tile, Ci
-and Co that are no multiple of 16 (Ci 5 and 6 fill the stripe with plain loads), 1x1 and
-2x2 kernels with asymmetric pads; K10's four stripe loads at H not
-divisible by h_t (`nomemset` on columns 1 .. W-2). K1, K1e and K2 share
+and Co that are no multiple of 16 (Ci 5 and 6, and an offset view, fill
+the ring with plain loads instead of TMA), 1x1 and 2x2 kernels with
+asymmetric pads, enough input channels to wrap both rings, a ragged
+256-channel tile, more tiles than multiprocessors; K10's four stripe loads
+at H not divisible by h_t (`nomemset` on columns 1 .. W-2). K1, K1e and K2 share
 one tile body (`csrc/conv_tile.cuh`) with several tiles; the tile-edge
 cases put H, W and Co off each tile's multiples, take Ci 3, 8 and 513,
 misaligned views (the plain-load fill), 1x1 and 2x2 taps, pads (0, 1) and
@@ -35,6 +37,8 @@ Tolerance: f32 <= 1e-4 of max |plain| (the same products summed in another
 order); bf16 <= 2e-2 (plain runs in f32 on the same bf16 inputs, so the
 kernel's bf16 output rounding dominates); K3 and K4 exact.
 """
+
+import importlib
 
 import pytest
 
@@ -723,6 +727,10 @@ def test_interleave_forms_match_plain_exactly(dev, dtype, shape, inner,
     ((1, 6, 5, 8), (3, 3), 20, ((0, 2), (2, 0))),
     ((2, 5, 7, 16), (1, 1), 3, ((0, 0), (0, 0))),
     ((1, 19, 33, 136), (3, 3), 130, ((1, 1), (1, 1))),
+    # five chunks (both rings wrap), Co 300 on a ragged 256-channel tile
+    ((1, 21, 19, 264), (3, 3), 300, ((1, 1), (1, 1))),
+    ((1, 18, 20, 192), (2, 2), 96, ((0, 1), (0, 1))),   # 2x2, three chunks
+    ((4, 96, 96, 128), (3, 3), 128, ((1, 1), (1, 1))),  # more tiles than SMs
 ])
 def test_stripe_conv_matches_plain(dev, dtype, shape, k, co, pads):
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -740,6 +748,7 @@ def test_stripe_conv_matches_plain(dev, dtype, shape, k, co, pads):
     ((2, 20, 9, 24), 40, 4),     # H not divisible by h_t, odd W
     ((1, 37, 13, 6), 16, 16),    # Ci 6: plain loads; ragged last tile
     ((1, 16, 16, 64), 64, 1),
+    ((2, 34, 40, 136), 264, 8),  # three chunks, ragged 256-channel tile
 ])
 def test_inkpad_conv_matches_plain(dev, dtype, variant, shape, co, h_t):
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -750,6 +759,23 @@ def test_inkpad_conv_matches_plain(dev, dtype, variant, shape, co, h_t):
     if variant == "nomemset":
         got, ref = got[:, :, 1:-1], ref[:, :, 1:-1]
     _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stripe_conv_takes_misaligned_views(dev, dtype):
+    """An x that starts off a 16-byte boundary: the plain-load producer
+    (bf16: instead of TMA, into the same ring) with Ci that TMA could take
+    otherwise."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _offset_view(_rand(gen, dev, 2, 11, 13, 64).to(dtype), 1)
+    w = (_rand(gen, dev, 3, 3, 64, 72) * 0.2).to(dtype)
+    pads = ((1, 1), (1, 1))
+    tsc = importlib.import_module("vspbfr_tpu_torch.ops.stripe_conv")
+    assert x.data_ptr() % 16 and tsc.stripe_plan(
+        dtype == torch.bfloat16, x.shape, w.shape, pads,
+        aligned=False)["producer"] == 0
+    _assert_close(ops.stripe_conv(x, w, pads),
+                  ops.stripe_conv_plain(x.float(), w.float(), pads), dtype)
 
 
 def test_experiment_kernels_count_launches_and_refuse(dev):
@@ -773,3 +799,7 @@ def test_experiment_kernels_count_launches_and_refuse(dev):
     with pytest.raises(RuntimeError):
         ops.stripe_conv(x, torch.zeros(9, 9, 16, 8, device=dev),
                         ((4, 4), (4, 4)))       # weights exceed the block
+    with pytest.raises(RuntimeError):           # bf16: two stripes do
+        ops.stripe_conv(x.bfloat16(),
+                        torch.zeros(17, 17, 16, 8, device=dev).bfloat16(),
+                        ((8, 8), (8, 8)))

@@ -1,5 +1,6 @@
-// The tile body shared by K1 / K1e (dense_conv.cu) and K2 (dilated_conv.cu),
-// and the PTX helpers they share with K9 / K10 (stripe_conv.cu).
+// The tile body shared by K1 / K1e (dense_conv.cu), K2 (dilated_conv.cu) and
+// f32 K9 / K10 (stripe_conv.cu), and the PTX helpers they share with bf16
+// K9 / K10 (stripe_conv.cu, conv_pipe.cuh).
 //
 // A block owns TM output pixels (a TH x TW rectangle, TW a power of two) by
 // TN output channels. Per pass over 64 bytes of input channels (CK = 32 in
@@ -385,21 +386,17 @@ using Body = typename BodyOf<T, C>::type;
 
 // --- staging ----------------------------------------------------------------
 
-// The copies of one pass over input channels c0 .. c0 + CK: the stripe
-// (every element, zero fill outside the image and past Ci), the weights of
-// every tap (the thread's weight segment from `wseg`, see SegSrc), and the
-// pass's input scales (as f32; 0 past Ci).
-template <typename T, class C>
-__device__ __forceinline__ void stage_pass(const T* __restrict__ x,
-                                           const SegSrc<T>& wseg,
-                                           const T* __restrict__ isc,
-                                           const Pass& s, int c0, char* xs,
-                                           char* ws, float* iscs) {
-  constexpr int E = 16 / (int)sizeof(T);   // elements per segment
-  constexpr int CK = kCK<T>;
-  constexpr int WSEGS = C::TN / E;         // 16-byte copies per weight row
-  const int tid = threadIdx.x;
-  {
+// The stripe of one pass over input channels c0 .. c0 + CK: every element,
+// zero-filled outside the image and past Ci. A kernel that stages its stripe
+// otherwise (K10's in-kernel padding) passes its own functor of this form to
+// `run_passes`.
+struct FullStripe {
+  template <typename T>
+  __device__ __forceinline__ void operator()(const T* __restrict__ x,
+                                             const Pass& s, int c0,
+                                             char* xs) const {
+    constexpr int E = 16 / (int)sizeof(T);   // elements per segment
+    const int tid = threadIdx.x;
     const int seg = tid % kXSegs;
     const int c = c0 + seg * E;
     const bool cin = c < s.Ci;
@@ -412,6 +409,23 @@ __device__ __forceinline__ void stage_pass(const T* __restrict__ x,
                   s.vec_x);
     }
   }
+};
+
+// The copies of one pass over input channels c0 .. c0 + CK: the stripe
+// (`stripe`), the weights of every tap (the thread's weight segment from
+// `wseg`, see SegSrc), and the pass's input scales (as f32; 0 past Ci).
+template <typename T, class C, class Stripe>
+__device__ __forceinline__ void stage_pass(const T* __restrict__ x,
+                                           const SegSrc<T>& wseg,
+                                           const T* __restrict__ isc,
+                                           const Pass& s, int c0, char* xs,
+                                           char* ws, float* iscs,
+                                           const Stripe& stripe) {
+  constexpr int E = 16 / (int)sizeof(T);   // elements per segment
+  constexpr int CK = kCK<T>;
+  constexpr int WSEGS = C::TN / E;         // 16-byte copies per weight row
+  const int tid = threadIdx.x;
+  stripe(x, s, c0, xs);
   const int rows = s.KH * s.KW * CK;
   static_assert(NT % WSEGS == 0, "a thread keeps its weight segment");
   const int seg = tid % WSEGS;
@@ -449,13 +463,15 @@ __device__ __forceinline__ void scale_stripe(const Pass& s, char* xs,
 }
 
 // Every pass of a block: stage, wait, scale, run the tile products.
-// `cols(c)` says where the weights of the block's column c lie (SegSrc).
-template <typename T, class C>
+// `cols(c)` says where the weights of the block's column c lie (SegSrc);
+// `stripe` stages each pass's stripe (FullStripe: every element).
+template <typename T, class C, class Stripe = FullStripe>
 __device__ __forceinline__ void run_passes(Body<T, C>& body,
                                            const T* __restrict__ x,
                                            const DenseCols<T>& cols,
                                            const T* __restrict__ isc,
-                                           const Pass& s, char* smem) {
+                                           const Pass& s, char* smem,
+                                           const Stripe& stripe = Stripe()) {
   constexpr int E = 16 / (int)sizeof(T);
   const SegSrc<T> wseg = cols((threadIdx.x % (C::TN / E)) * E);
   char* xs = smem;
@@ -463,7 +479,7 @@ __device__ __forceinline__ void run_passes(Body<T, C>& body,
   float* iscs = reinterpret_cast<float*>(ws + s.KH * s.KW * kCK<T> *
                                                   w_row<T, C>());
   for (int c0 = 0; c0 < s.Ci; c0 += kCK<T>) {
-    stage_pass<T, C>(x, wseg, isc, s, c0, xs, ws, iscs);
+    stage_pass<T, C>(x, wseg, isc, s, c0, xs, ws, iscs, stripe);
     cp_async_wait_all();
     __syncthreads();
     if (isc) {

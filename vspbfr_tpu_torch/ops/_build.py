@@ -61,9 +61,8 @@ _SIGNATURES = {
     # x, y, B, h, w, inner_bytes, unit_bytes, stream (both K8 forms)
     "vspbfr_interleave_stack": [_P, _P] + [_I] * 5 + [_P],
     "vspbfr_interleave_repeat": [_P, _P] + [_I] * 5 + [_P],
-    # x, wt, y, dtype, load, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, TH,
-    # stream
-    "vspbfr_stripe_conv": [_P] * 3 + [_I] * 14 + [_P],
+    # x, wt, y, dtype, load, plan (ops/stripe_conv.py PLAN_FIELDS), stream
+    "vspbfr_stripe_conv": [_P] * 3 + [_I, _I, ctypes.POINTER(_I), _P],
 }
 
 
