@@ -10,7 +10,7 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              TF32 otherwise).
 2. build   - build or load the kernels' shared library from `csrc/`;
              print ptxas's registers and spill bytes of each K9 / K10, K1 /
-             K1e and K2 instantiation; count, in the SASS of each
+             K1e, K2, K6 and K7 instantiation; count, in the SASS of each
              (`cuobjdump -sass`), the tensor-core instructions (HMMA of
              mma.sync, HGMMA of wgmma) and TMA loads (UTMALDG): every bf16
              K1 / K1e / K2 one must have HMMA, every bf16 K9 / K10 one
@@ -31,7 +31,12 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              composition stands beside it: cuDNN's four dilated convs and
              the concatenation), and the bound (the larger of operations over the card's
              peak rate for the dtype and bytes over its memory rate); for
-             K5 also the K2 + K1 composition SMARTLayer runs.
+             K5 also the K2 + K1 composition SMARTLayer runs. K6 (each
+             row one launch, the chain rows too: the SMART tail's two
+             stages, the StyledConv's two skips) and K7 also give their
+             device time apart from the host's (`cli.profile.device_ms`,
+             on operand copies that together exceed the card's L2)
+             beside the time of one call on an idle stream.
 4. slice   - the whole restoration path at a mid-size config, card
              (kernels) against CPU (plain versions), same weights and
              draws; every kernel's launch counter must rise on the card.
@@ -52,8 +57,10 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              K2's Function (dx, the four
              branch weights, d_in_scale, d_out_scale) at the SMART shapes,
              K4 (the gradient of K3) at its two up-conv shapes, K6's and
-             K7's Functions (every operand, the kink rule) and K6's double
-             backward (R1's pattern), and K5's Function (every input; K2
+             K7's Functions (every operand, the chain rows' post-adds and
+             second stage too, the kink rule on both stages) and K6's
+             double backward (R1's pattern, through one stage and through
+             the SMART tail's chain), and K5's Function (every input; K2
              and K1 launch in its backward), in f32 and bf16.
 7. train   - stage-2 training (the second main path): one step at the
              phase-4 config on the card (kernels) against the CPU (plain
@@ -236,7 +243,8 @@ def phase_build():
     lib = _build.load_library()
     say(f"kernel library {lib.path} built/loaded in "
         f"{lib.build_seconds:.2f} s")
-    regs = ptxas_report(lib.log, SASS_REQUIRED)
+    regs = ptxas_report(lib.log, (*SASS_REQUIRED, "epilogue_kernel",
+                                  "fused_lrelu_kernel"))
     for fn, r in sorted(regs.items()):
         say(f"  ptxas: {r['registers']:3d} registers, spill stores "
             f"{r['spill_stores']} B, loads {r['spill_loads']} B: "
@@ -359,38 +367,22 @@ def _k1e_cases():
 
 def _k6_cases():
     """(x shape, epilogue pieces, label) of K6 on the main paths at full
-    width, b4: "s" out_scale, "n" noise, "b" bias, "a" the activation."""
-    return [
-        ((4, 1024, 1024, 32), "snba", "decoder styled 1024px C32"),
-        ((4, 512, 512, 64), "nba", "SMART tail stage 2 512px C64"),
-        ((4, 64, 64, 512), "snba", "styled 64px C512"),
-        ((4, 512, 512, 64), "b", "bias only 512px C64"),
-        ((4, 512, 512, 3), "nba", "C3 512px"),
-    ]
+    width, b4 (the profiler's K6_CASES, with the chain rows: the SMART
+    tail's two stages and the StyledConv's two skips in one pass)."""
+    from vspbfr_tpu_torch.cli.profile import K6_CASES
+
+    return list(K6_CASES)
 
 
 def _k7_cases():
-    return [((4, 512, 512, 64), "LargeConv down_from_big 512px C64"),
-            ((4, 512), "StyleMLP / final_linear (4, 512)"),
-            ((4, 256, 256, 3), "odd C3 256px")]
+    from vspbfr_tpu_torch.cli.profile import K7_CASES
+
+    return list(K7_CASES)
 
 
 def _k5_cases():
     return [((4, h, h, c), "SMART %dpx C%d" % (h, c))
             for h, c in ((512, 64), (64, 512), (4, 512))]
-
-
-def k6_operands(rand, dt, xs, pieces) -> tuple:
-    """(x, kwargs of `conv_epilogue`) for a `_k6_cases` entry, in dt."""
-    b, h, w, c = xs
-    kw = {"act": "a" in pieces}
-    if "s" in pieces:
-        kw["out_scale"] = rand(b, c, scale=0.2, offset=1.0).to(dt)
-    if "n" in pieces:
-        kw["noise"] = rand(b, h, w, 1, scale=0.3).to(dt)
-    if "b" in pieces:
-        kw["bias"] = rand(c, scale=0.3).to(dt)
-    return rand(*xs).to(dt), kw
 
 
 def k5_operands(rand, dt, xs) -> tuple:
@@ -479,8 +471,10 @@ def _record(rows, r, exact=True):
     ok = rel <= TOL[dt_name] and exact
     lib = ("" if r["library_ms"] is None
            else f" library {r['library_ms']:.4f} ms")
+    dev = ("" if "device_ms" not in r
+           else f" (device {r['device_ms']:.4f} ms)")
     say(f"{name:20s} {label:28s} {dt_name:4s} rel_err {rel:.3e} "
-        f"(abs {r['max_abs_err']:.3e}) kernel {r['ms']:.4f} ms plain "
+        f"(abs {r['max_abs_err']:.3e}) kernel {r['ms']:.4f} ms{dev} plain "
         f"{r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}) {'ok' if ok else 'FAIL'}")
     rows.append(r)
@@ -493,7 +487,9 @@ def phase_kernels():
     import torch
 
     from vspbfr_tpu_torch import ops
-    from vspbfr_tpu_torch.cli.profile import smart_composition, smart_work
+    from vspbfr_tpu_torch.cli.profile import (copies, device_ms,
+                                              k6_operands, k6_work,
+                                              smart_composition, smart_work)
     from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
     from vspbfr_tpu_torch.ops.smart import smart_tile
 
@@ -581,19 +577,25 @@ def phase_kernels():
             _check("d2s", label, dt_name, got, ref, ms, pms, rows,
                    moved=nbytes(x, got))
             del x, got, ref
+        # K6 and K7: `ms` is one call's time on an idle stream (host
+        # included, as the plain version's), `device_ms` the device's alone
         for xs, pieces, label in _k6_cases():
             x, kw = k6_operands(rand, dt, xs, pieces)
+            before = ops.launch_counts()["conv_epilogue"]
             got = ops.conv_epilogue(x, **kw)
-            ref = ops.epilogue_plain(x.float(), **f32(kw))
+            if ops.launch_counts()["conv_epilogue"] != before + 1:
+                raise AssertionError(f"conv_epilogue {label}: not one launch")
+            ref = ops.epilogue_plain_chain(x.float(), **f32(kw))
             ms = cuda_ms(lambda: ops.conv_epilogue(x, **kw))
-            pms = cuda_ms(lambda: ops.epilogue_plain(x, **kw))
-            # per element one operation per piece, two for the activation
-            per = sum(k in kw for k in ("out_scale", "noise", "bias")) \
-                + 2 * kw["act"]
+            flops, moved = k6_work(x, kw)
+
+            def k6_call(xs=xs, pieces=pieces):
+                x2, kw2 = k6_operands(rand, dt, xs, pieces)
+                return lambda: ops.conv_epilogue(x2, **kw2)
+            dms = device_ms(copies(k6_call, moved))
+            pms = cuda_ms(lambda: ops.epilogue_plain_chain(x, **kw))
             _check("conv_epilogue", label, dt_name, got, ref, ms, pms, rows,
-                   flops=per * x.numel(),
-                   moved=nbytes(x, got, *(v for v in kw.values()
-                                          if torch_is_tensor(v))))
+                   flops=flops, moved=moved, device_ms=dms)
             del x, kw, got, ref
         for xs, label in _k7_cases():
             x = rand(*xs).to(dt)
@@ -601,9 +603,15 @@ def phase_kernels():
             got = ops.fused_leaky_relu(x, bias)
             ref = ops.fused_leaky_relu_plain(x.float(), bias.float())
             ms = cuda_ms(lambda: ops.fused_leaky_relu(x, bias))
+
+            def k7_call(xs=xs):
+                x2, b2 = rand(*xs).to(dt), rand(xs[-1], scale=0.3).to(dt)
+                return lambda: ops.fused_leaky_relu(x2, b2)
+            dms = device_ms(copies(k7_call, nbytes(x, bias, got)))
             pms = cuda_ms(lambda: ops.fused_leaky_relu_plain(x, bias))
             _check("fused_leaky_relu", label, dt_name, got, ref, ms, pms,
-                   rows, flops=3 * x.numel(), moved=nbytes(x, bias, got))
+                   rows, flops=3 * x.numel(), moved=nbytes(x, bias, got),
+                   device_ms=dms)
             del x, bias, got, ref
         for xs, label in _k5_cases():
             b, h, w, c = xs
@@ -1131,67 +1139,92 @@ def _kink_keep(u, band: float = 1e-5):
 
 
 def _elementwise_grads(rows, rand, dt_name, dt):
-    """K6's and K7's Functions (every operand; the activations' kink
-    elements get no incoming gradient) against plain autograd, and K6's
-    double backward in R1's pattern (D's strided ConvLayers: the bias
-    gradient of |dL/dx|^2)."""
+    """K6's and K7's Functions (every operand, the chain rows' post-adds
+    and second stage too; the activations' kink elements get no incoming
+    gradient) against plain autograd, and K6's double backward in R1's
+    pattern (D's strided ConvLayers, bias + lrelu; and the SMART tail's
+    chain): the bias gradient of |dL/dx|^2."""
     import torch
 
     from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli.profile import k6_operands
 
     def f32(t):
         return None if t is None else t.float()
 
     for xs, pieces, label in _k6_cases():
         x, kw = k6_operands(rand, dt, xs, pieces)
-        act = kw.pop("act")
+        flags = {k: kw.pop(k) for k in ("act", "act2") if k in kw}
+        post = kw.pop("post_add", ())
         names = list(kw)
-        leaves = [x, *kw.values()]
+        leaves = [x, *kw.values(), *post]
         for t in leaves:
             t.requires_grad_()
 
         def k6(x_, *o, fn=ops.conv_epilogue):
-            return fn(x_, act=act, **dict(zip(names, o)))
+            return fn(x_, **dict(zip(names, o)),
+                      post_add=tuple(o[len(names):]), **flags)
 
         def plain(x_, *o):
-            return k6(x_, *o, fn=ops.epilogue_plain)
+            return k6(x_, *o, fn=ops.epilogue_plain_chain)
 
+        # the pre-activations of both stages, from the plain chain in f32
         keep = torch.ones(xs, dtype=torch.bool, device=x.device)
-        if act:
-            keep = _kink_keep(ops.epilogue_plain(
-                x.detach().float(), act=False,
-                **{k: f32(v.detach()) for k, v in kw.items()}))
+        ops32 = {k: f32(v.detach()) for k, v in kw.items()}
+        stage1 = {k: v for k, v in ops32.items() if not k.endswith("2")}
+        u = ops.epilogue_plain(x.detach().float(), act=False, **stage1)
+        if flags.get("act"):
+            keep &= _kink_keep(u)
+        if flags.get("act2"):
+            u2 = ops.epilogue_plain_chain(
+                u, act=flags["act"], post_add=tuple(
+                    p.detach().float() for p in post),
+                noise2=ops32.get("noise2"), bias2=ops32.get("bias2"))
+            keep &= _kink_keep(u2)
+            del u2
+        del u
         g = (rand(*xs) * keep).to(dt)
         kinks = 1.0 - float(keep.float().mean())
         del keep
         got, ref, ms, pms = _grads_vs_plain(k6, plain, leaves, g)
         # the timed backward reads g and y (or x) and writes dx
         work = dict(flops=2 * x.numel(), moved=nbytes(g, x, x))
-        for i, (name, a, b) in enumerate(zip(["dx", *names], got, ref)):
+        grad_names = ["dx", *names, *(f"post{i}" for i in range(len(post)))]
+        for i, (name, a, b) in enumerate(zip(grad_names, got, ref)):
             _check(f"conv_epilogue_grad {name}", label, dt_name, a, b,
                    ms if i == 0 else float("nan"),
                    pms if i == 0 else float("nan"), rows, kink_share=kinks,
                    **(work if i == 0 else {}))
         del x, kw, leaves, g, got, ref
 
-    # R1 through K6: D's ConvLayer at 512 px C64 (bias + lrelu)
+    # R1 through K6: D's ConvLayer at 512 px C64 (bias + lrelu), and the
+    # SMART tail's chain at the same shape (bias + lrelu, then noise2,
+    # bias2 + lrelu), one K6 pass each
     x = rand(4, 512, 512, 64).to(dt)
     bias = rand(64, scale=0.3).to(dt)
+    tail = dict(noise2=rand(4, 512, 512, 1, scale=0.3).to(dt),
+                bias2=rand(64, scale=0.3).to(dt), act2=True)
 
-    def r1(fn, x_, b_):
+    def r1(fn, x_, b_, **kw):
         x_ = x_.detach().requires_grad_()
         b_ = b_.detach().requires_grad_()
-        (gx,) = torch.autograd.grad((fn(x_, bias=b_).float() ** 2).sum(),
+        (gx,) = torch.autograd.grad((fn(x_, bias=b_, **kw).float() ** 2).sum(),
                                     x_, create_graph=True)
         return torch.autograd.grad((gx.float() ** 2).sum(), b_)[0]
 
-    got = r1(ops.conv_epilogue, x, bias)
-    ref = r1(ops.epilogue_plain, x.float(), bias.float())
-    ms = cuda_ms(lambda: r1(ops.conv_epilogue, x, bias), iters=5)
-    pms = cuda_ms(lambda: r1(ops.epilogue_plain, x, bias), iters=5)
-    _check("conv_epilogue_grad r1 d_bias", "D ConvLayer 512px C64", dt_name,
-           got, ref, ms, pms, rows)
-    del x, bias, got, ref
+    for label, kw in (("D ConvLayer 512px C64", {}),
+                      ("chain SMART tail 512px C64", tail)):
+        kw32 = {k: (v.float() if torch_is_tensor(v) else v)
+                for k, v in kw.items()}
+        got = r1(ops.conv_epilogue, x, bias, **kw)
+        ref = r1(ops.epilogue_plain_chain, x.float(), bias.float(), **kw32)
+        ms = cuda_ms(lambda: r1(ops.conv_epilogue, x, bias, **kw), iters=5)
+        pms = cuda_ms(lambda: r1(ops.epilogue_plain_chain, x, bias, **kw),
+                      iters=5)
+        _check("conv_epilogue_grad r1 d_bias", label, dt_name, got, ref, ms,
+               pms, rows)
+        del got, ref
+    del x, bias, tail
 
     for xs, label in _k7_cases():
         x = rand(*xs).to(dt).requires_grad_()
@@ -1770,8 +1803,8 @@ def main() -> None:
                         "case": big["case"], "path": path,
                         "launches_by_path": {p: c[name]
                                              for p, c in launches.items()},
-                        **({"composition_ms": big["composition_ms"]}
-                           if "composition_ms" in big else {})})
+                        **{k: big[k] for k in ("composition_ms",
+                                               "device_ms") if k in big}})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

@@ -16,7 +16,10 @@ odd Ci, post-activation adds, the second stage, 1x1) and its gradient, K2's
 gradient, the `VSPBFR_FUSED_EPI` switch, and the wrappers' refusals; K6
 (the styled epilogue pass) and K7 (bias + leaky ReLU) at odd C, C = 3,
 pixel counts that are no multiple of a block, each piece absent, a
-misaligned view, with their gradients and K6's double backward; K5 (the
+misaligned view, with their gradients and K6's double backward; K6's
+whole chain (post-adds, the second stage) in one launch at C = 3 and other
+odd widths, n no multiple of the vector width, misaligned x or post-adds,
+f32 operands under bf16 x, its sign mask; K5 (the
 fused SMART core) at 4 and 8 px, odd sizes, narrow and uneven-tile widths,
 demod off, with its gradient (a K2 + K1 recomputation); K8 (the
 interleave's stack and repeat forms) at odd widths, h not divisible by
@@ -602,7 +605,193 @@ def test_conv_epilogue_takes_a_misaligned_view(dev):
                   ops.fused_leaky_relu_plain(x, bias), torch.float32)
 
 
+# the whole chain in one K6 pass: (shape, pieces as `cli.profile`'s
+# K6_CASES spell them)
+CHAIN_CASES = [
+    ((2, 5, 7, 3), "snbapp"),     # C = 3, two skips (flat 16-byte vectors)
+    ((1, 6, 5, 13), "sba2"),      # odd C, the second stage
+    ((3, 11, 13, 16), "nbap"),    # C a vector multiple, one skip
+    ((2, 9, 7, 5), "nba2"),       # n = 630: no multiple of 4 or 8 (a tail)
+    ((1, 1, 1, 3), "snba2"),      # one pixel: vectors span batches
+    ((5, 3, 1, 7), "snbap"),      # 3-pixel images, C = 7
+    ((2, 4, 4, 512), "snbapp"),   # wide C: a vector step of whole pixels
+]
+
+
+def _chain_case(gen, dev, dtype, shape, pieces, op_dtype=None):
+    from vspbfr_tpu_torch.cli.profile import k6_operands
+
+    def rand(*s, scale=1.0, offset=0.0):
+        return _rand(gen, dev, *s, scale=scale, offset=offset)
+
+    return k6_operands(rand, dtype, shape, pieces, op_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pieces", CHAIN_CASES)
+def test_conv_epilogue_chain_matches_plain(dev, dtype, shape, pieces):
+    """The whole chain (stage 1, the post-adds, stage 2) in one launch."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x, kw = _chain_case(gen, dev, dtype, shape, pieces)
+    ops.reset_launch_counts()
+    got = ops.apply_epilogue(x, **kw)
+    assert ops.launch_counts()["conv_epilogue"] == 1
+    _assert_close(got, ops.epilogue_plain_chain(x.float(), **_f32(kw)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pieces", [((2, 5, 7, 3), "snbapp"),
+                                          ((2, 4, 4, 16), "sba2")])
+def test_conv_epilogue_chain_grads_match_plain_autograd(dev, dtype, shape,
+                                                        pieces):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x, kw = _chain_case(gen, dev, dtype, shape, pieces)
+    flags = {k: kw.pop(k) for k in ("act", "act2") if k in kw}
+    post = kw.pop("post_add", ())
+    names = list(kw)
+    leaves = [x, *kw.values(), *post]
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def run(fn, x_, *o):
+        return fn(x_, **dict(zip(names, o)), post_add=tuple(o[len(names):]),
+                  **flags)
+
+    out = run(ops.conv_epilogue, *leaves)
+    g = _rand(gen, dev, *out.shape).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(run(ops.epilogue_plain_chain, *rl), rl,
+                              g.float())
+    for a, r in zip(got, ref):
+        _assert_close(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["x", "post"])
+def test_conv_epilogue_chain_takes_misaligned_views(dev, dtype, which):
+    """x or a post-add at a storage offset off 16 bytes: the one-element
+    path."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x, kw = _chain_case(gen, dev, dtype, (2, 6, 5, 16), "snbapp")
+    if which == "x":
+        x = _offset_view(x, 1)
+    else:
+        kw["post_add"] = (kw["post_add"][0], _offset_view(kw["post_add"][1],
+                                                          3))
+    _assert_close(ops.conv_epilogue(x, **kw),
+                  ops.epilogue_plain_chain(x.float(), **_f32(kw)), dtype)
+
+
+@pytest.mark.parametrize("shape,pieces", [((2, 5, 7, 3), "snba2"),
+                                          ((2, 8, 8, 64), "snbap")])
+def test_conv_epilogue_reads_f32_operands_under_bf16_x(dev, shape, pieces):
+    """f32 operands are rounded to bf16 in the kernel: the same output as
+    casting them first, with no cast launched."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x, kw = _chain_case(gen, dev, torch.bfloat16, shape, pieces,
+                        torch.float32)
+    pre = {k: (v.bfloat16() if torch.is_tensor(v) and k != "post_add"
+               else v) for k, v in kw.items()}
+    assert torch.equal(ops.conv_epilogue(x, **kw), ops.conv_epilogue(x, **pre))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pieces", [((2, 5, 7, 3), "snbap"),
+                                          ((2, 4, 6, 24), "sba2"),
+                                          ((2, 9, 7, 5), "nbapp")])
+def test_conv_epilogue_mask_is_the_stage1_sign(dev, dtype, shape, pieces):
+    """The sign byte K6 stores for the backward equals the plain stage-1
+    pre-activation's sign wherever that lies outside rounding of 0."""
+    from vspbfr_tpu_torch.ops.epilogue import _epilogue_forward
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x, kw = _chain_case(gen, dev, dtype, shape, pieces)
+    got, mask = _epilogue_forward(
+        x, kw.get("out_scale"), kw.get("noise"), kw.get("bias"), True,
+        kw.get("post_add", ()), kw.get("noise2"), kw.get("bias2"),
+        kw.get("act2", False), want_mask=True)
+    f = _f32(kw)
+    _assert_close(got, ops.epilogue_plain_chain(x.float(), **f), dtype)
+    u = ops.epilogue_plain(x.float(), f.get("out_scale"), f.get("noise"),
+                           f.get("bias"), act=False)
+    far = u.abs() > 4 * TOL[dtype] * float(u.abs().max())
+    assert mask.dtype == torch.bool and mask.shape == u.shape
+    assert torch.equal(mask[far], (u >= 0)[far])
+
+
+# each operand the last elements of a 2 MiB allocation of its own, made
+# without the caching allocator: a read past an operand's end leaves the
+# allocation (an illegal address where nothing is mapped after it)
+_TAIL_SCRIPT = r"""
+import torch
+from vspbfr_tpu_torch import ops
+
+gen = torch.Generator(device="cuda").manual_seed(27)
+
+
+def tail(*shape, dtype=torch.float32):
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.empty(2 ** 21 // dtype.itemsize, dtype=dtype, device="cuda")
+    t = buf[buf.numel() - n:].view(shape)
+    t.copy_(torch.randn(shape, generator=gen, device="cuda"))
+    return t
+
+
+for b, h, w, c in ((1, 1, 1, 3), (2, 5, 7, 3), (1, 1, 1, 16), (2, 3, 1, 8)):
+    for dt in (torch.float32, torch.bfloat16):
+        x = tail(b, h, w, c, dtype=dt)
+        kw = dict(out_scale=tail(b, c), noise=tail(b, h, w, 1),
+                  bias=tail(c), post_add=(tail(b, h, w, c, dtype=dt),),
+                  act=True)
+        got = ops.conv_epilogue(x, **kw)
+        ref = ops.epilogue_plain_chain(
+            x.float(), **{k: (tuple(p.float() for p in v) if k == "post_add"
+                              else v.to(dt).float() if torch.is_tensor(v)
+                              else v) for k, v in kw.items()})
+        k7 = ops.fused_leaky_relu(x, kw["bias"])
+        torch.cuda.synchronize()
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        for a, r in ((got, ref), (k7, ops.fused_leaky_relu_plain(
+                x.float(), kw["bias"].to(dt).float()))):
+            err = float((a.float() - r).abs().max())
+            assert err <= tol * max(float(r.abs().max()), 1e-6), err
+print("TAIL OK")
+"""
+
+
+def test_streaming_kernels_read_nothing_past_their_operands(dev):
+    """K6 and K7 at a few pixels with C = 3, 8 and 16 (grids far larger
+    than the work), every operand ending where its allocation ends."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1",
+               PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-c", _TAIL_SCRIPT], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0 and "TAIL OK" in proc.stdout, (
+        proc.stdout[-2000:] + proc.stderr[-4000:])
+
+
 # --- K7 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 5, 13), (2, 5, 7, 3), (4, 512)])
+def test_fused_leaky_relu_reads_an_f32_bias_under_bf16_x(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x = _rand(gen, dev, *shape).to(torch.bfloat16)
+    b = _rand(gen, dev, shape[-1], scale=0.3)
+    got = ops.fused_leaky_relu(x, b)
+    assert torch.equal(got, ops.fused_leaky_relu(x, b.bfloat16()))
+    _assert_close(got, ops.fused_leaky_relu_plain(x.float(), b),
+                  torch.bfloat16)
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,bias", [((4, 512), True),

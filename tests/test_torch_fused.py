@@ -9,7 +9,8 @@ against the JAX package on the same seeded numpy inputs:
 - K6 `conv_epilogue` against `conv_epilogue(..., interpret=True)` (the
   Pallas kernel with its custom VJP `_fused_bwd`) for the nc = 1 noise
   cases, forward and every operand's VJP, and the double backward against
-  JAX's R1 pattern (tests/test_ops.py);
+  JAX's R1 pattern (tests/test_ops.py); the whole chain, one K6 pass, is
+  `tests/test_torch_epilogue_chain.py`;
 - K7 `fused_leaky_relu` against `fused_leaky_relu_pallas` (forward, in
   interpret mode at (2, 4, 4, 128), which takes the Pallas branch); its
   gradient against `jax.grad` of the XLA form `fused_leaky_relu`, since
@@ -251,15 +252,20 @@ def _refuse(*_, **__):
 
 
 def test_plain_versions_never_reach_a_kernel(rng, monkeypatch):
-    """Every kernel Function refuses to run; the plain versions still give
-    their values (the card compares each kernel with them, so they must
-    not be kernels themselves)."""
+    """Every kernel Function (and K6's and K7's forward primitives, which
+    the no-gradient route calls directly) refuses to run; the plain
+    versions still give their values (the card compares each kernel with
+    them, so they must not be kernels themselves)."""
     for fn in (tdc._DenseConv, tdc._DenseConvEpi, tdl._DilatedMulti,
                tep._ConvEpilogue, tfa._FusedLeakyRelu, tsm._SmartCore,
                *(getattr(td2s, n) for n in dir(td2s)
                  if isinstance(getattr(td2s, n), type)
                  and issubclass(getattr(td2s, n), torch.autograd.Function))):
         monkeypatch.setattr(fn, "apply", _refuse)
+    # K6 and K7 also launch without their Function where no gradient is
+    # needed: refuse that route too
+    monkeypatch.setattr(tep, "_epilogue_forward", _refuse)
+    monkeypatch.setattr(tfa, "_flr_forward", _refuse)
     x, style, ws, wf = _smart_inputs(rng, b=1, hg=3, wg=3)
     x, style, wf = T(x), T(style), T(wf)
     ws = [T(w) for w in ws]
@@ -284,17 +290,17 @@ def test_plain_versions_never_reach_a_kernel(rng, monkeypatch):
 
 @pytest.mark.parametrize("stage2,post,launches", [(False, 0, 1),
                                                   (False, 2, 1),
-                                                  (True, 0, 2)])
+                                                  (True, 0, 1)])
 def test_apply_epilogue_routes_each_stage_through_k6(rng, monkeypatch, stage2,
                                                      post, launches):
-    """With the epilogue switch off a styled conv is K1, then K6 for each
-    stage (`_epi_ref`'s two-pass form), the post-activation adds between;
-    the values are the plain chain's."""
+    """With the epilogue switch off a styled conv is K1, then one K6 pass
+    for the whole chain (`_epi_ref`: both stages and the post-activation
+    adds between them); the values are the plain chain's."""
     monkeypatch.setenv("VSPBFR_FUSED_EPI", "0")
     calls = []
-    real = tep._ConvEpilogue.apply
-    monkeypatch.setattr(tep._ConvEpilogue, "apply",
-                        lambda *a: calls.append(1) or real(*a))
+    real = tep._epilogue_forward
+    monkeypatch.setattr(tep, "_epilogue_forward",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     b, h, w_, c = 2, 5, 6, 4
     x, w = T(_rand(rng, b, h, w_, 3)), T(_rand(rng, 3, 3, 3, c, scale=0.3))
     kw = dict(out_scale=T(_rand(rng, b, c, offset=1.0)),
@@ -311,13 +317,14 @@ def test_apply_epilogue_routes_each_stage_through_k6(rng, monkeypatch, stage2,
 
 def test_layers_route_their_activations_through_k7(rng, monkeypatch):
     """EqualLinear's activation, FusedLeakyReLU and the code diffuser's
-    scaled_leaky_relu all go through K7's Function."""
+    scaled_leaky_relu all go through K7's forward (through its Function
+    where a gradient is needed, directly where none is)."""
     from vspbfr_tpu_torch.models.layers import EqualLinear, FusedLeakyReLU
 
     calls = []
-    real = tfa._FusedLeakyRelu.apply
-    monkeypatch.setattr(tfa._FusedLeakyRelu, "apply",
-                        lambda *a: calls.append(a[3] is not None) or real(*a))
+    real = tfa._flr_forward
+    monkeypatch.setattr(tfa, "_flr_forward",
+                        lambda *a: calls.append(a[1] is not None) or real(*a))
     lin, act = EqualLinear(8, 6, activation=True), FusedLeakyReLU(6)
     with torch.no_grad():
         lin.init_from(torch.Generator().manual_seed(0))

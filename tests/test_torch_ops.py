@@ -210,6 +210,30 @@ def test_every_c_entry_point_has_its_signature():
     assert declared == {k: len(v) for k, v in _build._SIGNATURES.items()}
 
 
+@pytest.mark.parametrize("module,struct_name,src", [
+    ("epilogue", "K6Launch", "epilogue.cu"),
+    ("fused_act", "K7Launch", "fused_act.cu"),
+])
+def test_launch_fields_are_the_kernels_struct(module, struct_name, src):
+    """A packed launch's LAUNCH_FIELDS are the C struct its entry point
+    reads, in order and in type (long long: int64, double)."""
+    import re
+
+    from vspbfr_tpu_torch.ops import _build
+
+    mod = importlib.import_module(f"vspbfr_tpu_torch.ops.{module}")
+    text = (_build.CSRC / src).read_text()
+    body = re.search(rf"struct {struct_name} \{{(.*?)\}};", text,
+                     re.S).group(1)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind, names = re.fullmatch(r"(long long|double)\s+(.*)", decl,
+                                   re.S).groups()
+        fields += [(n.strip(), {"long long": "q", "double": "d"}[kind])
+                   for n in names.split(",")]
+    assert tuple(fields) == mod.LAUNCH_FIELDS
+
+
 @pytest.mark.parametrize("ws,dils,out_c", [
     ([(3, 3, 8, 4), (3, 3, 6, 4)], (1, 2), None),   # a branch's Ci differs
     ([(3, 3, 8, 4), (1, 1, 8, 4)], (1, 2), None),   # a branch is not 3x3

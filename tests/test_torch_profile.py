@@ -17,8 +17,13 @@ torch = pytest.importorskip("torch")
 
 from torch.autograd import DeviceType  # noqa: E402
 
+from vspbfr_tpu_torch.cli import profile  # noqa: E402
 from vspbfr_tpu_torch.cli.profile import (  # noqa: E402
+    K6_CASES,
     bound_ms,
+    device_ms,
+    k6_operands,
+    k6_work,
     kernel_group,
     profile_smart,
     smart_grad_work,
@@ -63,6 +68,14 @@ def _ev(name, start, end, device=DeviceType.CUDA):
      "K6 conv_epilogue"),
     ("void vspbfr::(anonymous namespace)::fused_lrelu_kernel<float, 4>"
      "(float const*, ...)", "K7 fused_leaky_relu"),
+    ("void vspbfr::(anonymous namespace)::epilogue_kernel<__nv_bfloat16, "
+     "float, 8, false>(vspbfr::StreamArgs<__nv_bfloat16, float>)",
+     "K6 conv_epilogue"),
+    ("void vspbfr::(anonymous namespace)::epilogue_kernel<float, float, 4, "
+     "true>(vspbfr::StreamArgs<float, float>)", "K6 conv_epilogue"),
+    ("void vspbfr::(anonymous namespace)::fused_lrelu_kernel<__nv_bfloat16,"
+     " __nv_bfloat16, 1, true>(vspbfr::StreamArgs<__nv_bfloat16, "
+     "__nv_bfloat16>)", "K7 fused_leaky_relu"),
     ("void vspbfr::(anonymous namespace)::interleave_stack_kernel<uint4>"
      "(uint4 const*, ...)", "K8 interleave"),
     ("void vspbfr::(anonymous namespace)::interleave_repeat_kernel<uint2>"
@@ -140,3 +153,139 @@ def test_profile_smart_summary_on_the_cpu():
         "dilated_multi_conv": 0, "dense_conv": 0}
     assert (r["flops"], r["bytes"]) == smart_work(1, 8, 8, 8, 2, 8, 4)
     assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+
+
+class _FakeCuda:
+    """The CUDA calls `device_ms` makes, on a made-up clock: each fn() call
+    takes 2 ms of device time; the hold (`_sleep`) runs at 1e6 cycles a
+    ms. `early` lists, for each timed run, whether the device had already
+    reached the start event when the host finished enqueueing."""
+
+    def __init__(self, early):
+        self.early = list(early)
+        self.sleeps = []
+        self.calls = 0
+
+    def sleep(self, cycles):
+        self.sleeps.append(cycles)
+
+    def event(self, enable_timing=False):
+        fake = self
+
+        class Event:
+            def record(self):
+                self.at = fake.calls
+
+            def query(self):
+                return fake.early.pop(0)
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return 2.0 * (end.at - self.at)
+
+        return Event()
+
+
+def test_device_ms_times_n_calls_behind_a_hold(monkeypatch):
+    fake = _FakeCuda(early=[True, False, False, False])
+    monkeypatch.setattr(torch.cuda, "Event", fake.event)
+    monkeypatch.setattr(torch.cuda, "_sleep", fake.sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(profile, "_SLEEP_RATE", [1e9])
+
+    def fn():
+        fake.calls += 1
+
+    assert device_ms(fn, n=5, warmup=2, repeats=3) == pytest.approx(2.0)
+    # warm-up, the host's enqueue timing, then four timed runs of 5 calls
+    assert fake.calls == 2 + 5 + 4 * 5
+    # the first run's hold was too short (start already reached): the
+    # second one holds twice as long, and the later ones keep it
+    assert len(fake.sleeps) == 4
+    assert fake.sleeps[1] == pytest.approx(2 * fake.sleeps[0], rel=1e-6)
+    assert fake.sleeps[2] == fake.sleeps[3] == fake.sleeps[1]
+
+
+def test_device_ms_refuses_a_function_that_never_lets_the_hold_cover_it(
+        monkeypatch):
+    fake = _FakeCuda(early=[True] * 64)
+    monkeypatch.setattr(torch.cuda, "Event", fake.event)
+    monkeypatch.setattr(torch.cuda, "_sleep", fake.sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(profile, "_SLEEP_RATE", [1e9])
+    with pytest.raises(RuntimeError, match="synchronise"):
+        device_ms(lambda: None, n=2, warmup=0)
+
+
+def test_device_ms_rotates_copies_and_keeps_each_result_to_the_end(
+        monkeypatch):
+    fake = _FakeCuda(early=[False] * 2)
+    monkeypatch.setattr(torch.cuda, "Event", fake.event)
+    monkeypatch.setattr(torch.cuda, "_sleep", fake.sleep)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(profile, "_SLEEP_RATE", [1e9])
+    order, live, at_end = [], [0], []
+
+    class Out:
+        def __init__(self):
+            live[0] += 1
+
+        def __del__(self):
+            live[0] -= 1
+
+    def call(k):
+        def fn():
+            order.append(k)
+            fake.calls += 1
+            return Out()
+        return fn
+
+    real_event = fake.event
+
+    def event(enable_timing=False):
+        ev = real_event(enable_timing)
+        sync = ev.synchronize
+        ev.synchronize = lambda: (at_end.append(live[0]), sync())
+        return ev
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    assert device_ms([call(0), call(1), call(2)], n=5, warmup=1,
+                     repeats=2) == pytest.approx(2.0)
+    # warm-up, enqueue timing, two timed runs: the copies in turn
+    assert order == [0] + [0, 1, 2, 0, 1] * 3
+    # every result of a timed run is alive when its end event is waited for
+    assert at_end == [5, 5] and live[0] == 0
+
+
+@pytest.mark.parametrize("moved_mb,want", [(400, 1), (100, 1), (67, 3),
+                                           (25, 5), (0.004, 20)])
+def test_l2_copies_rotate_past_the_l2(monkeypatch, moved_mb, want):
+    """Enough copies that the calls between two uses of one move twice the
+    L2 (50 MB here), one where a call alone does, at most n."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(L2_cache_size=50 * 2**20))
+    assert profile.l2_copies(int(moved_mb * 2**20), n=20) == want
+
+
+@pytest.mark.parametrize("shape,pieces,label", K6_CASES)
+def test_k6_work_counts_each_piece_and_tensor_once(shape, pieces, label):
+    small = (2, 3, 4, shape[3])
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*s, scale=1.0, offset=0.0):
+        return torch.randn(s, generator=gen) * scale + offset
+
+    x, kw = k6_operands(rand, torch.bfloat16, small, pieces, torch.float32)
+    n, c = x.numel(), small[3]
+    flops, moved = k6_work(x, kw)
+    per = (("s" in pieces) + ("n" in pieces) + ("b" in pieces)
+           + 2 * ("a" in pieces) + pieces.count("p") + 4 * ("2" in pieces))
+    assert flops == per * n
+    small_ops = 4 * (("s" in pieces) * 2 * c + ("n" in pieces) * 24
+                     + ("b" in pieces) * c + ("2" in pieces) * (24 + c))
+    assert moved == 2 * n * (2 + pieces.count("p")) + small_ops
+    assert k6_work(x, kw, mask=True)[1] == moved + n
+    assert all(p.dtype == torch.bfloat16 for p in kw.get("post_add", ()))

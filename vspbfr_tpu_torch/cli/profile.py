@@ -61,6 +61,16 @@ where no one library call computes the function), the bound with what
 bounds it, the max difference relative to max |plain| and the launches of
 the timed kernel calls.
 
+Two timers serve the rows here and in `chip_smoke.py`: `cuda_ms`, one
+call on an idle stream (host included: what a call costs the stream when
+the host is the limit), and `device_ms`, the device's time alone (the
+stream held while the host enqueues n calls, rotating through copies of
+the operands, `copies`, so that no call reads from L2 what an earlier
+one left there). `in_turns` and `card_name` serve the CLIs that time a
+kernel against an earlier checkout's form. `K6_CASES`, `K7_CASES`,
+`k6_operands` and `k6_work` give K6's and K7's main-path shapes, operands
+and bound to both `chip_smoke.py` and `cli.epilogue_turns`.
+
 Needs a CUDA device: a trace that holds no device kernel raises.
 """
 
@@ -270,7 +280,10 @@ def smart_grad_work(b: int, h: int, w: int, c: int, cb: int, cout: int,
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in ms, after warm-up."""
+    """Median CUDA-event time of fn() in ms, after warm-up: the start event
+    is recorded on an idle stream before fn() is called, so the time holds
+    the host's work up to fn's launches too (what one call costs the stream
+    when the host is the limit; `device_ms` leaves it out)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -284,6 +297,163 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# cycles of `torch.cuda._sleep` per second on this card (measured once)
+_SLEEP_RATE: list[float] = []
+
+
+def _sleep_rate() -> float:
+    if not _SLEEP_RATE:
+        cycles = 20_000_000
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles // 10)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_RATE.append(cycles / (start.elapsed_time(end) / 1e3))
+    return _SLEEP_RATE[0]
+
+
+def l2_copies(moved: int, n: int = 20) -> int:
+    """How many copies of a call's operands `device_ms` should rotate
+    through so that every call reads them from device memory, not from
+    the card's L2: one where a call alone moves twice the L2, else enough
+    that the calls between two uses of a copy move that much (at most
+    n). moved: the bytes one call reads and writes."""
+    l2 = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).L2_cache_size
+    if moved >= 2 * l2:
+        return 1
+    return min(n, math.ceil(2 * l2 / max(moved, 1)) + 1)
+
+
+def device_ms(fn, n: int = 20, warmup: int = 3, repeats: int = 5) -> float:
+    """Device time of one call in ms, apart from the host's: the stream is
+    held by `torch.cuda._sleep` for twice the host's measured time to
+    enqueue n calls, the start event is recorded, then n calls and the end
+    event; (end - start) / n, the median of `repeats` such runs. fn is a
+    callable or a list of callables on copies of the operands (see
+    `l2_copies`), taken in turn; each call's result is kept until its
+    run has ended, so every call writes fresh memory. fn must not
+    synchronise. If the device reached the start event before the host
+    had enqueued the n calls (the hold was too short: the calls would have
+    run with gaps), the run is repeated with a hold twice as long."""
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+
+    def run():
+        return [fns[i % len(fns)]() for i in range(n)]
+
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    hold_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    del out
+    rate = _sleep_rate()
+    times = []
+    while len(times) < repeats:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_s * rate))
+        start.record()
+        out = run()
+        early = start.query()
+        end.record()
+        end.synchronize()
+        del out
+        if early:
+            hold_s *= 2
+            if hold_s > 10:
+                raise RuntimeError("device_ms: the host did not finish "
+                                   "enqueueing within a 10 s hold (does fn "
+                                   "synchronise?)")
+            continue
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def copies(make, moved: int, n: int = 20) -> list:
+    """`l2_copies(moved, n)` results of make(), each a call on operands of
+    its own, for `device_ms` to rotate through."""
+    return [make() for _ in range(l2_copies(moved, n))]
+
+
+def in_turns(timer, old, new) -> tuple[list, list]:
+    """timer(old), timer(new), timer(new), timer(old): ([old, old], [new,
+    new]), so that a drift of the card's or the host's pace falls on both
+    forms alike."""
+    t = [timer(f) for f in (old, new, new, old)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def card_name() -> str:
+    """The card's name and power limit, as `nvidia-smi` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+# K6 on the main paths at full width, b4 (x shape, pieces, label): "s"
+# out_scale, "n" noise, "b" bias, "a" the activation, "p" a post-add (one
+# each), "2" the second stage (noise2, bias2, act2); the SMART tail (conv
+# then bias + lrelu, then the second stage) and the RestoreNet StyledConv
+# with its two skips are the chain rows, one K6 pass each
+K6_CASES = (
+    ((4, 1024, 1024, 32), "snba", "decoder styled 1024px C32"),
+    ((4, 512, 512, 64), "nba", "SMART tail stage 2 512px C64"),
+    ((4, 64, 64, 512), "snba", "styled 64px C512"),
+    ((4, 512, 512, 64), "b", "bias only 512px C64"),
+    ((4, 512, 512, 3), "nba", "C3 512px"),
+    ((4, 512, 512, 64), "ba2", "chain SMART tail 512px C64"),
+    ((4, 64, 64, 512), "ba2", "chain SMART tail 64px C512"),
+    ((4, 512, 512, 64), "snbapp", "chain styled 2 skips 512px C64"),
+)
+# K7 on the main paths (x shape, label)
+K7_CASES = (
+    ((4, 512, 512, 64), "LargeConv down_from_big 512px C64"),
+    ((4, 512), "StyleMLP / final_linear (4, 512)"),
+    ((4, 256, 256, 3), "odd C3 256px"),
+)
+
+
+def k6_operands(rand, dt, xs, pieces, op_dt=None) -> tuple:
+    """(x, kwargs of `conv_epilogue`) for a `K6_CASES` entry: x and the
+    post-adds in dt, the other operands in op_dt (default dt)."""
+    b, h, w, c = xs
+    op_dt = op_dt or dt
+    kw = {"act": "a" in pieces}
+    if "s" in pieces:
+        kw["out_scale"] = rand(b, c, scale=0.2, offset=1.0).to(op_dt)
+    if "n" in pieces:
+        kw["noise"] = rand(b, h, w, 1, scale=0.3).to(op_dt)
+    if "b" in pieces:
+        kw["bias"] = rand(c, scale=0.3).to(op_dt)
+    if "p" in pieces:
+        kw["post_add"] = tuple(rand(*xs).to(dt)
+                               for _ in range(pieces.count("p")))
+    if "2" in pieces:
+        kw.update(noise2=rand(b, h, w, 1, scale=0.3).to(op_dt),
+                  bias2=rand(c, scale=0.3).to(op_dt), act2=True)
+    return rand(*xs).to(dt), kw
+
+
+def k6_work(x, kw, mask: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one K6 call: per element one operation for
+    each piece (two for an activation, one for each post-add); x, every
+    operand and y moved once (and the mask's byte an element)."""
+    per = (sum(k in kw for k in ("out_scale", "noise", "bias", "noise2",
+                                 "bias2"))
+           + 2 * (bool(kw.get("act")) + bool(kw.get("act2")))
+           + len(kw.get("post_add", ())))
+    tensors = [x, x] + [v for k, v in kw.items() if isinstance(
+        v, torch.Tensor)] + list(kw.get("post_add", ()))
+    moved = sum(t.numel() * t.element_size() for t in tensors)
+    return per * x.numel(), moved + (x.numel() if mask else 0)
 
 
 def smart_composition(x, style, ws, wf) -> torch.Tensor:
@@ -352,9 +522,9 @@ def profile_smart(dtype: torch.dtype, device="cuda", shapes=SMART_SHAPES,
 def _rand_fn(dtype, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev)
-                * scale).to(dtype)
+    def rand(*shape, scale=1.0, offset=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + offset).to(dtype)
 
     return rand
 
@@ -618,10 +788,7 @@ def main(argv=None) -> dict:
         low = torch.rand((batch, size, size, 3), generator=gen,
                          device="cuda") * 2 - 1
         res = profile_restore(pipe, low)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout
-    res.update(card=card.splitlines()[0].strip(), batch=batch, size=size,
+    res.update(card=card_name().splitlines()[0], batch=batch, size=size,
                decoder_size=DECODER_SIZE, dtype="bf16" if args.bf16 else "f32",
                call=call, fused_epi=args.fused_epi,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)

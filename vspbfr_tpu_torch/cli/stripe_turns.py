@@ -37,7 +37,8 @@ from vspbfr_tpu_torch import ops
 from vspbfr_tpu_torch.cli.profile import (INKPAD_CO, INKPAD_ROWS,
                                           INKPAD_SHAPE, STRIPE_SHAPES,
                                           _diffs, _rand_fn, bound_ms,
-                                          cuda_ms, stripe_work)
+                                          card_name, cuda_ms, in_turns,
+                                          stripe_work)
 from vspbfr_tpu_torch.ops import _build
 from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
 
@@ -130,19 +131,19 @@ def turns(old_lib) -> list[dict]:
                 d_new = _diffs(new(), ref, region)["max_rel_diff"]
                 d_old = _diffs(old(), ref, region)["max_rel_diff"]
                 del ref
-                times = [cuda_ms(f) for f in (old, new, new, old)]
+                old_ms, new_ms = in_turns(cuda_ms, old, new)
                 lib_ms = cuda_ms(lambda: conv_nhwc(x, w, 1, pads))
             flops, moved = stripe_work(*x.shape, w.shape[0], w.shape[1],
                                        w.shape[3], pads, x.element_size())
             b_ms, b_by = bound_ms(flops, moved, dt)
-            r = dict(case=label, dtype=dt, old_ms=[times[0], times[3]],
-                     new_ms=[times[1], times[2]], old_rel=d_old,
-                     new_rel=d_new, cudnn_ms=lib_ms, bound_ms=b_ms,
-                     bound_by=b_by)
-            r["new_over_old"] = sum(r["new_ms"]) / sum(r["old_ms"])
+            r = dict(case=label, dtype=dt, old_ms=old_ms, new_ms=new_ms,
+                     old_rel=d_old, new_rel=d_new, cudnn_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by)
+            r["new_over_old"] = sum(new_ms) / sum(old_ms)
             rows.append(r)
-            print(f"{label:34s} {dt:4s} old {times[0]:.4f} new {times[1]:.4f}"
-                  f" new {times[2]:.4f} old {times[3]:.4f} ms  new/old "
+            print(f"{label:34s} {dt:4s} old {old_ms[0]:.4f} new "
+                  f"{new_ms[0]:.4f} new {new_ms[1]:.4f} old {old_ms[1]:.4f} "
+                  f"ms  new/old "
                   f"{r['new_over_old']:.3f}  cuDNN {lib_ms:.4f}  bound "
                   f"{b_ms:.4f} ({b_by})  rel diff new {d_new:.2e} old "
                   f"{d_old:.2e}", flush=True)
@@ -197,12 +198,11 @@ def grid_turns() -> list[dict]:
             return lambda: tsc._launch("stripe_conv", x, w, pads, load, h_t,
                                        **kw)
         with torch.no_grad():
-            times = [cuda_ms(run(k)) for k in ("card", None, None, "card")]
-        rows.append(dict(case=label, persistent_ms=[times[0], times[3]],
-                         one_block_a_tile_ms=[times[1], times[2]]))
-        print(f"{label:34s} bf16 persistent {times[0]:.4f} {times[3]:.4f}, "
-              f"one block a tile {times[1]:.4f} {times[2]:.4f} ms",
-              flush=True)
+            pers, one = in_turns(cuda_ms, run("card"), run(None))
+        rows.append(dict(case=label, persistent_ms=pers,
+                         one_block_a_tile_ms=one))
+        print(f"{label:34s} bf16 persistent {pers[0]:.4f} {pers[1]:.4f}, "
+              f"one block a tile {one[0]:.4f} {one[1]:.4f} ms", flush=True)
     return rows
 
 
@@ -216,9 +216,7 @@ def main(argv=None) -> dict:
         raise SystemExit("stripe_turns: needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_name()
     print(card, flush=True)
     res = {"card": card, "turns": turns(build_old(args.old)),
            "tiles": tile_turns(), "grid": grid_turns()}

@@ -4,8 +4,8 @@ The hand-written CUDA kernels live in `dense_conv` (K1 with its gradient,
 and K1e, K1 with the styled epilogue in its store), `dilated_conv` (K2,
 with its gradient), `d2s` (K3 and its inverse K4, each the other's
 gradient), `smart` (K5, the fused SMART core, whose gradient is the
-K2 + K1 composition's), `epilogue` (K6, the styled epilogue as its own
-pass), `fused_act` (K7, bias + leaky ReLU), `interleave` (K8, two more
+K2 + K1 composition's), `epilogue` (K6, the styled epilogue chain as its
+own pass), `fused_act` (K7, bias + leaky ReLU), `interleave` (K8, two more
 forms of K3's permutation) and `stripe_conv` (K9, the per-tap stripe conv,
 and K10, its in-kernel padding variants), each beside its plain torch
 version; `_build` compiles and loads them. No product path calls K8-K10:
@@ -23,14 +23,17 @@ from vspbfr_tpu_torch.ops.dense_conv import (
     dense_conv_epilogue,
     dense_conv_epilogue_plain,
     dense_conv_plain,
-    epilogue_plain_chain,
     fused_epi_enabled,
 )
 from vspbfr_tpu_torch.ops.dilated_conv import (
     dilated_multi_conv,
     dilated_multi_conv_plain,
 )
-from vspbfr_tpu_torch.ops.epilogue import conv_epilogue, epilogue_plain
+from vspbfr_tpu_torch.ops.epilogue import (
+    conv_epilogue,
+    epilogue_plain,
+    epilogue_plain_chain,
+)
 from vspbfr_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_plain,

@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
@@ -34,7 +35,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, in_scale, y, dtype, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW, stream
     "vspbfr_dense_conv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
@@ -54,10 +55,10 @@ _SIGNATURES = {
     "vspbfr_smart_fused": [_P] * 6 + [_I] * 7 + [_P],
     # H, W, Cb -> the tile side K5 picks
     "vspbfr_smart_tile": [_I] * 3,
-    # x, out_scale, noise, bias, y, act, dtype, n, C, HW, aligned, stream
-    "vspbfr_conv_epilogue": [_P] * 5 + [_I] * 6 + [_P],
-    # x, bias, y, dtype, n, C, aligned, slope, gain, stream
-    "vspbfr_fused_lrelu": [_P] * 3 + [_I] * 4 + [_F, _F, _P],
+    # one packed block (`launcher`: ops/epilogue.py LAUNCH_FIELDS), stream
+    "vspbfr_conv_epilogue": [ctypes.c_char_p, _P],
+    # one packed block (ops/fused_act.py LAUNCH_FIELDS), stream
+    "vspbfr_fused_lrelu": [ctypes.c_char_p, _P],
     # x, y, B, h, w, inner_bytes, unit_bytes, stream (both K8 forms)
     "vspbfr_interleave_stack": [_P, _P] + [_I] * 5 + [_P],
     "vspbfr_interleave_repeat": [_P, _P] + [_I] * 5 + [_P],
@@ -75,20 +76,23 @@ class KernelLibrary:
         self.path = path
         self.log = log
         self.build_seconds = build_seconds
+        # each entry point looked up once, with its argument types set
+        self.entries = {}
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            self.entries[name] = fn
 
     def call(self, name: str, *args) -> None:
         """Launch through the C entry point; raise if the launch failed."""
-        err = getattr(self.lib, name)(*args)
+        err = self.entries[name](*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
     def query(self, name: str, *args) -> int:
         """An entry point that returns a value, not an error code."""
-        return int(getattr(self.lib, name)(*args))
+        return int(self.entries[name](*args))
 
 
 # the library loaded in this process (a cache of the build, not state:
@@ -202,3 +206,81 @@ def ptr(t) -> int | None:
 
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the current stream's handle by device index without building a Stream
+# object (what `torch.cuda.current_stream(i).cuda_stream` returns)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launcher(name: str, fields):
+    """(pack, launch): a lean launch of entry point `name` for the
+    streaming kernels (K6, K7), whose host time is a large part of a call.
+    The entry takes one block of arguments and the stream: two ctypes
+    arguments instead of twenty. fields: the C struct the entry reads, as
+    (name, `struct` format) pairs in order; `pack(*values)` packs values
+    in that order (pointers as ints, 0 for an absent one). The other
+    entries keep `KernelLibrary.call`: a conv's launch takes a tenth of a
+    millisecond or more on the device, which hides its host time.
+    `launch(x, block)`
+    looks the entry up once (with the library's build), reads the current
+    stream of x's device by index (entering that device only when it is
+    not the current one) and raises on a non-zero launch code."""
+    entry = None
+
+    def launch(x, block: bytes) -> None:
+        nonlocal entry
+        if entry is None:
+            entry = load_library().entries[name]
+        dev = x.get_device()
+        if dev != torch.cuda.current_device():
+            with torch.cuda.device(dev):
+                return launch(x, block)
+        err = entry(block, _raw_stream(dev) if _raw_stream is not None
+                    else torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+    return struct.Struct("<" + "".join(f for _, f in fields)).pack, launch
+
+
+def operand_code(name: str, x, operands):
+    """The one dtype code of the small operands a streaming kernel reads
+    beside x (each rounded to x's dtype as it is read), and the operands,
+    each contiguous on x's device (the caller holds them until the launch):
+    operands that share x's dtype or float32 are read as they are; mixed
+    dtypes, or bfloat16 beside a float32 x, are all cast to x's (one cast
+    each). Raises for another dtype or device."""
+    dtype = None
+    for t in operands:
+        if t is not None:
+            if dtype is None:
+                dtype = t.dtype
+            elif t.dtype != dtype:
+                dtype = None
+                break
+    else:
+        if dtype not in (x.dtype, torch.float32, None):
+            if dtype not in DTYPE_CODES:
+                raise TypeError(f"{name}: operands take float32 or bfloat16, "
+                                f"got {dtype}")
+            dtype = None
+    if dtype is None and any(t is not None for t in operands):
+        operands = [None if t is None else t.to(x.dtype) for t in operands]
+    code = DTYPE_CODES[x.dtype if dtype is None else dtype]
+    dev = x.get_device()
+    out = []
+    for t in operands:
+        if t is not None:
+            if t.get_device() != dev:
+                raise ValueError(f"{name}: tensors on {t.device} and "
+                                 f"{x.device}")
+            if not t.is_contiguous():
+                t = t.contiguous()
+        out.append(t)
+    return code, out
+
+
+def addr(t) -> int:
+    """t's data pointer, 0 for None (a packed launch's absent operand)."""
+    return 0 if t is None else t.data_ptr()

@@ -42,13 +42,13 @@ flip moves that element's gradient by a factor of 5); when a gradient is
 needed the kernel stores the sign as one byte per output element.
 `conv2d_dense_epilogue` chooses between the two kernel forms with the JAX
 package's switch, `VSPBFR_FUSED_EPI=1`: on, one K1e launch; off (the
-default), the two-pass form the JAX package's `_epi_ref` describes, K1
-and then `apply_epilogue` (K6, the post-activation adds in torch, K6 again
-for a second stage).
+default), the two-pass form of the JAX package's `_epi_ref`, K1 and then
+`apply_epilogue`: the whole chain (both stages and the post-activation
+adds) in one K6 launch.
 
-`apply_epilogue` is that routed chain; `epilogue_plain_chain` is the same
-chain in plain torch, which the plain versions (`dense_conv_epilogue_plain`
-and the CPU branch of K1e) use, so a plain version never reaches a kernel.
+`epilogue_plain_chain` (`ops/epilogue.py`) is the chain in plain torch,
+which the plain versions (`dense_conv_epilogue_plain` and the CPU branch of
+K1e) use, so a plain version never reaches a kernel.
 
 Both backwards are built from differentiable calls (the Functions again,
 torch ops), so a double backward (stage 3's R1) runs through them.
@@ -62,10 +62,14 @@ import torch
 import torch.nn.functional as F
 
 from vspbfr_tpu_torch.ops import _build
-from vspbfr_tpu_torch.ops.epilogue import conv_epilogue, epilogue_plain
+from vspbfr_tpu_torch.ops.epilogue import (
+    MAX_POST,
+    conv_epilogue,
+    epilogue_plain_chain,
+    has_stage2,
+    stage2_grads,
+)
 from vspbfr_tpu_torch.ops.fused_act import SQRT2, act_slope, sum_f32
-
-MAX_POST = 2   # post_add tensors K1e's store takes
 
 
 def _norm_pads(pads) -> tuple[int, int, int, int]:
@@ -212,39 +216,15 @@ def fused_epi_enabled() -> bool:
     return os.environ.get("VSPBFR_FUSED_EPI", "0") == "1"
 
 
-def _epilogue_chain(stage, z, out_scale, noise, bias, act, post_add, noise2,
-                    bias2, act2):
-    """`_epi_ref` (pallas_conv.py:387) with `stage` for `epilogue_ref`: the
-    first stage (skipped when it has nothing to do), the post-activation
-    adds, then the second stage if it has a piece."""
-    out = z
-    if out_scale is not None or noise is not None or bias is not None or act:
-        out = stage(z, out_scale, noise, bias, act)
-    for p in post_add:
-        out = out + p
-    if noise2 is not None or bias2 is not None or act2:
-        out = stage(out, None, noise2, bias2, act2)
-    return out
-
-
 def apply_epilogue(z: torch.Tensor, out_scale=None, noise=None, bias=None,
                    act: bool = True, post_add=(), noise2=None, bias2=None,
                    act2: bool = False) -> torch.Tensor:
     """The styled-conv epilogue on a conv output, routed: demod scale,
-    noise (B, H, W, 1) already scaled by its weight, bias, lrelu*sqrt2 in
-    one K6 pass; the post-activation adds; then the optional second
-    noise/bias/lrelu stage (the SMART tail) in another K6 pass."""
-    return _epilogue_chain(conv_epilogue, z, out_scale, noise, bias, act,
-                           tuple(post_add), noise2, bias2, act2)
-
-
-def epilogue_plain_chain(z: torch.Tensor, out_scale=None, noise=None,
-                         bias=None, act: bool = True, post_add=(),
-                         noise2=None, bias2=None,
-                         act2: bool = False) -> torch.Tensor:
-    """`apply_epilogue` in plain torch (`epilogue_plain` for each stage)."""
-    return _epilogue_chain(epilogue_plain, z, out_scale, noise, bias, act,
-                           tuple(post_add), noise2, bias2, act2)
+    noise (B, H, W, 1) already scaled by its weight, bias, lrelu*sqrt2, the
+    post-activation adds and the optional second noise/bias/lrelu stage
+    (the SMART tail), all in one K6 pass (`conv_epilogue`)."""
+    return conv_epilogue(z, out_scale, noise, bias, act, post_add, noise2,
+                         bias2, act2)
 
 
 def dense_conv_epilogue_plain(x, w, pads, in_scale=None, out_scale=None,
@@ -317,7 +297,7 @@ class _DenseConvEpi(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pads, act, act2, x, w, isc, osc, nz, bias, nz2, bias2,
                 *post):
-        has2 = nz2 is not None or bias2 is not None or act2
+        has2 = has_stage2(nz2, bias2, act2)
         want_mask = (act and (has2 or bool(post))
                      and any(ctx.needs_input_grad))
         y, mask = _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias,
@@ -333,18 +313,14 @@ class _DenseConvEpi(torch.autograd.Function):
         x, w, isc, osc, nz, bias, nz2, bias2, y, mask, *post = \
             ctx.saved_tensors
         act, act2 = ctx.act, ctx.act2
-        has2 = nz2 is not None or bias2 is not None or act2
+        has2 = has_stage2(nz2, bias2, act2)
         if has2 and post:
             raise ValueError("dense_conv_epilogue backward: a second stage "
                              "together with post_add has no gradient (as in "
                              "the JAX package)")
         dnz2 = dbias2 = None
         if has2:
-            du2 = g * act_slope(y, g.dtype) if act2 else g
-            if bias2 is not None:
-                dbias2 = sum_f32(du2, (0, 1, 2), bias2.dtype)
-            if nz2 is not None:
-                dnz2 = du2.sum(dim=-1, keepdim=True)
+            du2, dnz2, dbias2 = stage2_grads(g, y, nz2, bias2, act2)
             # the stage-1 activated value: invert stage 2 on y
             v = _unact(y, act2)
             if nz2 is not None:
