@@ -10,12 +10,12 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              TF32 otherwise).
 2. build   - build or load the kernels' shared library from `csrc/`;
              print ptxas's registers and spill bytes of each K9 / K10, K1 /
-             K1e, K2, K6 and K7 instantiation; count, in the SASS of each
-             (`cuobjdump -sass`), the tensor-core instructions (HMMA of
-             mma.sync, HGMMA of wgmma) and TMA loads (UTMALDG): every bf16
-             K1 / K1e / K2 one must have HMMA, every bf16 K9 / K10 one
-             (one kernel with the TMA and the plain-load producer) HGMMA
-             and UTMALDG.
+             K1e, K2, K5, K6 and K7 instantiation (no K5 one may spill);
+             count, in the SASS of each (`cuobjdump -sass`), the
+             tensor-core instructions (HMMA of mma.sync, HGMMA of wgmma)
+             and TMA loads (UTMALDG): every bf16 K1 / K1e / K2 / K5 one
+             must have HMMA, every bf16 K9 / K10 one (one kernel with the
+             TMA and the plain-load producer) HGMMA and UTMALDG.
 3. kernels - each CUDA kernel (K1 dense conv, K1e its fused styled
              epilogue, K2 multi-dilation conv, K3 phase interleave, K5 fused
              SMART core, K6 styled epilogue pass, K7 bias + leaky ReLU, K8
@@ -31,7 +31,8 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              composition stands beside it: cuDNN's four dilated convs and
              the concatenation), and the bound (the larger of operations over the card's
              peak rate for the dtype and bytes over its memory rate); for
-             K5 also the K2 + K1 composition SMARTLayer runs. K6 (each
+             K5 also the K2 + K1 composition SMARTLayer runs and K5's
+             launch plan (`ops.smart.smart_plan`). K6 (each
              row one launch, the chain rows too: the SMART tail's two
              stages, the StyledConv's two skips) and K7 also give their
              device time apart from the host's (`cli.profile.device_ms`,
@@ -80,8 +81,9 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              bf16 step with the switch off and on in turns on one trainer.
 9. smart   - K5's entry, `python -m vspbfr_tpu_torch.cli.profile --smart`,
              in process, f32 and bf16: K5 against the K2 + K1 composition
-             at every RestoreNet SMART shape, b4 (SMARTLayer itself runs
-             the composition, as in the JAX package).
+             at every RestoreNet SMART shape, b4, in turns, per call and
+             on the device, with K5's plan (SMARTLayer itself runs the
+             composition, as in the JAX package).
 10. experiments - the entries of K8-K10 (`cli.profile --interleave`,
              `--stripe_conv`, `--inkpad`) in process, f32 and bf16, at the
              TPU experiments' shapes, b4: every row must launch its kernel
@@ -229,12 +231,15 @@ def phase_device():
 # --- phase 2 ----------------------------------------------------------------
 
 # the SASS instructions every bf16 instantiation of each kernel must hold:
-# K9 / K10 wgmma (HGMMA) fed by TMA (UTMALDG), K1 and K1e (one template)
-# and K2 mma.sync (HMMA)
+# K9 / K10 wgmma (HGMMA) fed by TMA (UTMALDG), K1 and K1e (one template),
+# K2 and K5 mma.sync (HMMA)
 SASS_REQUIRED = {"stripe_conv_kernel": ("HGMMA", "UTMALDG"),
                  "dense_conv_kernel": ("HMMA",),
-                 "dilated_multi_kernel": ("HMMA",)}
+                 "dilated_multi_kernel": ("HMMA",),
+                 "smart_fused_kernel": ("HMMA",)}
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+# kernels none of whose instantiations may spill
+NO_SPILLS = ("smart_fused_kernel",)
 
 
 def phase_build():
@@ -251,6 +256,12 @@ def phase_build():
             f"{demangle(fn)}")
     REPORT["build_seconds"] = lib.build_seconds
     REPORT["ptxas"] = {demangle(fn): r for fn, r in regs.items()}
+    for kernel in NO_SPILLS:
+        spills = {demangle(fn): r for fn, r in regs.items()
+                  if kernel in fn and (r["spill_stores"] or r["spill_loads"])}
+        if spills or not any(kernel in fn for fn in regs):
+            raise AssertionError(f"{kernel}: spills or no ptxas report: "
+                                 f"{spills}")
     REPORT["tensor_core_lines"] = {}
     for kernel, required in SASS_REQUIRED.items():
         counts = sass_counts(lib.path, kernel)
@@ -491,7 +502,9 @@ def phase_kernels():
                                               k6_operands, k6_work,
                                               smart_composition, smart_work)
     from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
-    from vspbfr_tpu_torch.ops.smart import smart_tile
+    from vspbfr_tpu_torch.cli.profile import plan_label
+    from vspbfr_tpu_torch.ops import _build
+    from vspbfr_tpu_torch.ops.smart import smart_plan
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -624,11 +637,13 @@ def phase_kernels():
             comp_ms = cuda_ms(lambda: smart_composition(x, style, wl, wf))
             flops, moved = smart_work(b, h, w, c, c // 4, c,
                                       x.element_size())
+            plan = smart_plan(dt == torch.bfloat16, b, h, w, c, c // 4, c,
+                              _build.multiprocessors(dev))
             _check("smart_core", label, dt_name, got, ref, ms, pms, rows,
                    flops=flops, moved=moved, composition_ms=comp_ms,
-                   tile=smart_tile(h, w, c // 4))
+                   plan=plan)
             say(f"{'':20s} {label:28s} {dt_name:4s} K2 + K1 composition "
-                f"{comp_ms:.4f} ms (tile {smart_tile(h, w, c // 4)})")
+                f"{comp_ms:.4f} ms ({plan_label(plan)})")
             del x, style, wl, wf, got, ref
         torch.cuda.empty_cache()
         _experiment_kernels(rows, dt_name, dt)

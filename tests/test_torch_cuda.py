@@ -21,7 +21,9 @@ whole chain (post-adds, the second stage) in one launch at C = 3 and other
 odd widths, n no multiple of the vector width, misaligned x or post-adds,
 f32 operands under bf16 x, its sign mask; K5 (the
 fused SMART core) at 4 and 8 px, odd sizes, narrow and uneven-tile widths,
-demod off, with its gradient (a K2 + K1 recomputation); K8 (the
+demod off, ragged tiles of each of its plan's kinds, an image smaller than
+the dilation-8 reach, C512, Co slices that are no multiple of 64, every
+cluster size, with its gradient (a K2 + K1 recomputation); K8 (the
 interleave's stack and repeat forms) at odd widths, h not divisible by
 a block's rows, offset views that shrink its unit, a staged column of
 16-32 KB; K9 (the stripe conv) at odd W, H not divisible by its tile, Ci
@@ -826,6 +828,14 @@ SMART_CASES = [   # (B, H, W, C, Cb, Cout, demod)
     (2, 16, 16, 8, 2, 8, False),    # demod off
     (1, 12, 10, 64, 16, 70, True),  # Cout above one 64-channel pass
     (1, 6, 6, 256, 64, 256, True),  # the 4-px tile width class (4Cb 256)
+    # the plan's kinds, ragged tiles and cluster splits (ops.smart_plan):
+    (1, 33, 17, 64, 16, 64, True),    # 16x16 tiles, ragged in both axes
+    (1, 33, 17, 64, 16, 64, False),
+    (2, 19, 21, 96, 24, 40, True),    # bf16 Cb <= 32, f32 8x8; Co 40 split
+    (1, 5, 7, 32, 8, 32, True),       # smaller than the dilation-8 reach
+    (1, 12, 12, 512, 128, 512, True),  # C512 b1: bf16 8x8, f32 4x8, cluster 8
+    (1, 12, 12, 512, 128, 512, False),
+    (1, 20, 20, 128, 32, 136, True),  # Co no multiple of 64 over a cluster
 ]
 
 
@@ -848,6 +858,23 @@ def test_smart_core_matches_plain(dev, dtype, b, h, w, c, cb, co, demod):
     ref = ops.smart_core_plain(x.float(), style.float(),
                                [t.float() for t in ws], wf.float(),
                                demodulate=demod)
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_smart_core_every_cluster_matches_plain(dev, dtype, cluster):
+    """Each cluster a plan may take (one block a tile, one branch a block,
+    half a branch a block), forced at one shape: the branch tile exchanged
+    over distributed shared memory and each block's Co slice."""
+    smart = importlib.import_module("vspbfr_tpu_torch.ops.smart")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x, style, ws, wf = _smart_case(gen, dev, dtype, 2, 11, 19, 40, 16, 70)
+    ops.reset_launch_counts()
+    got = smart._smart_forward(x, style, ws, wf, True, 1e-8, cluster)
+    assert ops.launch_counts()["smart_core"] == 1
+    ref = ops.smart_core_plain(x.float(), style.float(),
+                               [t.float() for t in ws], wf.float())
     _assert_close(got, ref, dtype)
 
 

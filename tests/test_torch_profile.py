@@ -30,6 +30,7 @@ from vspbfr_tpu_torch.cli.profile import (  # noqa: E402
     smart_work,
     summarize,
 )
+from vspbfr_tpu_torch.ops.smart import PLAN_FIELDS, smart_plan  # noqa: E402
 
 
 def _ev(name, start, end, device=DeviceType.CUDA):
@@ -60,7 +61,12 @@ def _ev(name, start, end, device=DeviceType.CUDA):
      "K2 dilated_multi_conv"),
     ("void d2s_kernel<uint4>(uint4 const*, ...)", "K3 d2s"),
     ("void s2d_kernel<uint4>(uint4 const*, ...)", "K4 s2d"),
-    ("void vspbfr::(anonymous namespace)::smart_fused_kernel<float, 8>"
+    ("void vspbfr::(anonymous namespace)::smart_fused_kernel<__nv_bfloat16,"
+     " 2>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, vspbfr::("
+     "anonymous namespace)::Plan, vspbfr::(anonymous namespace)::Vec)",
+     "K5 smart_core"),
+    ("void vspbfr::(anonymous namespace)::smart_fused_kernel<float, 0>"
      "(float const*, ...)", "K5 smart_core"),
     ("void vspbfr::(anonymous namespace)::epilogue_kernel<__nv_bfloat16, 8>"
      "(__nv_bfloat16 const*, ...)", "K6 conv_epilogue"),
@@ -141,18 +147,55 @@ def test_smart_grad_work_is_the_recompute_plus_dx_and_dw():
 
 
 def test_profile_smart_summary_on_the_cpu():
+    calls = []
+
+    def dev_timer(fns):
+        calls.append(len(fns))
+        fns[0]()
+        return 3.0
+
     rows = profile_smart(torch.float32, device="cpu", shapes=((8, 8),),
-                         batch=1, timer=lambda fn: (fn(), 2.0)[1])
+                         batch=1, timer=lambda fn: (fn(), 2.0)[1],
+                         dev_timer=dev_timer)
     (r,) = rows
     assert (r["size"], r["channels"], r["batch"], r["dtype"]) == (8, 8, 1,
                                                                   "f32")
     assert r["max_rel_diff"] <= 1e-6
     assert r["k5_ms"] == r["composition_ms"] == 2.0
-    assert r["composition_over_k5"] == 1.0
+    assert r["k5_device_ms"] == r["composition_device_ms"] == 3.0
+    assert r["turns"]["k5_device_ms"] == [3.0, 3.0]
+    assert r["k5_over_composition"] == 1.0
+    # composition, K5, K5, composition, one operand set each on the CPU
+    assert calls == [1, 1, 1, 1] and r["designs"] == {}
     assert r["k5_launches"] == 0 and r["composition_launches"] == {
         "dilated_multi_conv": 0, "dense_conv": 0}
     assert (r["flops"], r["bytes"]) == smart_work(1, 8, 8, 8, 2, 8, 4)
     assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+
+
+def test_profile_smart_reports_the_plan_and_both_designs():
+    """`--smart` reports K5's launch plan (`smart_plan` at the card's 132
+    multiprocessors), and with `--designs` both clusters' device times in
+    turns (a, b, b, a)."""
+    order = []
+
+    def dev_timer(fns):
+        order.append(fns[0])
+        return 1.0 + len(order)
+
+    (r,) = profile_smart(torch.bfloat16, device="cpu", shapes=((8, 8),),
+                         batch=1, timer=lambda fn: 2.0, dev_timer=dev_timer,
+                         designs=profile.SMART_DESIGNS)
+    plan = smart_plan(True, 1, 8, 8, 8, 2, 8)
+    assert r["plan"] == plan
+    assert all(k in plan for k in PLAN_FIELDS)
+    assert (plan["TH"], plan["TW"], plan["cluster"]) == (16, 16, 8)
+    assert r["plan_label"] == profile.plan_label(plan)
+    (la, ca), (lb, cb) = profile.SMART_DESIGNS
+    assert (ca, cb) == (1, 4)
+    # after the composition and K5 in turns (2.0 .. 5.0): a, b, b, a
+    assert r["designs"] == {la: {"cluster": 1, "device_ms": [6.0, 9.0]},
+                            lb: {"cluster": 4, "device_ms": [7.0, 8.0]}}
 
 
 class _FakeCuda:

@@ -28,15 +28,19 @@ stage-3 trainer at full width (512 px, 1024 px decoder, b4) and its
 `scripts/exp_smart_kernel.py`): at each distinct SMART shape of RestoreNet
 at full width, b4, it times K5 (`ops.smart_core`) against the composition
 `SMARTLayer` runs (K2 through `modulated_conv2d_multi`, then K1 for the
-fusion conv, without the epilogue): CUDA-event medians, their max
-difference relative to max |composition|, K5's tile side, the bound
-(operations over the taps inside the image, or bytes) and the launches.
+fusion conv, without the epilogue), the two in turns, both per call
+(`cuda_ms`) and on the device alone (`device_ms`, cold L2): their max
+difference relative to max |composition|, K5's launch plan
+(`ops.smart.smart_plan`), the bound (operations over the taps inside the
+image, or bytes) and the launches. `--designs` adds K5's device time
+with one block a tile (cluster 1) and with one branch a block (cluster 4),
+in turns.
 
     python -m vspbfr_tpu_torch.cli.profile                # f32
     python -m vspbfr_tpu_torch.cli.profile --bf16 --out profile_bf16.json
     python -m vspbfr_tpu_torch.cli.profile --train [--bf16]
     python -m vspbfr_tpu_torch.cli.profile --restore [--bf16] [--fused_epi]
-    python -m vspbfr_tpu_torch.cli.profile --smart [--bf16]
+    python -m vspbfr_tpu_torch.cli.profile --smart [--bf16] [--designs]
     python -m vspbfr_tpu_torch.cli.profile --interleave [--bf16]
     python -m vspbfr_tpu_torch.cli.profile --stripe_conv [--bf16]
     python -m vspbfr_tpu_torch.cli.profile --inkpad [--bf16]
@@ -90,7 +94,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from vspbfr_tpu_torch import ops
 from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
-from vspbfr_tpu_torch.ops.smart import RATES, smart_tile
+from vspbfr_tpu_torch.ops import _build
+from vspbfr_tpu_torch.ops.smart import RATES, SMS, _smart_forward, smart_plan
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.diffuser_train import (
     DiffuserTrainConfig,
@@ -466,55 +471,89 @@ def smart_composition(x, style, ws, wf) -> torch.Tensor:
                           ((1, 1), (1, 1)))
 
 
+# K5's two designs (`--designs`): the cluster of blocks that shares a tile
+SMART_DESIGNS = (("one block a tile", 1), ("one branch a block", 4))
+
+
+def plan_label(plan: dict) -> str:
+    """A K5 plan in a few words: tile, cluster, output channels a block,
+    blocks and the branch tile's bytes."""
+    return (f"tile {plan['TH']}x{plan['TW']}, cluster {plan['cluster']}, "
+            f"co {plan['co_split']}/block, {plan['blocks']} blocks, branch "
+            f"tile {plan['buf_bytes']} B")
+
+
 def profile_smart(dtype: torch.dtype, device="cuda", shapes=SMART_SHAPES,
-                  batch: int = BATCH, timer=cuda_ms) -> list[dict]:
+                  batch: int = BATCH, timer=cuda_ms, dev_timer=device_ms,
+                  designs=()) -> list[dict]:
     """K5 against the composition SMARTLayer runs at each (side, C) of
-    `shapes`, batch `batch`, in `dtype`: times (by `timer`), the max
-    difference relative to max |composition|, the bound and the launches
-    of each side's timed calls (counted as differences, so the launch
-    counters keep running across the call)."""
+    `shapes`, batch `batch`, in `dtype`, the two in turns (composition,
+    K5, K5, composition): per call by `timer`, on the device by
+    `dev_timer` (on operand copies past the L2), the max difference
+    relative to max |composition|, K5's plan, the bound and the launches
+    of all the timed calls (counted as differences, so the launch counters
+    keep running across the call). `designs`: (label, cluster) pairs whose
+    K5 device times are taken in turns too (two designs: a, b, b, a)."""
     dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def rand(*shape, scale=1.0, offset=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale
-                + offset).to(dtype)
+    rand = _rand_fn(dtype, dev)
 
     rows = []
     for side, c in shapes:
         cb = c // len(RATES)
-        x = rand(batch, side, side, c)
-        style = rand(batch, c, scale=0.2, offset=1.0)
-        ws = [rand(3, 3, c, cb) for _ in RATES]
-        wf = rand(3, 3, 4 * cb, c)
 
-        def k5():
-            return ops.smart_core(x, style, ws, wf)
+        def operands():
+            return (rand(batch, side, side, c),
+                    rand(batch, c, scale=0.2, offset=1.0),
+                    [rand(3, 3, c, cb) for _ in RATES], rand(3, 3, 4 * cb, c))
 
-        def composition():
-            return smart_composition(x, style, ws, wf)
+        flops, moved = smart_work(batch, side, side, c, cb, c,
+                                  dtype.itemsize)
+        n = l2_copies(moved) if dev.type == "cuda" else 1
+        sets = [operands() for _ in range(n)]
 
+        def k5_calls(cluster=None):
+            if cluster is None:
+                return [lambda a=a: ops.smart_core(*a) for a in sets]
+            return [lambda a=a: _smart_forward(*a, True, 1e-8, cluster)
+                    for a in sets]
+
+        comp_calls = [lambda a=a: smart_composition(*a) for a in sets]
         with torch.no_grad():
-            ref = composition().float()
-            diff = float((k5().float() - ref).abs().max()
+            ref = comp_calls[0]().float()
+            diff = float((k5_calls()[0]().float() - ref).abs().max()
                          / ref.abs().max().clamp_min(1e-12))
             before = ops.launch_counts()
-            k5_ms = timer(k5)
-            mid = ops.launch_counts()
-            comp_ms = timer(composition)
+            comp_ms, k5_ms = in_turns(timer, comp_calls[0], k5_calls()[0])
+            comp_dev, k5_dev = in_turns(dev_timer, comp_calls, k5_calls())
             after = ops.launch_counts()
-        flops, moved = smart_work(batch, side, side, c, cb, c,
-                                  x.element_size())
+            design_ms = {}
+            if len(designs) == 2:
+                (la, ca), (lb, cbl) = designs
+                design_ms[la], design_ms[lb] = in_turns(
+                    dev_timer, k5_calls(ca), k5_calls(cbl))
+        del sets, ref
         b_ms, b_by = bound_ms(flops, moved, dt_name)
+        plan = smart_plan(dtype == torch.bfloat16, batch, side, side, c, cb,
+                          c, _build.multiprocessors(dev)
+                          if dev.type == "cuda" else SMS)
         rows.append(dict(
             size=side, channels=c, batch=batch, dtype=dt_name,
-            tile=smart_tile(side, side, cb) if dev.type == "cuda" else None,
-            k5_ms=k5_ms, composition_ms=comp_ms,
-            composition_over_k5=comp_ms / k5_ms, max_rel_diff=diff,
-            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved,
-            k5_launches=mid["smart_core"] - before["smart_core"],
-            composition_launches={k: after[k] - mid[k] for k in
+            plan=plan, plan_label=plan_label(plan),
+            k5_ms=statistics.mean(k5_ms), composition_ms=statistics.mean(
+                comp_ms),
+            k5_device_ms=statistics.mean(k5_dev),
+            composition_device_ms=statistics.mean(comp_dev),
+            turns=dict(k5_ms=k5_ms, composition_ms=comp_ms,
+                       k5_device_ms=k5_dev, composition_device_ms=comp_dev),
+            k5_over_composition=statistics.mean(k5_dev)
+            / statistics.mean(comp_dev),
+            designs={k: dict(cluster=dict(designs)[k], device_ms=v)
+                     for k, v in design_ms.items()},
+            max_rel_diff=diff, bound_ms=b_ms, bound_by=b_by, flops=flops,
+            bytes=moved,
+            k5_launches=after["smart_core"] - before["smart_core"],
+            composition_launches={k: after[k] - before[k] for k in
                                   ("dilated_multi_conv", "dense_conv")}))
     return rows
 
@@ -728,6 +767,9 @@ def main(argv=None) -> dict:
     p.add_argument("--smart", action="store_true",
                    help="time K5 against the K2 + K1 composition at every "
                         "RestoreNet SMART shape instead of tracing")
+    p.add_argument("--designs", action="store_true",
+                   help="with --smart: also time K5 with one block a tile "
+                        "and with one branch a block, in turns")
     p.add_argument("--interleave", action="store_true",
                    help="time K8's two forms against K3 and their plain "
                         "version at exp_interleave.py's shapes")
@@ -755,8 +797,8 @@ def main(argv=None) -> dict:
         res = {"rows": experiments[entry](dtype)}
     elif args.smart:
         call, batch, size = "smart_core", BATCH, SIZE
-        res = {"rows": profile_smart(torch.bfloat16 if args.bf16
-                                     else torch.float32)}
+        res = {"rows": profile_smart(
+            dtype, designs=SMART_DESIGNS if args.designs else ())}
     elif args.restore:
         call, batch, size = "restore_train_step", BATCH, SIZE
         trainer = RestoreTrainer(
@@ -797,13 +839,18 @@ def main(argv=None) -> dict:
             _print_experiment_row(res["card"], entry, r)
     elif args.smart:
         for r in res["rows"]:
+            designs = "".join(f", {k} (cluster {v['cluster']}) "
+                              f"{v['device_ms']}" for k, v in
+                              r["designs"].items())
             print(f"[{res['card']}] smart_core {r['dtype']} b{r['batch']} "
-                  f"{r['size']}px C{r['channels']} (tile {r['tile']}): K5 "
-                  f"{r['k5_ms']:.4f} ms, K2 + K1 {r['composition_ms']:.4f} "
-                  f"ms (x{r['composition_over_k5']:.3f}), max rel diff "
+                  f"{r['size']}px C{r['channels']} ({r['plan_label']}): K5 "
+                  f"{r['k5_ms']:.4f} ms (device {r['k5_device_ms']:.4f}), "
+                  f"K2 + K1 {r['composition_ms']:.4f} ms (device "
+                  f"{r['composition_device_ms']:.4f}), device ratio "
+                  f"x{r['k5_over_composition']:.3f}, max rel diff "
                   f"{r['max_rel_diff']:.3e}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}), launches K5 {r['k5_launches']} / "
-                  f"{r['composition_launches']}")
+                  f"{r['composition_launches']}{designs}")
     else:
         print(f"[{res['card']}] {res['call']} {res['dtype']} b{batch} "
               f"{size}px: wall {res['wall_ms']:.3f} ms, device busy "

@@ -1,6 +1,6 @@
-// The tile body shared by K1 / K1e (dense_conv.cu), K2 (dilated_conv.cu) and
-// f32 K9 / K10 (stripe_conv.cu), and the PTX helpers they share with bf16
-// K9 / K10 (stripe_conv.cu, conv_pipe.cuh).
+// The tile body shared by K1 / K1e (dense_conv.cu), K2 (dilated_conv.cu), K5
+// (smart_fused.cu) and f32 K9 / K10 (stripe_conv.cu), and the PTX helpers
+// they share with bf16 K9 / K10 (stripe_conv.cu, conv_pipe.cuh).
 //
 // A block owns TM output pixels (a TH x TW rectangle, TW a power of two) by
 // TN output channels. Per pass over 64 bytes of input channels (CK = 32 in
@@ -229,14 +229,17 @@ struct MmaBody {
   int a_row[MT];   // this lane's ldmatrix row (stripe index at tap 0, 0)
   int a_k, b_k, b_n, p0, c0;
 
-  __device__ void init(int TW, int SW) {
+  // TW: the pixels of a tile row; SW: the stripe's. A tile of more than
+  // P pixels reads pixel P - 1 for the rest (its results are not stored).
+  __device__ void init(int TW, int SW, int P = 1 << 30) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wm = warp % C::WM, wn = warp / C::WM;
     p0 = wm * 16 * MT;
     c0 = wn * NT8 * 8;
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) {
-      const int p = p0 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      int p = p0 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      p = p < P ? p : P - 1;
       a_row[mi] = (p / TW) * SW + p % TW;
     }
     a_k = (lane >> 4) * 8;
@@ -253,32 +256,36 @@ struct MmaBody {
   }
 
   __device__ void pass(const Pass& s, const char* xs, const char* ws) {
+    for (int tap = 0; tap < s.KH * s.KW; ++tap) product(s, xs, ws, tap);
+  }
+
+  // the tile product of one tap
+  __device__ __forceinline__ void product(const Pass& s, const char* xs,
+                                          const char* ws, int tap) {
     const unsigned xs0 = smem_u32(xs), ws0 = smem_u32(ws);
-    for (int tap = 0; tap < s.KH * s.KW; ++tap) {
-      const int shift = ((tap / s.KW) * s.SW + tap % s.KW) * s.d;
+    const int shift = ((tap / s.KW) * s.SW + tap % s.KW) * s.d;
 #pragma unroll
-      for (int kk = 0; kk < CK; kk += 16) {
-        unsigned a[MT][4], b[NT8][2];
+    for (int kk = 0; kk < CK; kk += 16) {
+      unsigned a[MT][4], b[NT8][2];
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-          ldmatrix_x4(a[mi], xs0 + (a_row[mi] + shift) * kXRow +
-                                 (kk + a_k) * 2);
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_x4(a[mi], xs0 + (a_row[mi] + shift) * kXRow +
+                               (kk + a_k) * 2);
 #pragma unroll
-        for (int nj = 0; nj < NT8 / 2; ++nj) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, ws0 + (tap * CK + kk + b_k) * WROW +
-                                   (b_n + nj * 16) * 2);
-          b[2 * nj][0] = r[0];
-          b[2 * nj][1] = r[1];
-          b[2 * nj + 1][0] = r[2];
-          b[2 * nj + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NT8; ++ni)
-            mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+      for (int nj = 0; nj < NT8 / 2; ++nj) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, ws0 + (tap * CK + kk + b_k) * WROW +
+                                 (b_n + nj * 16) * 2);
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
       }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT8; ++ni)
+          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
   }
 
@@ -307,12 +314,14 @@ struct FmaBody {
   int row[PX];   // stripe index of each pixel at tap 0, 0
   int lc, pg;
 
-  __device__ void init(int TW, int SW) {
+  // as MmaBody::init
+  __device__ void init(int TW, int SW, int P = 1 << 30) {
     lc = threadIdx.x % LPG;
     pg = threadIdx.x / LPG;
 #pragma unroll
     for (int i = 0; i < PX; ++i) {
-      const int p = pg + (NT / LPG) * i;
+      int p = pg + (NT / LPG) * i;
+      p = p < P ? p : P - 1;
       row[i] = (p / TW) * SW + p % TW;
     }
 #pragma unroll
@@ -324,36 +333,40 @@ struct FmaBody {
   }
 
   __device__ void pass(const Pass& s, const char* xs, const char* ws) {
-    for (int tap = 0; tap < s.KH * s.KW; ++tap) {
-      const int shift = ((tap / s.KW) * s.SW + tap % s.KW) * s.d;
-      const char* wtap = ws + tap * CK * WROW + lc * 16;
+    for (int tap = 0; tap < s.KH * s.KW; ++tap) product(s, xs, ws, tap);
+  }
+
+  // the tile product of one tap
+  __device__ __forceinline__ void product(const Pass& s, const char* xs,
+                                          const char* ws, int tap) {
+    const int shift = ((tap / s.KW) * s.SW + tap % s.KW) * s.d;
+    const char* wtap = ws + tap * CK * WROW + lc * 16;
 #pragma unroll 2
-      for (int k4 = 0; k4 < CK; k4 += 4) {
-        float4 a[PX];
+    for (int k4 = 0; k4 < CK; k4 += 4) {
+      float4 a[PX];
+#pragma unroll
+      for (int i = 0; i < PX; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            xs + (row[i] + shift) * kXRow + k4 * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float4 bv[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          bv[g] = *reinterpret_cast<const float4*>(
+              wtap + (k4 + q) * WROW + g * LPG * 16);
 #pragma unroll
         for (int i = 0; i < PX; ++i)
-          a[i] = *reinterpret_cast<const float4*>(
-              xs + (row[i] + shift) * kXRow + k4 * 4);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float4 bv[G];
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            bv[g] = *reinterpret_cast<const float4*>(
-                wtap + (k4 + q) * WROW + g * LPG * 16);
-#pragma unroll
-          for (int i = 0; i < PX; ++i)
-#pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const float4& ai = a[i];
-              const float av = q == 0 ? ai.x : q == 1 ? ai.y
-                             : q == 2 ? ai.z : ai.w;
-              acc[i][g][0] = fmaf(av, bv[g].x, acc[i][g][0]);
-              acc[i][g][1] = fmaf(av, bv[g].y, acc[i][g][1]);
-              acc[i][g][2] = fmaf(av, bv[g].z, acc[i][g][2]);
-              acc[i][g][3] = fmaf(av, bv[g].w, acc[i][g][3]);
-            }
-        }
+          for (int g = 0; g < G; ++g) {
+            const float4& ai = a[i];
+            const float av = q == 0 ? ai.x : q == 1 ? ai.y
+                           : q == 2 ? ai.z : ai.w;
+            acc[i][g][0] = fmaf(av, bv[g].x, acc[i][g][0]);
+            acc[i][g][1] = fmaf(av, bv[g].y, acc[i][g][1]);
+            acc[i][g][2] = fmaf(av, bv[g].z, acc[i][g][2]);
+            acc[i][g][3] = fmaf(av, bv[g].w, acc[i][g][3]);
+          }
       }
     }
   }
@@ -387,26 +400,40 @@ using Body = typename BodyOf<T, C>::type;
 // --- staging ----------------------------------------------------------------
 
 // The stripe of one pass over input channels c0 .. c0 + CK: every element,
-// zero-filled outside the image and past Ci. A kernel that stages its stripe
-// otherwise (K10's in-kernel padding) passes its own functor of this form to
-// `run_passes`.
+// zero-filled outside the image and past Ci. Each thread's pixel row and
+// column are stepped, not divided out of its stripe index: a stripe can be
+// several times its tile (K2's and K5's dilation-8 halos), and the address
+// arithmetic is then much of a stage's instructions. A kernel that stages
+// its stripe otherwise (K10's in-kernel padding) passes its own functor of
+// this form to `run_passes`.
 struct FullStripe {
   template <typename T>
   __device__ __forceinline__ void operator()(const T* __restrict__ x,
                                              const Pass& s, int c0,
                                              char* xs) const {
     constexpr int E = 16 / (int)sizeof(T);   // elements per segment
+    constexpr int STEP = NT / kXSegs;        // pixels a trip
     const int tid = threadIdx.x;
     const int seg = tid % kXSegs;
     const int c = c0 + seg * E;
     const bool cin = c < s.Ci;
-    for (int sp = tid / kXSegs; sp < s.SH * s.SW; sp += NT / kXSegs) {
-      const int iy = s.row0 + sp / s.SW, ix = s.col0 + sp % s.SW;
-      const bool in = cin && iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
-      const T* src =
-          in ? x + (((size_t)s.b * s.H + iy) * s.W + ix) * s.Ci + c : x;
+    const int dr = STEP / s.SW, dc = STEP % s.SW;
+    int sp = tid / kXSegs;
+    int r = sp / s.SW, col = sp % s.SW;
+    const T* img = x + (size_t)s.b * s.H * s.W * s.Ci + c;
+    for (; sp < s.SH * s.SW; sp += STEP) {
+      const int iy = s.row0 + r, ix = s.col0 + col;
+      const bool in = cin && (unsigned)iy < (unsigned)s.H &&
+                      (unsigned)ix < (unsigned)s.W;
+      const T* src = in ? img + ((size_t)iy * s.W + ix) * s.Ci : x;
       load_seg<T>(xs + sp * kXRow + seg * 16, src, in ? s.Ci - c : 0,
                   s.vec_x);
+      r += dr;
+      col += dc;
+      if (col >= s.SW) {
+        col -= s.SW;
+        ++r;
+      }
     }
   }
 };

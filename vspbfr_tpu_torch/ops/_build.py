@@ -18,6 +18,7 @@ build raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,10 +52,8 @@ _SIGNATURES = {
     "vspbfr_d2s": [_P, _P] + [_I] * 5 + [_P],
     # x, y, B, h, w (the output grid), inner_bytes, unit_bytes, stream
     "vspbfr_s2d": [_P, _P] + [_I] * 5 + [_P],
-    # x, sty, wb, dv, wf, y, dtype, B, H, W, C, Cb, Co, stream
-    "vspbfr_smart_fused": [_P] * 6 + [_I] * 7 + [_P],
-    # H, W, Cb -> the tile side K5 picks
-    "vspbfr_smart_tile": [_I] * 3,
+    # x, sty, wb, dv, wf, y, dtype, plan (ops/smart.py PLAN_FIELDS), stream
+    "vspbfr_smart_fused": [_P] * 6 + [_I, ctypes.POINTER(_I), _P],
     # one packed block (`launcher`: ops/epilogue.py LAUNCH_FIELDS), stream
     "vspbfr_conv_epilogue": [ctypes.c_char_p, _P],
     # one packed block (ops/fused_act.py LAUNCH_FIELDS), stream
@@ -89,10 +88,6 @@ class KernelLibrary:
         err = self.entries[name](*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-    def query(self, name: str, *args) -> int:
-        """An entry point that returns a value, not an error code."""
-        return int(self.entries[name](*args))
 
 
 # the library loaded in this process (a cache of the build, not state:
@@ -202,6 +197,12 @@ def check_cuda_inputs(name: str, *tensors) -> None:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device: torch.device) -> int:
+    """The multiprocessors of a CUDA device (a launch plan's input)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> int:

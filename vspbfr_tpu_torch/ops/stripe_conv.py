@@ -189,10 +189,6 @@ def stripe_plan(bf16: bool, x_shape, w_shape, pads, th: int | None = None,
                        f"{SMEM_LIMIT} bytes and TMA's {BOX_LIMIT}-wide boxes")
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch(name, x, w, pads, load, th, **plan_kw) -> torch.Tensor:
     """One K9 / K10 launch on CUDA tensors, laid out by `stripe_plan`; the
     weights go to the kernel in x's dtype, as (KH, KW, Co, Ci) in bf16 (the
@@ -207,7 +203,8 @@ def _launch(name, x, w, pads, load, th, **plan_kw) -> torch.Tensor:
     plan = stripe_plan(bf16, x.shape, w.shape, pads, th,
                        aligned=x.data_ptr() % 16 == 0
                        and wt.data_ptr() % 16 == 0,
-                       **{"sms": _sms(x.device), **plan_kw})
+                       **{"sms": _build.multiprocessors(x.device),
+                          **plan_kw})
     lib = _build.load_library()
     y = torch.empty((b, oh, ow, co), dtype=x.dtype, device=x.device)
     fields = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[k]
