@@ -44,7 +44,12 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
 5. cli     - the infer CLI at full width (512 px, 1024 px decoder, IR-SE-50
              encoder, 4-step DDPM, 15-SMART RestoreNet) answering 8
              synthetic degraded faces at batch 4, in f32 and in bf16, with
-             launch counts and peak memory; then, on the same 4 inputs,
+             launch counts and peak memory, scoring them against their
+             clean faces (PSNR, SSIM, LPIPS and FID from seeded LPIPS and
+             InceptionV3 state_dicts; all finite) and timing the scoring
+             per batch beside `restore` (and, at the end, its split into
+             PSNR + SSIM, LPIPS, InceptionV3 and the host's float64
+             statistics); then, on the same 4 inputs,
              the stage split and imgs/s from CUDA-event medians of
              `restore`, with the `VSPBFR_FUSED_EPI` switch off and on (K1
              plus K6, or K1e), and the bf16-vs-f32 PSNR.
@@ -70,15 +75,25 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              IR-SE-50, b16) on synthetic uint8 faces in f32 and in bf16:
              step ms, imgs/s, peak memory, launch counts; and ten steps on
              one fixed batch, which must lower the L1 term.
-8. restore - stage-3 RestoreNet GAN training (the third main path): one
-             step (D update, lazy R1, G update) at a mid-size config on the
-             card against the CPU, same weights, batch, embedding and draws;
+8. restore - stage-3 RestoreNet GAN training (the third main path): ADA's
+             augment at 512 px b4 on the card against the CPU with the same
+             matrices (forward within 1e-5 of max, the input gradient and
+             R1's double backward through a three-conv D within 1e-3, all
+             finite) and its CUDA-event forward and forward + backward
+             times; one step (D update, lazy R1, G update) at a mid-size
+             config on the card against the CPU, same weights, batch,
+             embedding and draws, without ADA and with ADA at the fixed p
+             0.5 (each of its 13 transforms must apply to some sample);
              the launches of its forward, backward() and R1's double
              backward; then the train_restore CLI at full width (512 px,
              1024 px decoder, IR-SE-50 at 256, b4, 4 steps, R1 at step 0)
-             in f32 and bf16 with the epilogue switch off and in bf16 with
-             it on: step ms, imgs/s, peak memory, launch counts; and the
-             bf16 step with the switch off and on in turns on one trainer.
+             in f32 and bf16 with the epilogue switch off, the same with
+             ADA (f32 `--augment`, bf16 `--augment --augment_p 0.5`; the
+             six kernels of `PATH_KERNELS["restore_ada"]` must launch) and
+             in bf16 with the switch on: step ms, imgs/s, peak memory,
+             launch counts; the bf16 step with the switch off and on in
+             turns on one trainer, and without and with ADA (p 0.5) in
+             turns on two trainers, each with and without R1.
 9. smart   - K5's entry, `python -m vspbfr_tpu_torch.cli.profile --smart`,
              in process, f32 and bf16: K5 against the K2 + K1 composition
              at every RestoreNet SMART shape, b4, in turns, per call and
@@ -148,14 +163,17 @@ KERNEL_INFO = {
                     "scripts/exp_inkpad.py:96"),
 }
 # the kernels each main path must launch: serving (phase 5), stage-2
-# training (phase 7), stage-3 training (phase 8) with the epilogue switch
-# off and on, K5's entry (phase 9) and the entries of K8-K10 (phase 10)
+# training (phase 7), stage-3 training (phase 8) without and with ADA and
+# with the epilogue switch on, K5's entry (phase 9) and the entries of
+# K8-K10 (phase 10)
 PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                           "conv_epilogue", "fused_leaky_relu"),
                 "train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
                           "fused_leaky_relu"),
                 "restore": ("dense_conv", "dilated_multi_conv", "d2s", "s2d",
                             "conv_epilogue", "fused_leaky_relu"),
+                "restore_ada": ("dense_conv", "dilated_multi_conv", "d2s",
+                                "s2d", "conv_epilogue", "fused_leaky_relu"),
                 "restore_fused": ("dense_conv_epilogue", "dense_conv",
                                   "dilated_multi_conv", "d2s", "s2d",
                                   "conv_epilogue", "fused_leaky_relu"),
@@ -709,13 +727,15 @@ def _draws(pipe, batch, seed, device):
             "inject_index": idx}
 
 
-def synthetic_faces(n: int, size: int, seed: int) -> np.ndarray:
+def synthetic_faces(n: int, size: int, seed: int, clean: bool = False):
     """n degraded face-like (size, size, 3) images in [-1, 1]: an ellipse
     face with eyes and mouth over a background, colour blotches, 4x
-    box-downsampled and re-upsampled, plus noise."""
+    box-downsampled and re-upsampled, plus noise. With `clean`, returns
+    (degraded, clean): the clean faces are the same images before the
+    downsampling and the noise."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[-1:1:size * 1j, -1:1:size * 1j]
-    out = []
+    out, gt = [], []
     for _ in range(n):
         img = np.broadcast_to(rng.uniform(-1, 0, 3), (size, size, 3)).copy()
         face = (xx / rng.uniform(0.5, 0.7)) ** 2 + (yy / 0.8) ** 2 < 1
@@ -725,11 +745,12 @@ def synthetic_faces(n: int, size: int, seed: int) -> np.ndarray:
         img[(np.abs(xx) < 0.25) & (np.abs(yy - 0.4) < 0.04)] = -0.5
         coarse = rng.standard_normal((size // 32, size // 32, 3)) * 0.15
         img += np.kron(coarse, np.ones((32, 32, 1)))
+        gt.append(np.clip(img, -1, 1).astype(np.float32))
         low = img.reshape(size // 4, 4, size // 4, 4, 3).mean(axis=(1, 3))
         img = np.kron(low, np.ones((4, 4, 1)))
         img += rng.standard_normal(img.shape) * 0.05
         out.append(np.clip(img, -1, 1).astype(np.float32))
-    return np.stack(out)
+    return (np.stack(out), np.stack(gt)) if clean else np.stack(out)
 
 
 def phase_slice():
@@ -791,19 +812,32 @@ def phase_cli():
     from vspbfr_tpu_torch import ops
     from vspbfr_tpu_torch.cli import infer
     from vspbfr_tpu_torch.evaluation import psnr
+    from vspbfr_tpu_torch.losses import LPIPS, InceptionV3Features
+    from vspbfr_tpu_torch.models.layers import init_module
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
 
-    faces = synthetic_faces(8, 512, seed=5)
+    faces, clean = synthetic_faces(8, 512, seed=5, clean=True)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lq = os.path.join(tmp, "lq")
+        lq, hq = os.path.join(tmp, "lq"), os.path.join(tmp, "hq")
         os.makedirs(lq)
-        for i, f in enumerate(faces):
+        os.makedirs(hq)
+        for i, (f, g) in enumerate(zip(faces, clean)):
             np.save(os.path.join(lq, f"face{i}.npy"), f)
+            np.save(os.path.join(hq, f"face{i}.npy"), g)
+        # the scorers' weights: seeded, written where the flags read them
+        nets = {}
+        for name, net, seed in (("lpips", LPIPS(), 41),
+                                ("inception", InceptionV3Features(), 42)):
+            nets[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(init_module(net, torch.Generator().manual_seed(
+                seed)).state_dict(), nets[name])
         for mode in ("f32", "bf16"):
             out = os.path.join(tmp, f"out_{mode}")
-            argv = ["--lq_dirs", lq, "--out", out, "--batch", "4",
-                    "--device", "cuda", "--seed", "0"]
+            argv = ["--lq_dirs", lq, "--hq_dirs", hq, "--out", out,
+                    "--batch", "4", "--device", "cuda", "--seed", "0",
+                    "--lpips_ckpt", nets["lpips"],
+                    "--inception_ckpt", nets["inception"]]
             if mode == "bf16":
                 argv.append("--bf16")
             torch.cuda.reset_peak_memory_stats()
@@ -826,17 +860,26 @@ def phase_cli():
                         raise AssertionError(f"cli {mode}: bad output {f}")
             secs = rep["batch_seconds"]
             ips = 4 * (len(secs) - 1) / sum(secs[1:])
+            scores = {k: rep[k] for k in ("psnr", "ssim", "lpips", "fid")}
+            if not all(np.isfinite(v) for v in scores.values()):
+                raise AssertionError(f"cli {mode}: non-finite scores "
+                                     f"{scores}")
             say(f"cli {mode}: 8 requests at b4, batch seconds "
                 f"{[round(s, 4) for s in secs]}, {ips:.3f} imgs/s "
                 f"(one batch, first excluded: a smoke figure), peak "
                 f"{peak:.3f} GiB, wall {wall:.1f} s incl. init; launches "
                 f"{counts}")
+            say(f"cli {mode} scoring against GT (seeded LPIPS and "
+                f"InceptionV3): {scores}; scoring seconds per batch "
+                f"{[round(x, 4) for x in rep['score_seconds']]} beside "
+                f"restore seconds {[round(x, 4) for x in secs]}")
             missing = [k for k in PATH_KERNELS["serve"] if counts[k] == 0]
             if missing:
                 raise AssertionError(f"cli {mode}: kernels never launched: "
                                      f"{missing}")
             res[mode] = dict(batch_seconds=secs, imgs_per_s=ips,
-                             peak_gib=peak, launches=counts,
+                             score_seconds=rep["score_seconds"],
+                             scores=scores, peak_gib=peak, launches=counts,
                              output_format=os.path.splitext(restored[0])[1])
     torch.cuda.empty_cache()
 
@@ -905,7 +948,45 @@ def phase_cli():
     say(f"bf16 vs f32 PSNR on the same 4 inputs and draws: {p:.3f} dB "
         f"(data range {data_range:.3f})")
     res["bf16_vs_f32_psnr_db"] = p
+    del p32, p16
+    torch.cuda.empty_cache()
+    res["scoring_split"] = _scoring_split(faces[:4], clean[:4])
     REPORT["cli"] = res
+
+
+def _scoring_split(restored, gt):
+    """Where the infer CLI's scoring time goes on one b4 batch at 512 px
+    (seeded scorers): CUDA-event medians of PSNR + SSIM, LPIPS, and the
+    InceptionV3 features of both images, and the host-clock time of the
+    two float64 FeatureStats updates."""
+    import torch
+
+    from vspbfr_tpu_torch.evaluation import FeatureStats, psnr, ssim
+    from vspbfr_tpu_torch.losses import (LPIPS, InceptionV3Features,
+                                         make_inception_feature_fn)
+    from vspbfr_tpu_torch.models.layers import init_module
+
+    r, g = (torch.tensor(x, device="cuda") for x in (restored, gt))
+    lp = init_module(LPIPS(), torch.Generator().manual_seed(41))
+    lp = lp.cuda().eval().requires_grad_(False)
+    inc = init_module(InceptionV3Features(),
+                      torch.Generator().manual_seed(42))
+    feat = make_inception_feature_fn(inc.cuda().eval().requires_grad_(False))
+    with torch.no_grad():
+        ms = {"psnr_ssim": cuda_ms(lambda: (psnr(r, g), ssim(r, g)), 5, 1),
+              "lpips": cuda_ms(lambda: lp(r, g), 5, 1),
+              "inception_both": cuda_ms(lambda: (feat(r), feat(g)), 5, 1)}
+        fr, fg = feat(r).cpu(), feat(g).cpu()
+    stats = (FeatureStats(fr.shape[1]), FeatureStats(fg.shape[1]))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        stats[0].update(fr)
+        stats[1].update(fg)
+    ms["feature_stats_host"] = (time.perf_counter() - t0) / 5 * 1e3
+    say("scoring split, one b4 batch at 512 px (ms; CUDA-event medians of "
+        "5, FeatureStats host clock): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()))
+    return ms
 
 
 # --- phase 6 ----------------------------------------------------------------
@@ -1567,13 +1648,86 @@ def _restore_launches(tr, low, real, clean, feats, draws) -> dict:
     return out
 
 
-def _restore_step_card_vs_cpu(res):
+def _ada_card_vs_cpu(res):
+    """ADA's augment at 512 px b4 on the card against the CPU, on the same
+    images and the same G and C matrices (built on the CPU at p = 1 from
+    seeded draws): the forward within 1e-5 of max |CPU|; the input gradient
+    of sum(D(augment(x))) and R1's parameter gradient (a double backward
+    through the augment) for a three-conv D within 1e-3 of max, all
+    finite; CUDA-event medians of the forward and of the forward with the
+    input gradient."""
+    import torch
+
+    from vspbfr_tpu_torch.losses import ada
+
+    b, size = 4, 512
+    x_cpu = torch.tensor(synthetic_faces(b, size, seed=51))
+    draws = ada.draw_augment(b, torch.Generator().manual_seed(52), "cpu")
+    one = torch.tensor(1.0)
+    g = ada.affine_from_draws(draws["affine"], one, size, size)
+    c = ada.color_from_draws(draws["color"], one)
+    rng = np.random.default_rng(53)
+    ws = [torch.tensor(rng.standard_normal(s).astype(np.float32) * 0.2)
+          for s in ((3, 3, 3, 8), (3, 3, 8, 8), (3, 3, 8, 1))]
+
+    def d_net(y, params):
+        for i, w in enumerate(params):
+            y = torch.nn.functional.conv2d(
+                y.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                stride=1 + (i > 0), padding=1).permute(0, 2, 3, 1)
+            if i < len(params) - 1:
+                y = torch.nn.functional.leaky_relu(y, 0.2)
+        return y.mean(dim=(1, 2, 3))
+
+    def run(dev):
+        x = x_cpu.to(dev).requires_grad_(True)
+        params = [w.to(dev).requires_grad_(True) for w in ws]
+        gd, cd = g.to(dev), c.to(dev)
+        out = ada.apply_color(ada.apply_affine(x, gd), cd)
+        (gx,) = torch.autograd.grad(d_net(out, params).sum(), x,
+                                    create_graph=True)
+        gx.square().sum(dim=(1, 2, 3)).mean().backward()
+        return {"forward": out.detach(), "input_grad": gx.detach(),
+                **{f"r1_grad_{i}": p.grad for i, p in enumerate(params)}}
+
+    card, cpu = run("cuda"), run("cpu")
+    out = {}
+    for k, ref in cpu.items():
+        got = card[k].float().cpu()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        tol = 1e-5 if k == "forward" else 1e-3
+        out[k] = dict(rel_err=err, tol=tol)
+        say(f"ada {k}: card vs CPU rel err {err:.3e} (bound {tol:g})")
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"ada {k}: card vs CPU {err:.3e}")
+
+    xg = x_cpu.cuda()
+    gd, cd = g.cuda(), c.cuda()
+    wgt = torch.randn(xg.shape, device="cuda")
+
+    def fwd():
+        return ada.apply_color(ada.apply_affine(xg, gd), cd)
+
+    def fwd_bwd():
+        xr = xg.detach().requires_grad_(True)
+        (ada.apply_color(ada.apply_affine(xr, gd), cd) * wgt).sum().backward()
+
+    t_f = cuda_ms(fwd, iters=10, warmup=2)
+    t_fb = cuda_ms(fwd_bwd, iters=10, warmup=2)
+    say(f"ada augment 512 px b4 f32: forward {t_f:.3f} ms, forward + input "
+        f"gradient {t_fb:.3f} ms (CUDA-event medians of 10)")
+    res["ada_augment"] = dict(errors=out, forward_ms=t_f,
+                              forward_backward_ms=t_fb)
+
+
+def _restore_step_card_vs_cpu(res, augment_p: float = 0.0):
     """One stage-3 step at the phase-4 config (size 128, decoder 256,
     channel_div 4, b2; LPIPS and ID at full width), card vs CPU, same
     weights, batch, embedding (computed once on the CPU and handed to both:
-    the random-init DDPM chain is not what this compares) and draws. Held
-    as the stage-2 step is: error <= 10 x the CPU's own spread under +-1e-6
-    input changes + 1e-5, per metric and over each gradient set (worst
+    the random-init DDPM chain is not what this compares) and draws (with
+    `augment_p` > 0 the ADA draws too, ADA at that fixed p). Held as the
+    stage-2 step is: error <= 10 x the CPU's own spread under +-1e-6 input
+    changes + 1e-5, per metric and over each gradient set (worst
     tensor)."""
     import copy
 
@@ -1586,7 +1740,9 @@ def _restore_step_card_vs_cpu(res):
 
     pcfg = dict(size=128, decoder_size=256, encode_size=64,
                 encoder_stages=TINY_STAGES, channel_div=4)
-    tcfg = RestoreTrainConfig(size=128, batch=2)
+    tcfg = RestoreTrainConfig(size=128, batch=2, augment=augment_p > 0,
+                              augment_p=augment_p)
+    tag = "ada_" if augment_p > 0 else ""
     cpu = RestoreTrainer(tcfg, RestorationPipeline(**pcfg)).init_from_seed(1)
     card = RestoreTrainer(tcfg, RestorationPipeline(**pcfg))
     for name, m in cpu.modules.items():
@@ -1607,47 +1763,70 @@ def _restore_step_card_vs_cpu(res):
         outs.append(_restore_step(copy.deepcopy(cpu), low * f, real, clean,
                                   feats, draws))
     ref, *pert = outs
-    say(f"restore step (size 128, b2): card {t_card:.3f} s (first call)")
+    name = f"restore step{' with ADA at p ' + str(augment_p) if tag else ''}"
+    say(f"{name} (size 128, b2): card {t_card:.3f} s (first call)")
+    if tag:
+        # each of the 13 transforms must apply to some sample of some
+        # augment call (the two rotations gate at p_rot = 1 - sqrt(1 - p))
+        p_rot = 1 - (1 - augment_p) ** 0.5
+        cut = {"affine": torch.tensor([augment_p] * 4 + [p_rot, augment_p,
+                                                         p_rot, augment_p]),
+               "color": torch.full((5,), augment_p)}
+        calls = [dd for aug in (draws["gen_d"]["ada"], draws["gen_g"]["ada"])
+                 for dd in aug.values()]
+        fired = {part: [int(n) for n in sum(
+            (c[part]["gates"] < cut[part][:, None]).sum(dim=1)
+            for c in calls)] for part in cut}
+        say(f"{name}: samples each transform applied to, over the step's "
+            f"{len(calls)} augment calls: {fired}")
+        res["ada_transforms_fired"] = fired
+        if min(min(v) for v in fired.values()) == 0:
+            raise AssertionError(f"{name}: a transform never applied")
     for k, v in ref["metrics"].items():
         err = _rel(got["metrics"][k], v)
         spread = max(_rel(p["metrics"][k], v) for p in pert)
-        say(f"restore step {k}: card {float(got['metrics'][k]):.6f} CPU "
+        say(f"{name} {k}: card {float(got['metrics'][k]):.6f} CPU "
             f"{float(v):.6f} rel err {err:.3e} (CPU spread {spread:.3e})")
-        res[f"step_{k}"] = dict(card=float(got["metrics"][k]),
-                                cpu=float(v), rel_err=err, cpu_spread=spread)
+        res[f"{tag}step_{k}"] = dict(card=float(got["metrics"][k]),
+                                     cpu=float(v), rel_err=err,
+                                     cpu_spread=spread)
         if not (torch.isfinite(got["metrics"][k]) and
                 err <= 10 * spread + 1e-5):
-            raise AssertionError(f"restore step {k}: card vs CPU {err:.3e}, "
+            raise AssertionError(f"{name} {k}: card vs CPU {err:.3e}, "
                                  f"CPU spread {spread:.3e}")
     for k, ts in ref["grads"].items():
         err = max(_rel(a, b) for a, b in zip(got["grads"][k], ts))
         spread = max(_rel(a, b) for p in pert
                      for a, b in zip(p["grads"][k], ts))
-        say(f"restore step grads {k}: worst-tensor rel err {err:.3e} (CPU "
+        say(f"{name} grads {k}: worst-tensor rel err {err:.3e} (CPU "
             f"spread {spread:.3e})")
-        res[f"step_grads_{k}"] = dict(rel_err=err, cpu_spread=spread)
+        res[f"{tag}step_grads_{k}"] = dict(rel_err=err, cpu_spread=spread)
         if err > 10 * spread + 1e-5:
-            raise AssertionError(f"restore step grads {k}: card vs CPU "
+            raise AssertionError(f"{name} grads {k}: card vs CPU "
                                  f"{err:.3e}, CPU spread {spread:.3e}")
-    res["launches_by_part"] = _restore_launches(card, *cuda_args)
-    say(f"restore step launches by part: {res['launches_by_part']}")
+    if not tag:
+        res["launches_by_part"] = _restore_launches(card, *cuda_args)
+        say(f"restore step launches by part: {res['launches_by_part']}")
     del cpu, card
 
 
-def _restore_cli(res, faces_dir, mode, fused, iters=4):
-    """The stage-3 CLI at full width, the reference's per-GPU batch 4."""
+def _restore_cli(res, faces_dir, mode, fused, iters=4, ada=()):
+    """The stage-3 CLI at full width, the reference's per-GPU batch 4;
+    `ada`: extra ADA flags (`--augment`, `--augment_p`)."""
     import torch
 
     from vspbfr_tpu_torch import ops
     from vspbfr_tpu_torch.cli import train_restore
 
     key = f"{mode}_fused" if fused == "1" else mode
+    if ada:
+        key = f"{mode}_{'augment_p' if '--augment_p' in ada else 'augment'}"
     with tempfile.TemporaryDirectory() as out, fused_epi(fused):
         argv = ["--path", faces_dir, "--out", out, "--size", "512",
                 "--decoder_size", "1024", "--batch", "4",
                 "--iter", str(iters), "--device", "cuda", "--seed", "0",
                 "--save_inter", "100000", "--show_inter", "100000",
-                "--train_dtype", mode]
+                "--train_dtype", mode, *ada]
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1658,7 +1837,7 @@ def _restore_cli(res, faces_dir, mode, fused, iters=4):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = rep["steps"]
     names = ("d", "r1", "real_score", "fake_score", "g", "gan", "percept",
-             "id")
+             "id") + (("ada_rt", "ada_p") if ada else ())
     if len(steps) != iters:
         raise AssertionError(f"restore cli {key}: {len(steps)} steps")
     for st in steps:
@@ -1673,7 +1852,10 @@ def _restore_cli(res, faces_dir, mode, fused, iters=4):
         f"peak {peak:.3f} GiB, wall {wall:.1f} s incl. init; launches "
         f"{counts}; first losses " + ", ".join(
             f"{k} {steps[0][k]:.4f}" for k in names))
-    path = "restore_fused" if fused == "1" else "restore"
+    if "--augment_p" in ada and not all(st["ada_p"] == 0.5 for st in steps):
+        raise AssertionError(f"restore cli {key}: ada_p not the fixed 0.5")
+    path = ("restore_fused" if fused == "1" else
+            "restore_ada" if ada else "restore")
     missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     if missing:
         raise AssertionError(f"restore cli {key}: kernels never launched: "
@@ -1681,6 +1863,45 @@ def _restore_cli(res, faces_dir, mode, fused, iters=4):
     res[key] = dict(batch=4, step_seconds=secs, median_step_ms=med * 1e3,
                     imgs_per_s=4 / med, peak_gib=peak, launches=counts,
                     wall_s=wall, losses=steps)
+
+
+def _restore_ada_ab(res):
+    """The stage-3 bf16 step at full width, b4, without ADA and with ADA at
+    the fixed p 0.5, on two trainers from one seed and one batch: CUDA-event
+    medians of 3 steps each, in turns off, on, on, off, after one warm-up
+    step each; the steps without R1 (the G step count set to 1) and, the
+    same way, with R1 (set to 0)."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
+                                                      RestoreTrainer)
+
+    trs = {}
+    for key, kw in (("off", {}), ("on", dict(augment=True, augment_p=0.5))):
+        trs[key] = RestoreTrainer(
+            RestoreTrainConfig(compute_dtype="bfloat16", **kw),
+            RestorationPipeline()).init_from_seed(4).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    low, real = (torch.tensor(synthetic_faces(4, 512, seed=s),
+                              device="cuda") for s in (31, 32))
+    out = {}
+    for r1, g_step in (("no_r1", 1), ("r1", 0)):
+        ab = {"off": [], "on": []}
+        for key in ("off", "on", "on", "off"):
+            tr = trs[key]
+
+            def step():
+                tr.g_state.step = g_step
+                return tr.train_step(low, real, gen)
+
+            ab[key].append(cuda_ms(step, iters=3, warmup=1))
+        out[r1] = ab
+        say(f"restore step bf16 b4 ({r1.replace('_', ' ')}), ADA off / on "
+            f"at p 0.5 (ms, medians of 3 in turns off, on, on, off): "
+            f"{ab['off']} / {ab['on']}")
+    res["bf16_ada_ab_ms"] = out
+    del trs
 
 
 def _restore_fused_ab(res):
@@ -1718,17 +1939,31 @@ def phase_restore():
     import torch
 
     res = {}
+    _ada_card_vs_cpu(res)
     _restore_step_card_vs_cpu(res)
+    torch.cuda.empty_cache()
+    _restore_step_card_vs_cpu(res, augment_p=0.5)
     torch.cuda.empty_cache()
     faces = synthetic_faces(8, 512, seed=8)
     gt_u8 = np.round((faces + 1.0) * 127.5).astype(np.uint8)
     with tempfile.TemporaryDirectory() as d:
         for i, f in enumerate(gt_u8):
             np.save(os.path.join(d, f"face{i}.npy"), f)
-        for mode, fused in (("f32", "0"), ("bf16", "0"), ("bf16", "1")):
-            _restore_cli(res, d, mode, fused)
+        for mode, fused, ada in (
+                ("f32", "0", ()), ("f32", "0", ("--augment",)),
+                ("bf16", "0", ()),
+                ("bf16", "0", ("--augment", "--augment_p", "0.5")),
+                ("bf16", "1", ())):
+            _restore_cli(res, d, mode, fused, ada=ada)
             torch.cuda.empty_cache()
+    say("restore cli median step ms, without / with ADA (same call): f32 "
+        f"{res['f32']['median_step_ms']:.1f} / "
+        f"{res['f32_augment']['median_step_ms']:.1f} (--augment), bf16 "
+        f"{res['bf16']['median_step_ms']:.1f} / "
+        f"{res['bf16_augment_p']['median_step_ms']:.1f} (--augment_p 0.5)")
     _restore_fused_ab(res)
+    torch.cuda.empty_cache()
+    _restore_ada_ab(res)
     torch.cuda.empty_cache()
     REPORT["restore"] = res
 
@@ -1799,6 +2034,7 @@ def main() -> None:
     launches = {"serve": REPORT["cli"]["f32"]["launches"],
                 "train": REPORT["train"]["f32"]["launches"],
                 "restore": REPORT["restore"]["f32"]["launches"],
+                "restore_ada": REPORT["restore"]["f32_augment"]["launches"],
                 "restore_fused": REPORT["restore"]["bf16_fused"]["launches"],
                 "smart": REPORT["smart"]["f32"]["launches"],
                 "experiments": REPORT["experiments"]["launches"]}

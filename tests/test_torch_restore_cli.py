@@ -3,8 +3,10 @@
 `cli/train_restore.py --tiny` trains one step with a checkpoint; a resume
 from it runs the second step, which must end where an uninterrupted
 two-step run ends (losses equal to 1e-6: the same draws, the same
-order); the inference export loads into `cli/infer.py`; `--augment`
-raises. The parity of the step itself with the JAX package is
+order); the inference export loads into `cli/infer.py`. With `--augment`
+the checkpoint holds the ADA state, and a resumed second step continues
+it (the same ada_p; the controller's counts of both steps). The parity
+of the step itself with the JAX package is
 `tests/test_torch_restore_train.py`.
 """
 
@@ -65,5 +67,22 @@ def test_cli_trains_resumes_and_exports(tmp_path):
                       "--device", "cpu", "--batch", "1", "--out",
                       str(tmp_path / "eval")])
     assert out["datasets"]["data0"]["n"] == 1
-    with pytest.raises(NotImplementedError, match="ADA"):
-        cli.main(base + ["--iter", "1", "--out", a, "--augment"])
+
+    aug = base + ["--augment", "--ada_length", "1000"]
+    c = tmp_path / "c"
+    rep = cli.main(aug + ["--iter", "1", "--out", str(c)])
+    assert rep["steps"][0]["ada_p"] == 0.0
+    assert np.isfinite(rep["steps"][0]["ada_rt"])
+    ck_path = c / "checkpoint" / "restore.pt"
+    ada = load_checkpoint(str(ck_path))["ada"]
+    assert int(ada["steps"]) == 1 and float(ada["count"]) == 2.0
+    # the resumed step continues the controller: its p, and the counts
+    # of both steps in the checkpoint it writes
+    rep = cli.main(aug + ["--iter", "2", "--out", str(c), "--ckpt",
+                          str(ck_path)])
+    assert rep["start_iter"] == 1
+    assert rep["steps"][-1]["ada_p"] == float(ada["p"])
+    ada2 = load_checkpoint(str(ck_path))["ada"]
+    assert int(ada2["steps"]) == 2 and float(ada2["count"]) == 4.0
+    assert float(ada2["sign_sum"]) - float(ada["sign_sum"]) == 2 * \
+        rep["steps"][-1]["ada_rt"]

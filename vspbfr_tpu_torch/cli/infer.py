@@ -2,8 +2,11 @@
 
 Counterpart of `vspbfr_tpu/cli/infer.py`: runs the pipeline over one or
 more image directories, writes restored/low/sample/gt images, and scores
-PSNR/SSIM where GT is given. `--ckpt` takes a port state_dict saved with
-`torch.save`; without it the weights are random, drawn from `--seed`.
+PSNR/SSIM where GT is given, LPIPS with `--lpips_ckpt` and standard FID
+(InceptionV3 pool3) with `--inception_ckpt`, on the device the pipeline
+runs on. `--ckpt`, `--lpips_ckpt` and `--inception_ckpt` take port
+state_dicts saved with `torch.save`; without `--ckpt` the pipeline's
+weights are random, drawn from `--seed`.
 
     python -m vspbfr_tpu_torch.cli.infer --lq_dirs DIR --device cuda --bf16
 """
@@ -18,8 +21,14 @@ import torch
 
 from vspbfr_tpu_torch.cli.common import tiny_pipeline_kwargs
 from vspbfr_tpu_torch.data import RestoreTestDataset, save_image
-from vspbfr_tpu_torch.evaluation import psnr, ssim
+from vspbfr_tpu_torch.evaluation import PairScorer
+from vspbfr_tpu_torch.losses import (
+    LPIPS,
+    InceptionV3Features,
+    make_inception_feature_fn,
+)
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
+from vspbfr_tpu_torch.utils import load_checkpoint
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="truncate each dataset to 10 batches")
     p.add_argument("--save_images", action=argparse.BooleanOptionalAction,
                    default=True)
+    p.add_argument("--lpips_ckpt", default=None,
+                   help="port LPIPS state_dict (VGG16 + lin weights): adds "
+                        "LPIPS scoring")
+    p.add_argument("--inception_ckpt", default=None,
+                   help="port InceptionV3Features state_dict: adds standard "
+                        "FID scoring")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 decoder + RestoreNet, f32 encode and DDPM")
     p.add_argument("--device", default="cuda",
@@ -59,9 +74,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _load(module, path, device):
+    module.load_state_dict(load_checkpoint(path))
+    return module.to(device).eval().requires_grad_(False)
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"datasets": {name: {...}}} with per-batch
-    seconds (host clock, each ending in a device sync) and scores."""
+    seconds of `restore` and of the scoring (host clock, each ending in a
+    device sync) and the scores."""
     args = build_parser().parse_args(argv)
     device = torch.device(args.device)
     pipe = RestorationPipeline(size=args.size, decoder_size=args.decoder_size,
@@ -79,6 +100,13 @@ def main(argv=None) -> dict:
     pipe = pipe.to(device).eval().prepare_params()
     rng = torch.Generator(device=device).manual_seed(args.seed)
 
+    lpips_apply = feature_fn = None
+    if args.lpips_ckpt:
+        lpips_apply = _load(LPIPS(), args.lpips_ckpt, device)
+    if args.inception_ckpt:
+        feature_fn = make_inception_feature_fn(
+            _load(InceptionV3Features(), args.inception_ckpt, device))
+
     hq_dirs = args.hq_dirs or ["None"] * len(args.lq_dirs)
     names = args.names or [f"data{i}" for i in range(len(args.lq_dirs))]
     report = {}
@@ -87,8 +115,8 @@ def main(argv=None) -> dict:
         os.makedirs(out_dir, exist_ok=True)
         ds = RestoreTestDataset(lq_root, None if hq_root == "None" else hq_root,
                                 im_size=(args.size, args.size))
-        tot_psnr = tot_ssim = 0.0
-        n, seconds = 0, []
+        scorer = PairScorer(lpips_apply=lpips_apply, feature_fn=feature_fn)
+        n, seconds, score_seconds = 0, [], []
         for bi, (low, gt, fnames) in enumerate(ds.batches(args.batch)):
             if args.debug and bi >= 10:
                 break
@@ -107,16 +135,16 @@ def main(argv=None) -> dict:
                     if gt is not None:
                         save_image(stem + "_gt", gt[j])
             if gt is not None:
-                gt_t = torch.as_tensor(gt)
-                r_t = torch.as_tensor(restored_np)
-                tot_psnr += float(psnr(r_t, gt_t).sum())
-                tot_ssim += float(ssim(r_t, gt_t).sum())
+                t0 = time.perf_counter()
+                scorer.update(restored, torch.as_tensor(gt, device=device))
+                score_seconds.append(time.perf_counter() - t0)
             n += low.shape[0]
         entry = {"n": n, "batch_seconds": seconds}
         if n and ds.hq_files is not None:
-            entry.update(psnr=tot_psnr / n, ssim=tot_ssim / n)
-            print(f"{name}: n={n} psnr={entry['psnr']:.4f} "
-                  f"ssim={entry['ssim']:.4f}")
+            entry.update(scorer.result(), score_seconds=score_seconds)
+            print(f"{name}: n={n} " + " ".join(
+                f"{k}={entry[k]:.4f}" for k in ("psnr", "ssim", "lpips",
+                                                "fid") if k in entry))
         else:
             print(f"{name}: n={n} (no GT)")
         report[name] = entry

@@ -7,17 +7,19 @@ mirror `restoration_train.py:310-342` upstream; the loop body is one
 EMA). The data are degraded on the device (`--loader device --jpeg
 device`, the only chain ported), one degraded copy per sample
 (`--n_degraded 1`: the reference computes two and consumes the first), GT
-in float with the 0.008 gray draw shared with the input. ADA (`--augment`,
-`--augment_p`) is not ported and raises. GT files are PNG/JPG or uint8 HWC
-`.npy`. Without `--psp_ckpt` / `--diffuser_ckpt` the frozen stages are
-random, drawn from `--seed`.
+in float with the 0.008 gray draw shared with the input. `--augment` turns
+on ADA: adaptive toward `--ada_target` over `--ada_length` images, or at
+the fixed probability `--augment_p` when that is > 0 (the reference's
+flags). GT files are PNG/JPG or uint8 HWC `.npy`. Without `--psp_ckpt` /
+`--diffuser_ckpt` the frozen stages are random, drawn from `--seed`.
 
 Checkpoints, overwritten every `--save_inter` steps:
 <out>/checkpoint/restore.pt (the full resume state: both optimisers, G,
-D, g_ema, the RNG state and the iteration; `--ckpt` resumes from it) and
-<out>/checkpoint/restore_pipeline.pt (the inference-ready pipeline
-state_dict with g_ema as the generator, which `cli/infer.py --ckpt`
-loads; `restore_pipeline_init.pt` holds the one before the first step).
+D, g_ema, the ADA state, the RNG state and the iteration; `--ckpt`
+resumes from it) and <out>/checkpoint/restore_pipeline.pt (the
+inference-ready pipeline state_dict with g_ema as the generator, which
+`cli/infer.py --ckpt` loads; `restore_pipeline_init.pt` holds the one
+before the first step).
 
     python -m vspbfr_tpu_torch.cli.train_restore --path FACES --device cuda
     python -m vspbfr_tpu_torch.cli.train_restore --path FACES --device cpu \\
@@ -39,6 +41,7 @@ from vspbfr_tpu_torch.data import (
     RestoreTrainDataset,
     save_image,
 )
+from vspbfr_tpu_torch.losses import ADAState
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.restore_train import (
     RestoreTrainConfig,
@@ -79,11 +82,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--percept_loss_weight", type=float, default=0.5)
     p.add_argument("--id_loss_weight", type=float, default=0.1)
     p.add_argument("--augment", action="store_true",
-                   help="ADA: not ported (raises)")
+                   help="ADA: augment D's inputs (real, fake, R1's batch)")
     p.add_argument("--augment_p", type=float, default=0.0,
-                   help="fixed ADA probability: not ported (raises if > 0)")
+                   help="fixed augmentation probability; 0 = adaptive "
+                        "(`restoration_train.py:138-141` upstream)")
     p.add_argument("--channel_multiplier", type=int, default=2,
                    help="StyleGAN2 channel multiplier (config-f = 2)")
+    p.add_argument("--ada_target", type=float, default=0.6)
+    p.add_argument("--ada_length", type=int, default=500 * 1000)
     p.add_argument("--ckpt", type=str, default=None,
                    help="resume from this full training checkpoint")
     p.add_argument("--psp_ckpt", type=str, default=None,
@@ -121,12 +127,16 @@ def full_ckpt_tree(trainer: RestoreTrainer, gen: torch.Generator,
                    it: int) -> dict:
     """Everything the reference persists (`restoration_train.py:291-305`
     upstream): G and D with both optimiser states and step counts, g_ema,
-    plus the RNG state and the iteration."""
+    the ADA state (with --augment), plus the RNG state and the
+    iteration."""
     g, d = trainer.g_state.state_dict(), trainer.d_state.state_dict()
-    return {"g": g["params"], "g_opt": g["opt"], "g_step": g["step"],
+    tree = {"g": g["params"], "g_opt": g["opt"], "g_step": g["step"],
             "d": d["params"], "d_opt": d["opt"], "d_step": d["step"],
             "g_ema": trainer.g_ema.state_dict(), "rng": gen.get_state(),
             "iter": it}
+    if trainer.ada_state is not None:
+        tree["ada"] = trainer.ada_state._asdict()
+    return tree
 
 
 def restore_full_ckpt(path: str, trainer: RestoreTrainer,
@@ -139,6 +149,8 @@ def restore_full_ckpt(path: str, trainer: RestoreTrainer,
     trainer.d_state.load_state_dict({"params": ck["d"], "opt": ck["d_opt"],
                                      "step": ck["d_step"]})
     trainer.g_ema.load_state_dict(ck["g_ema"])
+    if trainer.ada_state is not None and "ada" in ck:
+        trainer.ada_state = ADAState(**ck["ada"]).to(trainer.device)
     gen.set_state(ck["rng"])
     return int(ck["iter"])
 
@@ -158,6 +170,7 @@ def main(argv=None) -> dict:
         percept_weight=args.percept_loss_weight,
         id_weight=args.id_loss_weight, mixing=args.mixing,
         augment=args.augment, augment_p=args.augment_p,
+        ada_target=args.ada_target, ada_length=args.ada_length,
         compute_dtype="bfloat16" if args.train_dtype == "bf16" else None)
     pipe = RestorationPipeline(size=args.size, mixing_prob=args.mixing,
                                decoder_size=args.decoder_size,

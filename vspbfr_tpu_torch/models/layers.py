@@ -108,17 +108,21 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """flax nn.Conv with explicit symmetric padding: kernel HWIO,
-    lecun-normal; bias zeros. Runs on `F.conv2d`, as the JAX package leaves
+    """flax nn.Conv with explicit padding: kernel HWIO, lecun-normal; bias
+    zeros. kernel_size is k or (kh, kw); padding p (all sides) or ((top,
+    bottom), (left, right)). Runs on `F.conv2d`, as the JAX package leaves
     these convs to XLA. Computes in the input's dtype (the kernel and bias
     are cast at use, as flax's `dtype=` does)."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, use_bias: bool = True):
+    def __init__(self, in_ch: int, features: int, kernel_size,
+                 stride: int = 1, padding=0, use_bias: bool = True):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.kernel = nn.Parameter(
-            torch.empty(kernel_size, kernel_size, in_ch, features))
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
+        self.stride = stride
+        self.pads = (((padding, padding), (padding, padding))
+                     if isinstance(padding, int) else padding)
+        self.kernel = nn.Parameter(torch.empty(kh, kw, in_ch, features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def init_from(self, gen):
@@ -128,8 +132,7 @@ class Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        p = self.padding
-        out = conv_nhwc(x, self.kernel, self.stride, ((p, p), (p, p)))
+        out = conv_nhwc(x, self.kernel, self.stride, self.pads)
         return out if self.bias is None else out + self.bias.to(out.dtype)
 
 

@@ -35,7 +35,17 @@ so the gradients, both Adam states and the EMA stay f32; the generated
 image and D's logits return in f32, so the losses, their reductions and R1
 are f32. With `bf16_embed` the frozen decode of the embedding runs on a
 bf16 copy of the decoder (encode and DDPM stay f32); with `bf16_loss_nets`
-the LPIPS and ID trunks run bf16. ADA (`augment`) is not ported.
+the LPIPS and ID trunks run bf16.
+
+ADA (`augment`; `losses/ada.py`), as `vspbfr_tpu/train/restore_train.py`
+runs it: the D phase augments the real and the fake images at p_eff (a
+fixed `augment_p` > 0, else the controller's p), feeds the controller
+with D's real logits from before the update (`augment_p` 0 only), and
+augments R1's batch afresh inside the function whose input gradient R1
+takes; the G phase augments the fake before D at the controller's updated
+p. The augment runs in f32 on the f32 images G and D exchange, in either
+compute dtype; its draws are part of `draw`, so remat recomputes the same
+augment.
 """
 
 from __future__ import annotations
@@ -50,10 +60,14 @@ from torch.utils.checkpoint import checkpoint
 from vspbfr_tpu_torch.diffusion import LatentDDPM
 from vspbfr_tpu_torch.losses import (
     LPIPS,
+    ADAState,
     ResNet101Embedder,
     d_logistic_loss,
     g_nonsaturating_loss,
     id_loss,
+    ada_update,
+    augment,
+    draw_augment,
     r1_penalty,
 )
 from vspbfr_tpu_torch.models.layers import init_module
@@ -83,8 +97,12 @@ class RestoreTrainConfig:
     id_weight: float = 0.1
     mixing: float = 0.5
     ema_decay: float = EMA_DECAY_DEFAULT
-    augment: bool = False       # ADA: not ported, raises
+    augment: bool = False       # ADA, off by default
+    # fixed augment probability; 0 = adaptive (the reference's --augment_p,
+    # `restoration_train.py:138-141` upstream: > 0 turns the controller off)
     augment_p: float = 0.0
+    ada_target: float = 0.6
+    ada_length: int = 500 * 1000
     # rematerialise the G and D forwards inside the backward; None = on in
     # f32, off with a compute_dtype (the JAX package's choice)
     remat: bool | None = None
@@ -93,11 +111,6 @@ class RestoreTrainConfig:
     compute_dtype: str | None = None
     bf16_embed: bool = True
     bf16_loss_nets: bool = True
-
-    def __post_init__(self):
-        if self.augment or self.augment_p > 0:
-            raise NotImplementedError("ADA (augment, augment_p) is not "
-                                      "ported to vspbfr_tpu_torch")
 
 
 class RestoreTrainer:
@@ -126,6 +139,8 @@ class RestoreTrainer:
         self.g_state = TrainState(self.gen, config.lr, config.g_reg_every)
         self.d_state = TrainState(self.disc, config.lr, config.d_reg_every)
         self._decoder_c = None
+        # the controller's state (0-d tensors on the trainer's device)
+        self.ada_state = ADAState.create() if config.augment else None
 
     @property
     def modules(self) -> dict:
@@ -157,6 +172,8 @@ class RestoreTrainer:
         for m in self.modules.values():
             m.to(device)
         self._decoder_c = None
+        if self.ada_state is not None:
+            self.ada_state = self.ada_state.to(device)
         return self
 
     @property
@@ -186,7 +203,10 @@ class RestoreTrainer:
         "embed": the DDPM noise and the decoder's noise maps; "gen_d" and
         "gen_g", one per generator call: z (2, B, 512), the inject index
         (a Bernoulli(mixing) coin, then uniform in [1, n_latent), else
-        n_latent), RestoreNet's noise maps and the dropout keep mask."""
+        n_latent), RestoreNet's noise maps and the dropout keep mask. With
+        ADA each phase's dict also holds "ada", the `draw_augment` draws of
+        its augment calls: the D phase's real, fake and R1 batch, the G
+        phase's fake."""
         dev = self.device
         g = self.gen
 
@@ -203,11 +223,18 @@ class RestoreTrainer:
                     "noise": [randn(s) for s in g.noise_shapes(batch)],
                     "keep": g.draw_dropout_mask(batch, generator, dev)}
 
-        return {"embed": {
-                    "init_noise": randn((batch, self.psp.n_latent, 512)),
-                    "noise": [randn(s)
-                              for s in self._decoder_noise_shapes(batch)]},
-                "gen_d": gen_draws(), "gen_g": gen_draws()}
+        out = {"embed": {
+                   "init_noise": randn((batch, self.psp.n_latent, 512)),
+                   "noise": [randn(s)
+                             for s in self._decoder_noise_shapes(batch)]},
+               "gen_d": gen_draws(), "gen_g": gen_draws()}
+        if self.cfg.augment:
+            def aug():
+                return draw_augment(batch, generator, dev)
+
+            out["gen_d"]["ada"] = {"real": aug(), "fake": aug(), "r1": aug()}
+            out["gen_g"]["ada"] = {"fake": aug()}
+        return out
 
     # -- pieces --------------------------------------------------------------
 
@@ -282,30 +309,53 @@ class RestoreTrainer:
             return checkpoint(fwd, x, use_reentrant=False)
         return fwd(x)
 
+    def ada_p(self) -> torch.Tensor:
+        """The augment probability now, a 0-d tensor on the device: the
+        fixed `augment_p` when > 0, else the controller's p."""
+        if self.cfg.augment_p > 0:
+            return torch.full((), self.cfg.augment_p, device=self.device)
+        return self.ada_state.p
+
     # -- phases --------------------------------------------------------------
 
     def d_phase(self, low, real, clean, feats, draws: dict) -> dict:
-        """The D update, then the lazy R1 update when the G step count is a
-        multiple of d_reg_every (`restoration_train.py:164-216`)."""
+        """The D update (with ADA on augmented images, then the
+        controller's update), then the lazy R1 update when the G step count
+        is a multiple of d_reg_every (`restoration_train.py:164-216`)."""
         cfg = self.cfg
         with torch.no_grad():
             fake = self.generate(low, feats, clean, draws)
-        real_pred = self.disc_logits(real)
+        real_d, d_apply = real, self.disc_logits
+        if cfg.augment:
+            aug, p = draws["ada"], self.ada_p()
+            real_d, fake = (augment(real, aug["real"], p),
+                            augment(fake, aug["fake"], p))
+
+            def d_apply(x):
+                return self.disc_logits(augment(x, aug["r1"], p))
+        real_pred = self.disc_logits(real_d)
         fake_pred = self.disc_logits(fake)
         d_loss = d_logistic_loss(real_pred, fake_pred)
         self.d_state.opt.zero_grad(set_to_none=True)
         d_loss.backward()
         self.d_state.apply_gradients()
+        if cfg.augment and cfg.augment_p == 0:
+            self.ada_state = ada_update(self.ada_state, real_pred.detach(),
+                                        cfg.ada_target, cfg.ada_length)
         r1 = torch.zeros((), device=real.device)
         if self.g_state.step % cfg.d_reg_every == 0:
-            pen = r1_penalty(self.disc_logits, real)
+            pen = r1_penalty(d_apply, real)
             (cfg.r1 / 2.0 * pen * cfg.d_reg_every).backward(
                 inputs=list(self.disc.parameters()))
             self.d_state.apply_gradients()
             r1 = pen.detach()
-        return {"d": d_loss.detach(), "r1": r1,
-                "real_score": real_pred.detach().mean(),
-                "fake_score": fake_pred.detach().mean()}
+        out = {"d": d_loss.detach(), "r1": r1,
+               "real_score": real_pred.detach().mean(),
+               "fake_score": fake_pred.detach().mean()}
+        if cfg.augment:
+            # the controller's signal for this batch (`non_leaking.py:499-504`)
+            out["ada_rt"] = torch.sign(real_pred.detach()).mean()
+        return out
 
     def g_loss(self, low, real, clean, feats, draws: dict):
         """(loss, metrics) of the G phase (`restoration_train.py:221-249`),
@@ -313,7 +363,10 @@ class RestoreTrainer:
         mean * cfg.batch, the reference's per-GPU sum."""
         cfg = self.cfg
         fake = self.generate(low, feats, clean, draws)
-        gan = g_nonsaturating_loss(self.disc_logits(fake))
+        fake_d = fake
+        if cfg.augment:
+            fake_d = augment(fake, draws["ada"]["fake"], self.ada_p())
+        gan = g_nonsaturating_loss(self.disc_logits(fake_d))
         percept = ident = torch.zeros((), device=real.device)
         if cfg.percept_weight > 0:
             percept = (torch.mean(self.lpips(fake, real)) * cfg.batch
@@ -321,8 +374,10 @@ class RestoreTrainer:
         if cfg.id_weight > 0:
             ident = id_loss(self.id_net, fake, real) * cfg.id_weight
         loss = gan + percept + ident
-        return loss, {"g": loss, "gan": gan, "percept": percept,
-                      "id": ident}
+        metrics = {"g": loss, "gan": gan, "percept": percept, "id": ident}
+        if cfg.augment:
+            metrics["ada_p"] = self.ada_p()
+        return loss, metrics
 
     def g_phase(self, low, real, clean, feats, draws: dict) -> dict:
         """The G update against the current D, then the EMA."""
