@@ -105,9 +105,33 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              and agree with its plain version (K8 exactly). No product path
              calls K8-K10, as none calls their scripts' kernels.
 
-Phases 5, 7 and 8 also count the calls of K6's and K7's plain versions
-on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on the card
-the main paths run the kernels.
+11. convert - checkpoint conversion without JAX: phase 5's seeded
+             full-width pipeline (its decoder's 1-D `latent_avg`), a seeded
+             D at 512 px and ArcFace ResNet-101, and phase 5's LPIPS and
+             InceptionV3, written in the reference's layouts
+             (`reference_state_dict`, with entries the converters must
+             ignore), then `python -m vspbfr_tpu_torch.cli.convert_ckpt`
+             for each of its six kinds in its own process, where `jax` and
+             `vspbfr_tpu` cannot be imported; every output equals its
+             source bit for bit; each kind's seconds and file size. Then
+             the converted pipeline (g_ema as the generator) restores
+             phase 5's 4 faces on the card in f32 and bf16 identically
+             (max |diff| 0, under cuDNN's deterministic algorithms: with
+             its defaults the f32 path varies call to call) to the seeded
+             one on the same draws, timed in turns with it under the
+             defaults, the serve kernels launching; the converted LPIPS
+             and InceptionV3 score as the seeded ones.
+12. sample  - truncated sampling at full width on the card against the
+             CPU (phase 4's gate): `mean_latent` over 4096 z,
+             `noise_mapping` of two style draws for b4 with an inject
+             index, `truncate_styles` at 0.7, the 1024 px decode (K1, K3,
+             K6 and K7 must launch); the pSp `GradualStyleEncoder` at 256
+             px b4; CUDA-event medians of the f32 and bf16 sampling and of
+             the encoder.
+
+Phases 5, 7, 8, 11 and 12 also count the calls of K6's and K7's plain
+versions on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on
+the card the main paths run the kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -134,7 +158,7 @@ from vspbfr_tpu_torch.cli.profile import bound_ms as bound
 from vspbfr_tpu_torch.cli.profile import cuda_ms
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
-          "restore", "smart", "experiments")
+          "restore", "smart", "experiments", "convert", "sample")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -162,10 +186,10 @@ KERNEL_INFO = {
     "inkpad_conv": ("vspbfr_tpu_torch/csrc/stripe_conv.cu",
                     "scripts/exp_inkpad.py:96"),
 }
-# the kernels each main path must launch: serving (phase 5), stage-2
-# training (phase 7), stage-3 training (phase 8) without and with ADA and
-# with the epilogue switch on, K5's entry (phase 9) and the entries of
-# K8-K10 (phase 10)
+# the kernels each main path must launch: serving (phases 5 and 11),
+# stage-2 training (phase 7), stage-3 training (phase 8) without and with
+# ADA and with the epilogue switch on, K5's entry (phase 9), the entries of
+# K8-K10 (phase 10) and truncated sampling from the decoder (phase 12)
 PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                           "conv_epilogue", "fused_leaky_relu"),
                 "train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
@@ -179,9 +203,14 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                                   "conv_epilogue", "fused_leaky_relu"),
                 "smart": ("smart_core",),
                 "experiments": ("interleave_stack", "interleave_repeat",
-                                "stripe_conv", "inkpad_conv")}
+                                "stripe_conv", "inkpad_conv"),
+                "sample": ("dense_conv", "d2s", "conv_epilogue",
+                           "fused_leaky_relu")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
+# phase 5's seeded full-width modules and faces, which phases 11 and 12
+# reuse
+SEEDED: dict = {"nets": {}}
 CARD = ""
 
 
@@ -830,8 +859,9 @@ def phase_cli():
         for name, net, seed in (("lpips", LPIPS(), 41),
                                 ("inception", InceptionV3Features(), 42)):
             nets[name] = os.path.join(tmp, f"{name}.pt")
-            torch.save(init_module(net, torch.Generator().manual_seed(
-                seed)).state_dict(), nets[name])
+            SEEDED["nets"][name] = init_module(
+                net, torch.Generator().manual_seed(seed))
+            torch.save(net.state_dict(), nets[name])
         for mode in ("f32", "bf16"):
             out = os.path.join(tmp, f"out_{mode}")
             argv = ["--lq_dirs", lq, "--hq_dirs", hq, "--out", out,
@@ -891,7 +921,8 @@ def phase_cli():
     p16 = RestorationPipeline(compute_dtype=torch.bfloat16)
     p16.load_state_dict(base.state_dict())
     p16 = p16.cuda().eval().prepare_params()
-    del base
+    # phases 11 and 12 start from these seeded modules and inputs
+    SEEDED.update(pipe=base, faces=faces[:4], clean=clean[:4])
     low = torch.tensor(faces[:4], device="cuda")
 
     def run(p, upto="full", sample=False):
@@ -2016,6 +2047,472 @@ def phase_experiments():
     REPORT["experiments"] = res
 
 
+# --- phase 11 ---------------------------------------------------------------
+
+def _owners(module) -> dict:
+    """Port state_dict key -> (the module that holds it, its name there)."""
+    out = {}
+    for mname, m in module.named_modules():
+        for pname, _ in m.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = (m, pname)
+    return out
+
+
+def _flat_in_ref(w, c: int, h: int, wd: int):
+    """Inverse of `torch_import._nchw_flat_in`: port (h*w*c, out) -> the
+    reference's (out, c*h*w) over an NCHW flatten."""
+    out = w.shape[1]
+    return w.T.reshape(out, h, wd, c).permute(0, 3, 1, 2).reshape(out, -1)
+
+
+def reference_state_dict(module) -> dict:
+    """A port module's weights as the reference stores them: each entry
+    under its reference key (the port's own key maps, `convert.
+    torch_import`) in torch's layouts (linear (out, in), conv OIHW,
+    modulated conv (1, O, I, k, k), NCHW buffers, the 4x4 heads over an
+    NCHW flatten, a 1-D `latent_avg` when its rows are equal). The
+    inverse of the converters, used to write reference-layout files."""
+    import torch
+
+    from vspbfr_tpu_torch.convert import torch_import as ti
+    from vspbfr_tpu_torch.losses import (
+        LPIPS,
+        InceptionV3Features,
+        ResNet101Embedder,
+    )
+    from vspbfr_tpu_torch.models import (
+        CodeDiffuser,
+        Discriminator,
+        Generator,
+        PSPFacade,
+        RestorationNet,
+    )
+    from vspbfr_tpu_torch.models.e4e import _IRSEBackbone
+    from vspbfr_tpu_torch.models.layers import ModulatedConv2d, ToRGB
+
+    if isinstance(module, PSPFacade):
+        out = {f"encoder.{k}": v for k, v in
+               reference_state_dict(module.encoder).items()}
+        out.update({f"decoder.{k}": v for k, v in
+                    reference_state_dict(module.decoder).items()})
+        lat = module.latent_avg.detach().cpu()
+        out["latent_avg"] = lat[0].clone() if bool(
+            (lat == lat[:1]).all()) else lat.clone()
+        return out
+    key_fn = {Generator: ti._generator_key,
+              RestorationNet: ti._restorenet_key,
+              CodeDiffuser: ti._code_diffuser_key,
+              ResNet101Embedder: ti._resnet101_key,
+              LPIPS: ti._lpips_key,
+              InceptionV3Features: ti._inception_key}.get(type(module))
+    if isinstance(module, _IRSEBackbone):
+        key_fn = ti._e4e_key
+    elif isinstance(module, Discriminator):
+        key_fn = (lambda n, ls=module.log_size:
+                  ti._discriminator_key(n, ls))
+    owners = _owners(module)
+    out = {}
+    for k, v in module.state_dict().items():
+        m, pname = owners[k]
+        v = v.detach().cpu()
+        if isinstance(m, ModulatedConv2d):
+            v = v.permute(3, 2, 0, 1)[None]          # (k,k,I,O) -> (1,O,I,k,k)
+        elif v.ndim == 4 and isinstance(m, Generator):
+            v = v.permute(0, 3, 1, 2)                # const input, NCHW
+        elif v.ndim == 4:
+            v = v.permute(3, 2, 0, 1)                # HWIO -> OIHW
+        elif isinstance(m, LPIPS) or (isinstance(m, ToRGB)
+                                      and pname == "bias"):
+            v = v.reshape(1, -1, 1, 1)               # lin heads, rgb bias
+        elif v.ndim == 2:
+            v = v.T                                  # (in, out) -> (out, in)
+        out[key_fn(tuple(k.split(".")))] = v.contiguous()
+    sd = module.state_dict()
+    if isinstance(module, RestorationNet):
+        ch4 = sd["final_transfer.bias"].shape[0] // 16
+        out["final_linear.0.weight"] = _flat_in_ref(
+            sd["final_linear.weight"], ch4, 4, 4).contiguous()
+        w, b = sd["final_transfer.weight"], sd["final_transfer.bias"]
+        out["final_transfer.weight"] = w.T.reshape(4, 4, ch4, -1).permute(
+            2, 0, 1, 3).reshape(16 * ch4, -1).contiguous()
+        out["final_transfer.bias"] = b.reshape(4, 4, ch4).permute(
+            2, 0, 1).reshape(-1).contiguous()
+    elif isinstance(module, Discriminator):
+        out["final_linear.0.weight"] = _flat_in_ref(
+            sd["final_linear0.weight"], sd["final_linear0.bias"].shape[0],
+            4, 4).contiguous()
+    return out
+
+
+def write_reference_files(d: str, psp, diffuser, g_ema, g, disc, arcface,
+                          lpips, inception) -> dict:
+    """Write the reference's released files of the given port modules into
+    `d`, with entries the converters must ignore (noise buffers, a blur
+    kernel, optimizer states, Inception's fc / AuxLogits, VGG16's
+    classifier); returns {kind: the `cli.convert_ckpt` arguments}."""
+    import torch
+
+    def path(name):
+        return os.path.join(d, name)
+
+    extra = torch.zeros(1, 1, 4, 4)
+    ref = reference_state_dict(psp)
+    ref.update({"decoder.noises.noise_0": extra,
+                "decoder.convs.0.conv.blur.kernel": torch.ones(4, 4)})
+    torch.save(ref, path("style_encoder_decoder.pt"))
+    torch.save({"att_mapper": reference_state_dict(diffuser)},
+               path("code_diffuser.pt"))
+    optim = {"state": {0: {"exp_avg": extra}}, "param_groups": [{"lr": 2e-3}]}
+    torch.save({"g": reference_state_dict(g),
+                "g_ema": reference_state_dict(g_ema),
+                "d": reference_state_dict(disc), "g_optim": optim,
+                "d_optim": optim}, path("restoration_net.pt"))
+    torch.save(reference_state_dict(arcface), path("Arcface.pth"))
+    ref = reference_state_dict(lpips)
+    torch.save({**{k: v for k, v in ref.items() if k.startswith("features")},
+                "classifier.0.weight": extra}, path("vgg16.pth"))
+    torch.save({k: v for k, v in ref.items() if k.startswith("lin")},
+               path("vgg_lin.pth"))
+    torch.save({**reference_state_dict(inception), "fc.weight": extra,
+                "AuxLogits.conv0.conv.weight": extra},
+               path("inception_v3.pth"))
+    return {"psp": ["--torch", path("style_encoder_decoder.pt")],
+            "diffuser": ["--torch", path("code_diffuser.pt")],
+            "restore": ["--torch", path("restoration_net.pt")],
+            "arcface": ["--torch", path("Arcface.pth")],
+            "lpips": ["--torch", path("vgg16.pth"), "--lin",
+                      path("vgg_lin.pth")],
+            "inception": ["--torch", path("inception_v3.pth")]}
+
+
+# runs `cli.convert_ckpt` with JAX and the JAX package made unimportable,
+# and prints the seconds of its `main`
+NO_JAX_CONVERT = (
+    "import runpy, sys, time\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['vspbfr_tpu'] = None\n"
+    "import torch\n"
+    "sys.argv = ['convert_ckpt'] + sys.argv[1:]\n"
+    "t0 = time.perf_counter()\n"
+    "runpy.run_module('vspbfr_tpu_torch.cli.convert_ckpt',"
+    " run_name='__main__')\n"
+    "print('seconds', time.perf_counter() - t0)\n")
+
+
+def run_conversions(jobs: dict, out_dir: str, extra=()) -> dict:
+    """Every kind of `jobs` through `python -m vspbfr_tpu_torch.cli.
+    convert_ckpt`, each in its own process (all started together, no CUDA
+    device visible, JAX unimportable); returns {kind: (file, seconds)}."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for kind, args in jobs.items():
+        out = os.path.join(out_dir, f"{kind}.pt")
+        procs[kind] = (out, subprocess.Popen(
+            [sys.executable, "-c", NO_JAX_CONVERT, kind, *args, "--out", out,
+             *extra], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    res = {}
+    for kind, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"convert_ckpt {kind} failed:\n{stderr}")
+        res[kind] = (out, float(stdout.split("seconds")[-1]))
+    return res
+
+
+def _assert_equal_sd(name: str, got: dict, want: dict) -> None:
+    import torch
+
+    if set(got) != set(want):
+        raise AssertionError(f"convert {name}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"convert {name}: not bit-identical: {bad[:5]}")
+
+
+def phase_convert():
+    """The reference's files of phase 5's seeded full-width modules (and a
+    seeded D and ArcFace net) through `cli.convert_ckpt` without JAX, each
+    output equal bit for bit to its source; then the converted pipeline
+    (g_ema as the generator) restoring phase 5's faces on the card, f32
+    and bf16, identically to the seeded one, with the serve kernels
+    launching, and the converted scorers scoring identically."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.losses import (
+        LPIPS,
+        InceptionV3Features,
+        ResNet101Embedder,
+        make_inception_feature_fn,
+    )
+    from vspbfr_tpu_torch.models import Discriminator
+    from vspbfr_tpu_torch.models.layers import init_module
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase convert needs CUDA")
+    base, nets = SEEDED["pipe"], SEEDED["nets"]
+    disc = init_module(Discriminator(), torch.Generator().manual_seed(52))
+    arcface = init_module(ResNet101Embedder(),
+                          torch.Generator().manual_seed(53))
+    # the non-EMA generator: distinct weights, so a mix-up shows
+    g = type(base.generator)()
+    g.load_state_dict({k: v + 0.5 for k, v in
+                       base.generator.state_dict().items()})
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        jobs = write_reference_files(tmp, base.psp, base.diffuser,
+                                     base.generator, g, disc, arcface,
+                                     nets["lpips"], nets["inception"])
+        say(f"convert: reference files written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del g
+        t0 = time.perf_counter()
+        done = run_conversions(jobs, tmp)
+        say(f"convert: six conversions (six processes at once, JAX "
+            f"unimportable) in {time.perf_counter() - t0:.1f} s")
+        loaded = {k: torch.load(f, map_location="cpu", weights_only=True)
+                  for k, (f, _) in done.items()}
+        for kind, (f, secs) in done.items():
+            res[kind] = {"seconds": secs, "bytes": os.path.getsize(f),
+                         "reference_bytes": os.path.getsize(
+                             jobs[kind][1])}
+            say(f"convert {kind}: {secs:.2f} s, {os.path.getsize(f)} "
+                f"bytes written from {res[kind]['reference_bytes']} bytes")
+    _assert_equal_sd("psp", loaded["psp"], base.psp.state_dict())
+    _assert_equal_sd("diffuser", loaded["diffuser"]["diffuser"],
+                     base.diffuser.state_dict())
+    _assert_equal_sd("restore g_ema", loaded["restore"]["g_ema"],
+                     base.generator.state_dict())
+    _assert_equal_sd("restore d", loaded["restore"]["d"], disc.state_dict())
+    _assert_equal_sd("arcface", loaded["arcface"], arcface.state_dict())
+    _assert_equal_sd("lpips", loaded["lpips"], nets["lpips"].state_dict())
+    _assert_equal_sd("inception", loaded["inception"],
+                     nets["inception"].state_dict())
+    if torch.equal(loaded["restore"]["g"]["conv1.noise.weight"],
+                   loaded["restore"]["g_ema"]["conv1.noise.weight"]):
+        raise AssertionError("convert restore: g and g_ema coincide")
+    del disc, arcface
+
+    # the converted pipeline, as a serving checkpoint: psp, diffuser and
+    # g_ema as the generator
+    pipe_sd = {f"psp.{k}": v for k, v in loaded["psp"].items()}
+    pipe_sd.update({f"diffuser.{k}": v
+                    for k, v in loaded["diffuser"]["diffuser"].items()})
+    pipe_sd.update({f"generator.{k}": v
+                    for k, v in loaded["restore"]["g_ema"].items()})
+    low = torch.tensor(SEEDED["faces"], device="cuda")
+    gt = torch.tensor(SEEDED["clean"], device="cuda")
+
+    def build(sd, dt):
+        p = RestorationPipeline(compute_dtype=dt)
+        p.load_state_dict(sd)
+        return p.cuda().eval().prepare_params()
+
+    def run(p):
+        return p.restore(low, torch.Generator(device="cuda").manual_seed(0),
+                         draws=_draws(p, 4, 11, "cuda"))
+
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        seeded = build(base.state_dict(), dt)
+        conv = build(pipe_sd, dt)
+        # the identity needs a reproducible path: with cuDNN's default
+        # algorithms the f32 decode differs call to call (~1e-5, which
+        # RestoreNet's random init amplifies), so compare under
+        # deterministic ones
+        with cudnn_deterministic():
+            out_s = run(seeded)
+            ops.reset_launch_counts()
+            out_c = run(conv)
+            counts = ops.launch_counts()
+        diff = float((out_c.float() - out_s.float()).abs().max())
+        # speed as the CLIs run it (cuDNN's defaults), in turns
+        ms = {"seeded": [], "converted": []}
+        for name in ("seeded", "converted", "converted", "seeded"):
+            m = seeded if name == "seeded" else conv
+            ms[name].append(cuda_ms(lambda: run(m), iters=5, warmup=1))
+        ms_s, ms_c = ms["seeded"], ms["converted"]
+        repeat = float((run(seeded).float() - run(seeded).float()).abs()
+                       .max())
+        ips = {"seeded": [4e3 / t for t in ms_s],
+               "converted": [4e3 / t for t in ms_c]}
+        say(f"convert {mode}: converted vs seeded restore, b4, max |diff| "
+            f"{diff} (cuDNN deterministic; with its defaults the seeded "
+            f"one against itself: {repeat}); ms (medians of 5, in turns "
+            f"seeded, converted, converted, seeded) {ms_s[0]:.3f}, "
+            f"{ms_c[0]:.3f}, {ms_c[1]:.3f}, {ms_s[1]:.3f}; launches "
+            f"{counts}")
+        missing = [k for k in PATH_KERNELS["serve"] if counts[k] == 0]
+        if diff != 0.0 or missing or not torch.isfinite(out_c).all():
+            raise AssertionError(f"convert {mode}: max |diff| {diff}, "
+                                 f"kernels never launched {missing}")
+        res[mode] = dict(max_abs_diff=diff, default_repeat_diff=repeat,
+                         ms_seeded=ms_s, ms_converted=ms_c, imgs_per_s=ips,
+                         launches=counts)
+        del seeded, conv
+        torch.cuda.empty_cache()
+    scores = {}
+    for name, cls in (("lpips", LPIPS), ("inception", InceptionV3Features)):
+        pair = []
+        for sd in (nets[name].state_dict(), loaded[name]):
+            net = cls()
+            net.load_state_dict(sd)
+            net = net.cuda().eval()
+            with torch.no_grad(), cudnn_deterministic():
+                pair.append(net(low, gt) if name == "lpips" else
+                            make_inception_feature_fn(net)(low))
+        if not torch.equal(*pair):
+            raise AssertionError(f"convert {name}: converted scores differ")
+        scores[name] = float(pair[0].float().mean())
+    say(f"convert: converted LPIPS and InceptionV3 score as the seeded "
+        f"ones (mean LPIPS {scores['lpips']:.6f}, mean pool3 feature "
+        f"{scores['inception']:.6f})")
+    res["scores"] = scores
+    REPORT["convert"] = res
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the duration of the block."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+# --- phase 12 ---------------------------------------------------------------
+
+def _gate(name: str, got, ref) -> dict:
+    """Phase 4's card-vs-CPU gate: mean |err| <= 1e-3 x range, max <= 1e-2
+    x range of the CPU result."""
+    import torch
+
+    g, c = got.float().cpu(), ref.float()
+    if g.shape != c.shape or not torch.isfinite(g).all():
+        raise AssertionError(f"sample {name}: shape {tuple(g.shape)} vs "
+                             f"{tuple(c.shape)} or non-finite")
+    rng_ = float(c.max() - c.min())
+    err = (g - c).abs()
+    mean_r, max_r = float(err.mean()) / rng_, float(err.max()) / rng_
+    say(f"sample {name}: range {rng_:.4f} mean|err|/range {mean_r:.3e} "
+        f"max|err|/range {max_r:.3e}")
+    if mean_r > 1e-3 or max_r > 1e-2:
+        raise AssertionError(f"sample {name}: card vs CPU out of bounds")
+    return dict(range=rng_, mean_rel=mean_r, max_rel=max_r)
+
+
+def phase_sample():
+    """Truncated sampling from the frozen 1024 px decoder at full width on
+    the card against the CPU, same weights (phase 5's decoder, a seeded
+    mapping MLP) and draws: `mean_latent` over 4096 z, `noise_mapping` of
+    two style draws for b4 with an inject index, `truncate_styles` at 0.7
+    toward the mean, the decode; then the pSp `GradualStyleEncoder` at 256
+    px b4. CUDA-event medians of the f32 and bf16 sampling and of the
+    encoder."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.evaluation import psnr
+    from vspbfr_tpu_torch.models import GradualStyleEncoder, PSPFacade
+    from vspbfr_tpu_torch.models.layers import (
+        StyleMLP,
+        init_module,
+        truncate_styles,
+    )
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase sample needs CUDA")
+    style = init_module(StyleMLP(), torch.Generator().manual_seed(61))
+    cpu = PSPFacade(mapping=True)
+    cpu.load_state_dict({**SEEDED["pipe"].psp.state_dict(),
+                         **{f"decoder.style.{k}": v
+                            for k, v in style.state_dict().items()}})
+    cpu.eval()
+    card = PSPFacade(mapping=True)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    rng = np.random.default_rng(12)
+    draws = {"z": rng.standard_normal((4096, 512)),
+             "styles": rng.standard_normal((2, 4, 512))}
+    # layer i's noise map is (4, r, r, 1), r = 4, 8, 8, 16, 16, ... 1024
+    draws["noise"] = [rng.standard_normal(
+        (4,) + (2 ** (2 + (i + 1) // 2),) * 2 + (1,)).astype(np.float32)
+        for i in range(cpu.decoder.num_layers)]
+    inject = 5
+
+    def sample(psp, dev, dt=torch.float32):
+        z = torch.tensor(draws["z"], dtype=dt, device=dev)
+        st = torch.tensor(draws["styles"], dtype=dt, device=dev)
+        noise = [torch.tensor(n, dtype=dt, device=dev)
+                 for n in draws["noise"]]
+        mean = psp.mean_latent(z=z)
+        w = psp.noise_mapping(st, inject_index=inject)
+        t = truncate_styles(w, 0.7, mean[None])
+        img, _ = psp.decoder(t, noise=noise)
+        return {"mean_latent": mean, "noise_mapping": w, "truncated": t,
+                "image": img}
+
+    res = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = sample(cpu, "cpu")
+        t_cpu = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        got = sample(card, "cuda")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        say(f"sample: 1024 px b4, CPU {t_cpu:.1f} s; card launches {counts}")
+        res["gate"] = {k: _gate(k, got[k], ref[k]) for k in ref}
+        missing = [k for k in PATH_KERNELS["sample"] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"sample: kernels never launched {missing}")
+        res["launches"] = counts
+        del cpu, ref
+        img32 = got["image"].float()
+        ms = {"f32": cuda_ms(lambda: sample(card, "cuda"), iters=5, warmup=1),
+              "mean_latent_f32": cuda_ms(lambda: card.mean_latent(
+                  z=torch.tensor(draws["z"], dtype=torch.float32,
+                                 device="cuda")), iters=10, warmup=2)}
+        card.decoder.to(torch.bfloat16)
+        got16 = sample(card, "cuda", torch.bfloat16)
+        if not torch.isfinite(got16["image"]).all():
+            raise AssertionError("sample bf16: non-finite image")
+        ms["bf16"] = cuda_ms(lambda: sample(card, "cuda", torch.bfloat16),
+                             iters=5, warmup=1)
+        p16 = float(psnr(got16["image"].float(), img32,
+                         data_range=max(2 * float(img32.abs().max()),
+                                        2.0)).mean())
+        say(f"sample b4 (mean_latent of 4096 z, noise_mapping, truncation, "
+            f"1024 px decode; ms, medians of 5): f32 {ms['f32']:.3f}, bf16 "
+            f"{ms['bf16']:.3f}; mean_latent alone f32 "
+            f"{ms['mean_latent_f32']:.3f}; bf16 vs f32 image PSNR "
+            f"{p16:.3f} dB")
+        res.update(ms=ms, bf16_vs_f32_psnr_db=p16)
+        del card, got, got16
+        torch.cuda.empty_cache()
+
+        enc = init_module(GradualStyleEncoder(),
+                          torch.Generator().manual_seed(62)).eval()
+        x = torch.tensor(synthetic_faces(4, 256, seed=13))
+        t0 = time.perf_counter()
+        ref = enc(x)
+        t_cpu = time.perf_counter() - t0
+        enc = enc.cuda()
+        xc = x.cuda()
+        res["encoder_gate"] = _gate("GradualStyleEncoder", enc(xc), ref)
+        res["encoder_ms"] = cuda_ms(lambda: enc(xc), iters=5, warmup=1)
+        say(f"sample: GradualStyleEncoder 256 px b4 (18 styles), "
+            f"{res['encoder_ms']:.3f} ms (median of 5), CPU {t_cpu:.1f} s")
+    REPORT["sample"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -2025,7 +2522,8 @@ def main() -> None:
         t0 = time.perf_counter()
         # the path phases: no plain K6 / K7 on the card
         with (no_plain_on_card(name) if name in ("slice", "cli", "train",
-                                                 "restore")
+                                                 "restore", "convert",
+                                                 "sample")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
@@ -2037,7 +2535,9 @@ def main() -> None:
                 "restore_ada": REPORT["restore"]["f32_augment"]["launches"],
                 "restore_fused": REPORT["restore"]["bf16_fused"]["launches"],
                 "smart": REPORT["smart"]["f32"]["launches"],
-                "experiments": REPORT["experiments"]["launches"]}
+                "experiments": REPORT["experiments"]["launches"],
+                "convert": REPORT["convert"]["f32"]["launches"],
+                "sample": REPORT["sample"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]

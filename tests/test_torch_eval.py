@@ -201,3 +201,11 @@ def test_infer_cli_scores_lpips_and_fid(tmp_path, lpips):
     for k in ("psnr", "ssim", "lpips", "fid"):
         assert np.isfinite(entry[k]), k
     assert entry["lpips"] > 0 and entry["fid"] > 0
+    # the score log, as the JAX CLI writes it: "[n] [k]:v ... [t]:time"
+    # with each value to 6 significant digits
+    log = (tmp_path / "out" / "data0" / "data0.log").read_text().split()
+    assert log[0] == "[3]"
+    logged = dict(f[1:].split("]:") for f in log[1:])
+    assert set(logged) == {"psnr", "ssim", "lpips", "fid", "t"}
+    for k in ("psnr", "ssim", "lpips", "fid"):
+        assert float(logged[k]) == float(f"{entry[k]:.6g}"), k

@@ -191,7 +191,8 @@ def test_infer_cli_on_npy(tmp_path, monkeypatch, pipes, low, with_ckpt):
     assert entry["n"] == 2 and len(entry["batch_seconds"]) == 1
     assert np.isfinite(entry["psnr"])
     written = sorted(p.name for p in (tmp_path / "out" / "data0").iterdir())
-    assert len(written) == 8   # restore, low, sample, gt for each input
+    # restore, low, sample, gt for each input, and the score log
+    assert len(written) == 9 and "data0.log" in written
     assert any(n.startswith("face0_restore") for n in written)
 
 

@@ -4,8 +4,11 @@ Counterpart of `vspbfr_tpu/cli/infer.py`: runs the pipeline over one or
 more image directories, writes restored/low/sample/gt images, and scores
 PSNR/SSIM where GT is given, LPIPS with `--lpips_ckpt` and standard FID
 (InceptionV3 pool3) with `--inception_ckpt`, on the device the pipeline
-runs on. `--ckpt`, `--lpips_ckpt` and `--inception_ckpt` take port
-state_dicts saved with `torch.save`; without `--ckpt` the pipeline's
+runs on; each dataset's count and scores are appended to
+`<out>/<name>/<name>.log` (`utils.Logger`). `--ckpt`, `--lpips_ckpt` and
+`--inception_ckpt` take port state_dicts saved with `torch.save` (from the
+reference's `.pt` files through `cli/convert_ckpt.py`, from JAX
+checkpoints through `orbax_to_torch.py`); without `--ckpt` the pipeline's
 weights are random, drawn from `--seed`.
 
     python -m vspbfr_tpu_torch.cli.infer --lq_dirs DIR --device cuda --bf16
@@ -28,7 +31,7 @@ from vspbfr_tpu_torch.losses import (
     make_inception_feature_fn,
 )
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
-from vspbfr_tpu_torch.utils import load_checkpoint
+from vspbfr_tpu_torch.utils import Logger, load_checkpoint
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -141,7 +144,9 @@ def main(argv=None) -> dict:
             n += low.shape[0]
         entry = {"n": n, "batch_seconds": seconds}
         if n and ds.hq_files is not None:
-            entry.update(scorer.result(), score_seconds=score_seconds)
+            scores = scorer.result()
+            Logger(out_dir, name).log(n, scores)
+            entry.update(scores, score_seconds=score_seconds)
             print(f"{name}: n={n} " + " ".join(
                 f"{k}={entry[k]:.4f}" for k in ("psnr", "ssim", "lpips",
                                                 "fid") if k in entry))

@@ -1,4 +1,12 @@
-"""Flax parameter tree -> port `state_dict`.
+"""Checkpoint conversion into port `state_dict`s.
+
+Two sources: a flax parameter tree (`state_dict_from_jax`, below) and the
+reference's released torch checkpoints (`torch_import.py`, the counterpart
+of `vspbfr_tpu/convert/torch_import.py`, re-exported here). JAX's orbax
+checkpoints go through `state_dict_from_jax` in `orbax_to_torch.py` at the
+repository root, the one place that imports both frameworks.
+
+Flax parameter tree -> port `state_dict`:
 
 The port's parameter names mirror the flax tree and its layouts already
 match (linears (in, out), convs HWIO), so conversion only renames keys and
@@ -13,10 +21,8 @@ per VGG block) and `lin3` stays `lin3`; the ResNet-101 embedder's
 `kernel`/`bias`, `FrozenBatchNorm` leaves `scale`/`bias`/`mean`/`var`, in
 both packages).
 
-This module does not import JAX: it takes the tree as nested dicts of
-numpy arrays (`jax.tree.map(np.asarray, params)`). Reading the reference's
-released `.pt` files later composes `vspbfr_tpu/convert/torch_import.py`'s
-key maps with this one.
+This package does not import JAX: it takes the tree as nested dicts of
+numpy arrays (`jax.tree.map(np.asarray, params)`).
 """
 
 from __future__ import annotations
@@ -74,3 +80,23 @@ def state_dict_from_jax(flax_params: Mapping[str, Any],
                              f"shape {tuple(t.shape)}")
         sd[k] = sd[k].to(t.dtype)
     return sd
+
+
+from vspbfr_tpu_torch.convert.torch_import import (  # noqa: E402
+    convert_code_diffuser,
+    convert_discriminator,
+    convert_e4e_encoder,
+    convert_inception_v3,
+    convert_lpips,
+    convert_psp_checkpoint,
+    convert_resnet101,
+    convert_restoration_net,
+    convert_stylegan2_generator,
+    load_torch_state_dict,
+)
+
+__all__ = ["convert_code_diffuser", "convert_discriminator",
+           "convert_e4e_encoder", "convert_inception_v3", "convert_lpips",
+           "convert_psp_checkpoint", "convert_resnet101",
+           "convert_restoration_net", "convert_stylegan2_generator",
+           "load_torch_state_dict", "port_key", "state_dict_from_jax"]

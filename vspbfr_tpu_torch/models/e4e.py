@@ -1,7 +1,8 @@
 """e4e style encoder over an IR-SE body, NHWC.
 
-Counterpart of `vspbfr_tpu/models/e4e.py` (`Encoder4Editing`; the pSp
-`GradualStyleEncoder` variant is not on the serving path). Maps a face at
+Counterpart of `vspbfr_tpu/models/e4e.py`: `Encoder4Editing`, and the pSp
+`GradualStyleEncoder` variant, which no path runs and which is kept, as in
+the JAX package, for checkpoints of that encoder type. Maps a face at
 `encode_size` to a (B, style_count, 512) W+ code: IR-SE body with taps at
 the end of stages 2/3/4, GradualStyleBlock heads, and an FPN whose adds use
 bilinear align_corners=True resizes. The encoder is frozen, so BatchNorm
@@ -151,17 +152,17 @@ class GradualStyleBlock(nn.Module):
         return self.linear(x.reshape(x.shape[0], -1))
 
 
-class Encoder4Editing(nn.Module):
-    """e4e main style encoder (`psp_encoders.py:124-231`), all deltas active."""
+class _IRSEBackbone(nn.Module):
+    """Input layer (conv3x3 + BN + PReLU) and the IR-SE body, with the
+    c1 / c2 / c3 taps at the end of stages 2 / 3 / 4
+    (`psp_encoders.py:131-148`)."""
 
     COARSE_IND = 3
     MIDDLE_IND = 7
 
-    def __init__(self, stylegan_size: int = 1024, input_channels: int = 3,
-                 stages=IR50_STAGES, encode_size: int = 256):
+    def __init__(self, stylegan_size: int, input_channels: int, stages):
         super().__init__()
         self.stages = tuple(tuple(s) for s in stages)
-        self.encode_size = encode_size
         self.style_count = 2 * int(math.log2(stylegan_size)) - 2
         input_ch = min(64, self.stages[0][0])
         self.input_conv = Conv(input_channels, input_ch, 3, padding=1,
@@ -174,6 +175,31 @@ class Encoder4Editing(nn.Module):
                 body.append(BottleneckIRSE(in_ch, depth, 2 if unit == 0 else 1))
                 in_ch = depth
         self.body = nn.ModuleList(body)
+
+    def taps(self, x):
+        x = self.input_prelu(self.input_bn(self.input_conv(x)))
+        taps = _tap_indices(self.stages)
+        out = []
+        for idx, unit in enumerate(self.body):
+            x = unit(x)
+            if idx in taps:
+                out.append(x)
+        return out
+
+    def _add_laterals(self):
+        """The 1x1 convs projecting c2 / c1 to c3's depth for the FPN adds."""
+        lat_ch = self.stages[-1][0]
+        self.latlayer1 = Conv(self.stages[2][0], lat_ch, 1)
+        self.latlayer2 = Conv(self.stages[1][0], lat_ch, 1)
+
+
+class Encoder4Editing(_IRSEBackbone):
+    """e4e main style encoder (`psp_encoders.py:124-231`), all deltas active."""
+
+    def __init__(self, stylegan_size: int = 1024, input_channels: int = 3,
+                 stages=IR50_STAGES, encode_size: int = 256):
+        super().__init__(stylegan_size, input_channels, stages)
+        self.encode_size = encode_size
         lat_ch = self.stages[-1][0]
         heads = []
         for i in range(self.style_count):
@@ -182,20 +208,10 @@ class Encoder4Editing(nn.Module):
                              else encode_size // 4))
             heads.append(GradualStyleBlock(lat_ch, 512, spatial))
         self.style = nn.ModuleList(heads)
-        self.latlayer1 = Conv(self.stages[2][0], lat_ch, 1)
-        self.latlayer2 = Conv(self.stages[1][0], lat_ch, 1)
+        self._add_laterals()
 
     def forward(self, x):
-        x = self.input_prelu(self.input_bn(self.input_conv(x)))
-        tap1, tap2, tap3 = _tap_indices(self.stages)
-        for idx, unit in enumerate(self.body):
-            x = unit(x)
-            if idx == tap1:
-                c1 = x
-            elif idx == tap2:
-                c2 = x
-            elif idx == tap3:
-                c3 = x
+        c1, c2, c3 = self.taps(x)
         w0 = self.style[0](c3)
         deltas = [torch.zeros_like(w0)]
         features = c3
@@ -209,3 +225,32 @@ class Encoder4Editing(nn.Module):
                             + self.latlayer2(c1))
             deltas.append(self.style[i](features))
         return w0[:, None, :] + torch.stack(deltas, dim=1)
+
+
+class GradualStyleEncoder(_IRSEBackbone):
+    """pSp variant: every style read directly from the FPN pyramid
+    (`psp_encoders.py:58-121`; `vspbfr_tpu/models/e4e.py:256`), over the
+    IR-SE-50 body (taps 6 / 20 / 23), heads sized for a 256 px input.
+    Keyed like `Encoder4Editing`, so `convert_e4e_encoder` fills it. As in
+    the JAX package, the seven coarse and middle heads always exist and
+    run: below 8 styles (stylegan_size < 32) the output has 7."""
+
+    def __init__(self, stylegan_size: int = 1024, input_channels: int = 3):
+        super().__init__(stylegan_size, input_channels, IR50_STAGES)
+        self.style = nn.ModuleList(
+            GradualStyleBlock(512, 512, 16 if j < self.COARSE_IND
+                              else (32 if j < self.MIDDLE_IND else 64))
+            for j in range(max(self.style_count, self.MIDDLE_IND)))
+        self._add_laterals()
+
+    def forward(self, x):
+        c1, c2, c3 = self.taps(x)
+        p2 = (resize_bilinear_align_corners(c3, c2.shape[1:3])
+              + self.latlayer1(c2))
+        p1 = (resize_bilinear_align_corners(p2, c1.shape[1:3])
+              + self.latlayer2(c1))
+        feats = [c3] * self.COARSE_IND + [p2] * (self.MIDDLE_IND
+                                                 - self.COARSE_IND)
+        feats += [p1] * (len(self.style) - self.MIDDLE_IND)
+        return torch.stack([head(f) for head, f in zip(self.style, feats)],
+                           dim=1)

@@ -479,6 +479,13 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4,
     return torch.cat([x, y.repeat(g, h, w, 1)], dim=-1)
 
 
+def truncate_styles(styles: torch.Tensor, truncation: float,
+                    truncation_latent: torch.Tensor) -> torch.Tensor:
+    """w <- t_lat + trunc * (w - t_lat)
+    (`e4e/models/stylegan2/model.py:498-506`)."""
+    return truncation_latent + truncation * (styles - truncation_latent)
+
+
 def styles_to_latent(styles: torch.Tensor, n_latent: int,
                      inject_index: int | None) -> torch.Tensor:
     """(S, B, D) styles, S in {1, 2} -> (B, n_latent, D): rows below

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vspbfr_tpu_torch.models.e4e import IR50_STAGES, Encoder4Editing
+from vspbfr_tpu_torch.models.layers import styles_to_latent
 from vspbfr_tpu_torch.models.stylegan2 import Generator
 
 
@@ -37,11 +38,14 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
 
 class PSPFacade(nn.Module):
-    """out_size: pipeline resolution (512); size: decoder resolution (1024)."""
+    """out_size: pipeline resolution (512); size: decoder resolution (1024);
+    mapping: give the decoder its z -> w MLP (`mean_latent`,
+    `noise_mapping`)."""
 
     def __init__(self, out_size: int = 512, size: int = 1024,
                  input_channels: int = 3, encode_size: int = 256,
-                 encoder_stages=None, channel_div: int = 1):
+                 encoder_stages=None, channel_div: int = 1,
+                 mapping: bool = False):
         super().__init__()
         self.out_size, self.size = out_size, size
         self.n_latent = 2 * int(math.log2(size)) - 2
@@ -49,7 +53,8 @@ class PSPFacade(nn.Module):
         self.encoder = Encoder4Editing(
             stylegan_size=size, input_channels=input_channels,
             stages=encoder_stages or IR50_STAGES, encode_size=encode_size)
-        self.decoder = Generator(size=size, channel_div=channel_div)
+        self.decoder = Generator(size=size, channel_div=channel_div,
+                                 mapping=mapping)
         self.latent_avg = nn.Parameter(torch.empty(self.n_latent, 512))
 
     def init_from(self, gen):
@@ -90,3 +95,24 @@ class PSPFacade(nn.Module):
         decoder's per-layer noise maps (else drawn from `generator`)."""
         image, _ = self.decoder(codes, noise=noise, generator=generator)
         return adaptive_avg_pool(image, (self.out_size, self.out_size))
+
+    def mean_latent(self, n_samples: int = 4096,
+                    generator: torch.Generator | None = None,
+                    z: torch.Tensor | None = None) -> torch.Tensor:
+        """Average mapped w over random z, (1, 512)
+        (`e4e/models/psp.py:186-196`). The (n_samples, 512) z are drawn
+        from `generator` on the decoder's device, or handed in as `z`."""
+        if z is None:
+            if generator is None:
+                raise ValueError("mean_latent needs z or a torch.Generator")
+            z = torch.randn((n_samples, 512), generator=generator,
+                            device=generator.device)
+        return self.decoder.map_latent(z).mean(dim=0, keepdim=True)
+
+    def noise_mapping(self, styles: torch.Tensor,
+                      inject_index: int | None = None) -> torch.Tensor:
+        """z styles (S, B, 512) -> the mixed (B, n_latent, 512) w latent
+        through the decoder's mapping MLP (`e4e/models/psp.py:190-223`)."""
+        mapped = torch.stack([self.decoder.map_latent(styles[s])
+                              for s in range(styles.shape[0])])
+        return styles_to_latent(mapped, self.n_latent, inject_index)

@@ -14,7 +14,7 @@ import math
 import torch
 from torch import nn
 
-from vspbfr_tpu_torch.models.layers import StyledConv, ToRGB, _normal
+from vspbfr_tpu_torch.models.layers import StyledConv, StyleMLP, ToRGB, _normal
 
 
 def channel_dict(channel_multiplier: int = 2,
@@ -35,13 +35,18 @@ def channel_dict(channel_multiplier: int = 2,
 
 
 class Generator(nn.Module):
-    """The synthesis network. The z -> w mapping MLP is not ported: the
-    frozen decoder is driven by W+ codes only, and the JAX pipeline's
-    parameter tree holds no mapping for it."""
+    """The synthesis network, and with `mapping=True` the z -> w mapping
+    MLP (`style`, n_mlp equalized linears) that `map_latent` runs. The
+    pipeline drives the frozen decoder with W+ codes only, and a JAX
+    parameter tree initialised through `__call__` holds no mapping, so the
+    default builds none (flax creates `style` only when `map_latent` is
+    initialised)."""
 
     def __init__(self, size: int = 1024, style_dim: int = 512,
-                 channel_multiplier: int = 2, channel_div: int = 1):
+                 channel_multiplier: int = 2, channel_div: int = 1,
+                 mapping: bool = False, n_mlp: int = 8):
         super().__init__()
+        self.style = StyleMLP(style_dim, n_mlp) if mapping else None
         self.size = size
         self.log_size = int(math.log2(size))
         self.n_latent = self.log_size * 2 - 2
@@ -62,6 +67,14 @@ class Generator(nn.Module):
 
     def init_from(self, gen):
         _normal(self.const_input, gen)
+
+    def map_latent(self, z: torch.Tensor) -> torch.Tensor:
+        """z (..., style_dim) -> w through the mapping MLP (its bias +
+        leaky ReLUs are K7 on the card)."""
+        if self.style is None:
+            raise ValueError("map_latent needs a Generator built with "
+                             "mapping=True")
+        return self.style(z)
 
     def forward(self, latent: torch.Tensor, noise=None,
                 return_features: bool = False, return_image: bool = True,
