@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # takes no arguments; needs one CUDA card
 
+(`chip_smoke.py --rank ...` is one process of phase 13, which phase 13
+starts itself.)
+
 Phases, in order (any failed check raises, so the exit status is non-zero):
 
 1. device  - require CUDA; print the card's name and power limit; turn TF32
@@ -128,8 +131,22 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              K6 and K7 must launch); the pSp `GradualStyleEncoder` at 256
              px b4; CUDA-event medians of the f32 and bf16 sampling and of
              the encoder.
+13. parallel - data-parallel training (`vspbfr_tpu_torch/parallel/`), each
+             run a process of its own with a timeout: (a) the stage-3 CLI
+             at full width, b4, bf16, 3 steps (R1 at step 0) alone and
+             under torchrun at world size 1 (NCCL), in turns alone,
+             torchrun, alone: per-step losses within 10x the lone runs'
+             spread (equal where it is 0), the restore kernels launching,
+             both step-time medians, the gradient all-reduce's CUDA-event
+             ms and bytes a step; (b) two gloo ranks on the one card:
+             stage 2 at phase 7's config, b8 each, against this process at
+             b16 on the same rows and draws (losses and updated diffuser
+             within phase 7's f32 gate, the ranks bit-identical), and the
+             stage-3 CLI at b2 each, bf16, 2 steps with ADA (G, D, g_ema
+             and the ADA state bit-identical across the ranks after each
+             step). NCCL across cards needs a machine with more than one.
 
-Phases 5, 7, 8, 11 and 12 also count the calls of K6's and K7's plain
+Phases 5, 7, 8, 11, 12 and 13 also count the calls of K6's and K7's plain
 versions on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on
 the card the main paths run the kernels.
 
@@ -144,6 +161,7 @@ import contextlib
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -156,9 +174,10 @@ import numpy as np
 # profiler's (`cli/profile.py`), so both report the same numbers
 from vspbfr_tpu_torch.cli.profile import bound_ms as bound
 from vspbfr_tpu_torch.cli.profile import cuda_ms
+from vspbfr_tpu_torch.cli.profile import d2s_library, s2d_library
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
-          "restore", "smart", "experiments", "convert", "sample")
+          "restore", "smart", "experiments", "convert", "sample", "parallel")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -205,7 +224,9 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                 "experiments": ("interleave_stack", "interleave_repeat",
                                 "stripe_conv", "inkpad_conv"),
                 "sample": ("dense_conv", "d2s", "conv_epilogue",
-                           "fused_leaky_relu")}
+                           "fused_leaky_relu"),
+                "parallel": ("dense_conv", "dilated_multi_conv", "d2s",
+                             "s2d", "conv_epilogue", "fused_leaky_relu")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 # phase 5's seeded full-width modules and faces, which phases 11 and 12
@@ -634,8 +655,10 @@ def phase_kernels():
                 raise AssertionError(f"d2s {label} {dt_name}: not exact")
             ms = cuda_ms(lambda: ops.d2s(x, inner))
             pms = cuda_ms(lambda: ops.d2s_plain(x, inner))
+            # the library's call: the permute copy (`.contiguous()`)
+            lms = cuda_ms(lambda: d2s_library(x, inner))
             _check("d2s", label, dt_name, got, ref, ms, pms, rows,
-                   moved=nbytes(x, got))
+                   moved=nbytes(x, got), library_ms=lms)
             del x, got, ref
         # K6 and K7: `ms` is one call's time on an idle stream (host
         # included, as the plain version's), `device_ms` the device's alone
@@ -1250,8 +1273,9 @@ def phase_grads():
                 raise AssertionError(f"s2d {label} {dt_name}: not exact")
             ms = cuda_ms(lambda: ops.s2d(y, inner))
             pms = cuda_ms(lambda: ops.s2d_plain(y, inner).contiguous())
+            lms = cuda_ms(lambda: s2d_library(y, inner))
             _check("s2d", label, dt_name, got, ref, ms, pms, rows,
-                   moved=nbytes(y, got))
+                   moved=nbytes(y, got), library_ms=lms)
             del y, got, ref
         _elementwise_grads(rows, rand, dt_name, dt)
         _smart_grads(rows, rand, dt_name, dt)
@@ -2513,6 +2537,391 @@ def phase_sample():
     REPORT["sample"] = res
 
 
+# --- phase 13 ---------------------------------------------------------------
+
+RANK_TIMEOUT = 240      # seconds one phase-13 run of ranks may take
+
+
+def _spawn_ranks(mode: str, out: str, nproc: int | None, argv=()) -> dict:
+    """Start `rank_main(mode, out, *argv)` in a new process, under torchrun
+    with `nproc` ranks (`--standalone`) or, with nproc None, alone; the
+    handle `_collect_ranks` waits for."""
+    if nproc is None:
+        cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py")]
+    else:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc),
+               os.path.join(HERE, "chip_smoke.py")]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    proc = subprocess.Popen(cmd + ["--rank", mode, out, *argv], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return dict(proc=proc, mode=mode, out=out, nproc=nproc,
+                t0=time.perf_counter())
+
+
+def _stop_ranks(h: dict) -> None:
+    """Kill a `_spawn_ranks` process and every rank it started."""
+    if h["proc"].poll() is None:
+        os.killpg(h["proc"].pid, signal.SIGKILL)
+    h["proc"].communicate()
+
+
+def _collect_ranks(h: dict, timeout: int = RANK_TIMEOUT) -> list[dict]:
+    """Wait for a `_spawn_ranks` process (killed at `timeout` seconds after
+    its start) and return each rank's record."""
+    proc, mode, nproc = h["proc"], h["mode"], h["nproc"]
+    left = max(1.0, timeout - (time.perf_counter() - h["t0"]))
+    try:
+        stdout, stderr = proc.communicate(timeout=left)
+    except BaseException:
+        _stop_ranks(h)
+        raise
+    wall = time.perf_counter() - h["t0"]
+    if proc.returncode != 0:
+        raise AssertionError(f"parallel {mode} ({nproc} ranks): exit "
+                             f"{proc.returncode}\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("[dist]")]
+    say(f"parallel {mode}: {nproc or 1} process(es) in {wall:.1f} s; "
+        + "; ".join(lines))
+    recs = []
+    for r in range(nproc or 1):
+        with open(f"{h['out']}.{r}.json") as f:
+            recs.append(json.load(f))
+        recs[-1]["wall_s"] = wall
+        if any(recs[-1]["plain_cuda_calls"].values()):
+            raise AssertionError(f"parallel {mode} rank {r}: a plain version "
+                                 f"ran on the card: "
+                                 f"{recs[-1]['plain_cuda_calls']}")
+    return recs
+
+
+def _bit_sums(module) -> list[int]:
+    """Two sums of the bits of each tensor of the module's state (as int64,
+    plain and position-weighted): equal lists for bit-identical states."""
+    import torch
+
+    sums = []
+    for t in module.state_dict().values():
+        v = t.detach().reshape(-1)
+        bits = (v.view(torch.int32) if v.dtype == torch.float32
+                else v).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        sums += [bits.sum(), (bits * w).sum()]
+    return torch.stack(sums).tolist()
+
+
+def _stage2_parallel_trainer(batch: int, dp=None):
+    """Phase 7's full-width stage-2 config (256 px, 1024 px decoder,
+    IR-SE-50) from seed 3, the diffuser's attention conditioned as phase
+    7's card-vs-CPU step is."""
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.diffuser_train import (DiffuserTrainConfig,
+                                                       DiffuserTrainer)
+
+    tr = DiffuserTrainer(DiffuserTrainConfig(size=256, batch=batch),
+                         RestorationPipeline(size=256), dp).init_from_seed(3)
+    _condition_diffuser(tr.pipe)
+    return tr
+
+
+def _stage2_update(tr) -> dict:
+    """The diffuser's parameters after a step and Adam's first moments, on
+    the host: with beta1 = 0 the moment is the step's (reduced)
+    gradient."""
+    st = tr.state.opt.state
+    return {"params": {n: p.detach().cpu().clone()
+                       for n, p in tr.diffuser.named_parameters()},
+            "grads": {n: st[p]["exp_avg"].cpu().clone()
+                      for n, p in tr.diffuser.named_parameters()}}
+
+
+def _stage2_parallel_batch(device):
+    import torch
+
+    return [torch.tensor(synthetic_faces(16, 256, seed=s), device=device)
+            for s in (41, 42)]
+
+
+def rank_main(argv) -> None:
+    """One process of phase 13, `--rank MODE OUT [CLI flags]`: MODE
+    "restore" runs the stage-3 CLI with the flags, "restore_sums" the same
+    recording the bit sums of G, D, g_ema and the ADA state after each
+    step, "stage2" one stage-2 step at phase 7's config on this rank's rows
+    of a b16 batch. Each gradient all-reduce is timed with CUDA events.
+    Writes OUT.<rank>.json."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.parallel import DataParallel, distributed, mesh
+    from vspbfr_tpu_torch.train import restore_train
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mode, out, *flags = argv
+    events, sums = [], []
+    reduce, step = (mesh.DataParallel.all_reduce_grads,
+                    restore_train.RestoreTrainer.train_step)
+
+    def all_reduce_grads(self, params):
+        params = list(params)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reduce(self, params)
+        end.record()
+        if self.backend:
+            events.append((start, end, sum(p.numel() * p.element_size()
+                                           for p in params)))
+
+    def train_step(self, *a, **kw):
+        metrics = step(self, *a, **kw)
+        sums.append({"g": _bit_sums(self.gen), "d": _bit_sums(self.disc),
+                     "g_ema": _bit_sums(self.g_ema),
+                     "ada": [float(v) for v in self.ada_state]})
+        return metrics
+
+    mesh.DataParallel.all_reduce_grads = all_reduce_grads
+    if mode == "restore_sums":
+        restore_train.RestoreTrainer.train_step = train_step
+    rec = {}
+    if mode in ("restore", "restore_sums"):
+        from vspbfr_tpu_torch.cli import train_restore
+
+        rec["report"] = train_restore.main(flags)
+    else:
+        with distributed("cuda") as device:
+            dp = DataParallel()
+            tr = _stage2_parallel_trainer(8, dp).to(device)
+            dp.replicate(tr.diffuser)
+            low, real = (x[dp.local_rows(16)]
+                         for x in _stage2_parallel_batch(device))
+            m = tr.train_step(low, real,
+                              torch.Generator(device=device).manual_seed(13))
+            rec["metrics"] = {k: float(v) for k, v in m.items()}
+            rec["diffuser"] = f"{out}.{dp.rank}.pt"
+            torch.save(_stage2_update(tr), rec["diffuser"])
+            rec["sums"] = _bit_sums(tr.diffuser)
+    torch.cuda.synchronize()
+    rec.update(
+        launches=ops.launch_counts(), plain_cuda_calls=ops.plain_cuda_calls(),
+        allreduce_ms=[s.elapsed_time(e) for s, e, _ in events],
+        allreduce_bytes=[n for _, _, n in events], step_sums=sums,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with open(f"{out}.{os.environ.get('RANK', '0')}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _lone_restore(flags) -> dict:
+    """The stage-3 CLI in this process (no process group), as phase 8 runs
+    it: its report, launch counts and peak memory."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli import train_restore
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = train_restore.main(flags)
+    torch.cuda.synchronize()
+    return dict(report=report, launches=ops.launch_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                wall_s=time.perf_counter() - t0)
+
+
+def _parallel_world1(res, faces_dir, tmp):
+    """(a) The stage-3 CLI at full width, b4, bf16, 3 steps (R1 at step 0)
+    alone (in this process) and under torchrun at world size 1 (NCCL), in
+    turns alone, torchrun, alone: the torchrun run's per-step losses
+    against the first lone run, within 10x the second lone run's spread
+    against the first (phase 8's rule; equal where that spread is 0); the
+    restore kernels launch, no plain K6 / K7 runs on the card; step-time
+    medians and the all-reduce's CUDA-event ms and bytes a step."""
+    flags = ["--path", faces_dir, "--size", "512", "--decoder_size", "1024",
+             "--channel_multiplier", "2", "--batch", "4", "--iter", "3",
+             "--train_dtype", "bf16", "--device", "cuda", "--seed", "0",
+             "--save_inter", "100000", "--show_inter", "100000"]
+    runs = {}
+    for key in ("alone0", "torchrun", "alone1"):
+        out = os.path.join(tmp, key)
+        if key == "torchrun":
+            (rec,) = _collect_ranks(_spawn_ranks("restore", out, 1,
+                                                 flags + ["--out", out]))
+        else:
+            rec = _lone_restore(flags + ["--out", out])
+        steps = rec["report"]["steps"]
+        if len(steps) != 3 or not steps[0]["r1"] > 0:
+            raise AssertionError(f"parallel {key}: steps {steps}")
+        runs[key] = rec
+    names = [k for k in runs["alone0"]["report"]["steps"][0]
+             if k not in ("it", "seconds")]
+    gate = {}
+    for k in names:
+        ref = np.array([s[k] for s in runs["alone0"]["report"]["steps"]])
+        again = np.array([s[k] for s in runs["alone1"]["report"]["steps"]])
+        got = np.array([s[k] for s in runs["torchrun"]["report"]["steps"]])
+        scale = max(float(np.abs(ref).max()), 1e-12)
+        err = float(np.abs(got - ref).max()) / scale
+        spread = float(np.abs(again - ref).max()) / scale
+        gate[k] = dict(rel_err=err, spread=spread)
+        if not (np.all(np.isfinite(got)) and err <= 10 * spread):
+            raise AssertionError(f"parallel world 1 {k}: torchrun vs alone "
+                                 f"{err:.3e}, spread {spread:.3e}")
+    tr = runs["torchrun"]
+    if tr["report"]["world_size"] != 1:
+        raise AssertionError("parallel: torchrun run is not world size 1")
+    missing = [k for k in PATH_KERNELS["parallel"] if tr["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"parallel world 1: kernels never launched "
+                             f"{missing}")
+    ms, nbytes = tr["allreduce_ms"], tr["allreduce_bytes"]
+    if not ms or not all(nbytes):
+        raise AssertionError("parallel world 1: no gradient all-reduce")
+    med = {k: statistics.median(s["seconds"] for s in r["report"]["steps"]
+                                [1:]) * 1e3 for k, r in runs.items()}
+    res["world1"] = dict(
+        gate=gate, median_step_ms=med, launches=tr["launches"],
+        allreduce_ms=ms, allreduce_bytes=nbytes,
+        allreduce_ms_per_step=sum(ms) / 3,
+        allreduce_bytes_per_step=sum(nbytes) / 3,
+        peak_gib={k: r["peak_gib"] for k, r in runs.items()},
+        wall_s={k: r["wall_s"] for k, r in runs.items()},
+        losses={k: r["report"]["steps"] for k, r in runs.items()})
+    say(f"parallel world 1 (NCCL) bf16 b4: median step ms (first excluded) "
+        f"alone {med['alone0']:.1f} / torchrun {med['torchrun']:.1f} / "
+        f"alone {med['alone1']:.1f} (wall s incl. init "
+        f"{[round(r['wall_s'], 1) for r in runs.values()]}); gradient "
+        f"all-reduce {len(ms)} calls, "
+        f"{sum(ms) / 3:.3f} ms and {sum(nbytes) / 3 / 2 ** 20:.1f} MiB a "
+        f"step (calls: {[round(x, 3) for x in ms]} ms); loss gate "
+        + ", ".join(f"{k} {v['rel_err']:.2e}/{v['spread']:.2e}"
+                    for k, v in gate.items())
+        + f"; launches {tr['launches']}")
+
+
+def _parallel_stage2(res, tmp):
+    """(b) Stage 2 at phase 7's full-width config, TF32 off: two gloo ranks
+    on the one card at b8 against this process at b16, on the same rows
+    and draws; both ranks' diffusers bit-identical. The losses, the reduced
+    gradients (Adam's first moments) and the updated parameters within
+    phase 7's f32 gate: 10x the spread of the b16 step under +-1e-6 input
+    changes, + 1e-5 (worst tensor)."""
+    import torch
+
+    out = os.path.join(tmp, "stage2")
+    ranks = _collect_ranks(_spawn_ranks("stage2", out, 2))
+    if ranks[0]["sums"] != ranks[1]["sums"]:
+        raise AssertionError("parallel stage 2: the ranks' diffusers differ")
+    got = torch.load(ranks[0]["diffuser"], weights_only=True)
+    tr = _stage2_parallel_trainer(16).to("cuda")
+    init = {k: v.clone() for k, v in tr.diffuser.state_dict().items()}
+    low, real = _stage2_parallel_batch("cuda")
+    runs = []
+    for f in (1.0, 1 + 1e-6, 1 - 1e-6):
+        tr.diffuser.load_state_dict(init)
+        tr.state.opt.state.clear()
+        m = tr.train_step(low * f, real,
+                          torch.Generator(device="cuda").manual_seed(13))
+        runs.append(({k: float(v) for k, v in m.items()},
+                     _stage2_update(tr)))
+    (m1, u1), *pert = runs
+    gate = {}
+    for k in m1:
+        scale = max(abs(m1[k]), 1e-12)
+        gate[k] = dict(
+            rel_err=max(abs(r["metrics"][k] - m1[k]) for r in ranks) / scale,
+            spread=max(abs(p[0][k] - m1[k]) for p in pert) / scale)
+    for part in ("grads", "params"):
+        ref = u1[part]
+        gate[part] = dict(
+            rel_err=max(_rel(got[part][k], ref[k]) for k in ref),
+            spread=max(_rel(p[1][part][k], ref[k]) for p in pert
+                       for k in ref))
+    say("parallel stage 2 (2 gloo ranks b8 vs one process b16, f32), rel "
+        "err / spread: " + ", ".join(
+            f"{k} {v['rel_err']:.2e}/{v['spread']:.2e}"
+            for k, v in gate.items())
+        + f"; all-reduce ms {ranks[0]['allreduce_ms']}")
+    res["stage2"] = dict(gate=gate, allreduce_ms=ranks[0]["allreduce_ms"],
+                         allreduce_bytes=ranks[0]["allreduce_bytes"],
+                         metrics=[r["metrics"] for r in ranks],
+                         reference=m1)
+    bad = [k for k, v in gate.items()
+           if not v["rel_err"] <= 10 * v["spread"] + 1e-5]
+    if bad:
+        raise AssertionError(f"parallel stage 2: out of the f32 gate: {bad}")
+    del tr
+
+
+def _start_stage3(faces_dir, tmp) -> dict:
+    """(b) The stage-3 CLI at full width, bf16, two gloo ranks on the one
+    card at b2 each, 2 steps with ADA (the controller on), started beside
+    stage 2's check (`_parallel_stage3` waits for it)."""
+    out = os.path.join(tmp, "stage3")
+    flags = ["--path", faces_dir, "--size", "512", "--decoder_size", "1024",
+             "--batch", "2", "--iter", "2", "--train_dtype", "bf16",
+             "--augment", "--device", "cuda", "--seed", "0",
+             "--save_inter", "2", "--show_inter", "100000", "--out", out]
+    return _spawn_ranks("restore_sums", out, 2, flags)
+
+
+def _parallel_stage3(res, h):
+    """G, D, g_ema and the ADA state bit-identical across the two ranks
+    after each step; only rank 0 writes the checkpoint."""
+    ranks = _collect_ranks(h)
+    a, b = (r["step_sums"] for r in ranks)
+    if len(a) != 2 or a != b:
+        raise AssertionError("parallel stage 3: the ranks' G, D, g_ema or "
+                             "ADA state differ")
+    if not os.path.exists(os.path.join(h["out"], "checkpoint",
+                                       "restore.pt")):
+        raise AssertionError("parallel stage 3: rank 0 wrote no checkpoint")
+    steps = ranks[0]["report"]["steps"]
+    say(f"parallel stage 3 (2 gloo ranks b2, bf16, ADA; beside stage 2's "
+        f"check): bit-identical after both steps; ADA state {a[-1]['ada']}; "
+        f"step seconds {[round(s['seconds'], 3) for s in steps]}; all-reduce "
+        f"ms {[round(x, 1) for x in ranks[0]['allreduce_ms']]}")
+    res["stage3"] = dict(ada=a[-1]["ada"], steps=steps,
+                         allreduce_ms=ranks[0]["allreduce_ms"],
+                         launches=ranks[0]["launches"])
+
+
+def phase_parallel():
+    """Data-parallel training (`vspbfr_tpu_torch/parallel/`): (a) world size
+    1 on NCCL against the lone process, (b) two gloo ranks on the one card
+    at stage 2 and stage 3. NCCL across cards needs more than one card."""
+    import torch
+
+    SEEDED["nets"].clear()
+    SEEDED.pop("pipe", None)
+    torch.cuda.empty_cache()
+    res = {}
+    faces = synthetic_faces(8, 512, seed=8)
+    gt_u8 = np.round((faces + 1.0) * 127.5).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "faces")
+        os.makedirs(d)
+        for i, f in enumerate(gt_u8):
+            np.save(os.path.join(d, f"face{i}.npy"), f)
+        _parallel_world1(res, d, tmp)
+        torch.cuda.empty_cache()
+        # the two gloo checks share the card (~50 of its 80 GB); their
+        # times are not compared with anything
+        stage3 = _start_stage3(d, tmp)
+        try:
+            _parallel_stage2(res, tmp)
+        except BaseException:
+            _stop_ranks(stage3)
+            raise
+        _parallel_stage3(res, stage3)
+    REPORT["parallel"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -2523,7 +2932,7 @@ def main() -> None:
         # the path phases: no plain K6 / K7 on the card
         with (no_plain_on_card(name) if name in ("slice", "cli", "train",
                                                  "restore", "convert",
-                                                 "sample")
+                                                 "sample", "parallel")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
@@ -2537,7 +2946,8 @@ def main() -> None:
                 "smart": REPORT["smart"]["f32"]["launches"],
                 "experiments": REPORT["experiments"]["launches"],
                 "convert": REPORT["convert"]["f32"]["launches"],
-                "sample": REPORT["sample"]["launches"]}
+                "sample": REPORT["sample"]["launches"],
+                "parallel": REPORT["parallel"]["world1"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]
@@ -2567,4 +2977,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        sys.exit(main())

@@ -8,7 +8,16 @@ the checkpoint holds the ADA state, and a resumed second step continues
 it (the same ada_p; the controller's counts of both steps). The parity
 of the step itself with the JAX package is
 `tests/test_torch_restore_train.py`.
+
+Each run's directory is deleted once its checks are done: a run writes
+~0.65 GB of checkpoints at the tiny config (two pipeline exports of 287
+MB), and pytest keeps every test's temporary directory for the session
+(and the last three sessions): kept, they held ~1.9 GB of the disk to
+the end of the suite, and the test failed with ENOSPC when the whole
+suite's outputs filled a small disk.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -55,6 +64,7 @@ def test_cli_trains_resumes_and_exports(tmp_path):
     for k in ("d", "g", "percept"):
         assert straight["steps"][-1][k] == pytest.approx(
             rep["steps"][-1][k], rel=1e-6)
+    shutil.rmtree(tmp_path / "b")
 
     lq = tmp_path / "lq"
     lq.mkdir()
@@ -67,6 +77,7 @@ def test_cli_trains_resumes_and_exports(tmp_path):
                       "--device", "cpu", "--batch", "1", "--out",
                       str(tmp_path / "eval")])
     assert out["datasets"]["data0"]["n"] == 1
+    shutil.rmtree(a)
 
     aug = base + ["--augment", "--ada_length", "1000"]
     c = tmp_path / "c"
@@ -86,3 +97,4 @@ def test_cli_trains_resumes_and_exports(tmp_path):
     assert int(ada2["steps"]) == 2 and float(ada2["count"]) == 4.0
     assert float(ada2["sign_sum"]) - float(ada["sign_sum"]) == 2 * \
         rep["steps"][-1]["ada_rt"]
+    shutil.rmtree(c)

@@ -51,7 +51,8 @@ TPU experiments `scripts/exp_interleave.py`, `exp_pallas_conv.py` and
 
 - `--interleave`: K8's two forms (`interleave_stack`, `interleave_repeat`)
   at (h, inner) (256, 128), (512, 128) and (128, 512), against their plain
-  version (`d2s_plain`) and K3 (`ops.d2s`); exact equality is required;
+  version (`d2s_plain`), K3 (`ops.d2s`) and the library's call, the
+  permute copy (`d2s_library`); exact equality is required;
 - `--stripe_conv`: K9 at the script's four decoder shapes against its
   plain version and cuDNN's conv (`F.conv2d`, TF32 off), the script's
   yardstick (XLA's conv there);
@@ -584,6 +585,21 @@ def _timed(timer, fn, name) -> tuple[float, int]:
     return ms, ops.launch_counts()[name] - before
 
 
+def d2s_library(x: torch.Tensor, inner: int) -> torch.Tensor:
+    """K3's (and K8's) function as one PyTorch call: the grouped phase
+    interleave as a view, permuted, copied by `.contiguous()`."""
+    b, h, w, _ = x.shape
+    return x.view(b, h, w, 2, 2, inner).permute(0, 1, 3, 2, 4, 5).contiguous(
+        ).view(b, 2 * h, 2 * w, inner)
+
+
+def s2d_library(y: torch.Tensor, inner: int) -> torch.Tensor:
+    """K4's function as one PyTorch call, the inverse copy."""
+    b, h2, w2, _ = y.shape
+    return y.view(b, h2 // 2, 2, w2 // 2, 2, inner).permute(
+        0, 1, 3, 2, 4, 5).contiguous().view(b, h2 // 2, w2 // 2, 4 * inner)
+
+
 def interleave_work(b: int, h: int, w: int, inner: int,
                     itemsize: int) -> tuple[int, int]:
     """(operations, bytes) of one K8 call: no arithmetic, the input read
@@ -604,6 +620,7 @@ def profile_interleave(dtype: torch.dtype, device="cuda",
         with torch.no_grad():
             ref = ops.d2s_plain(x, inner)
             plain_ms = timer(lambda: ops.d2s_plain(x, inner))
+            library_ms = timer(lambda: d2s_library(x, inner))
             k3_ms = timer(lambda: ops.d2s(x, inner))
             for form, fn in (("stack", ops.interleave_stack),
                              ("repeat", ops.interleave_repeat)):
@@ -617,7 +634,7 @@ def profile_interleave(dtype: torch.dtype, device="cuda",
                 rows.append(dict(
                     form=form, h=h, inner=inner, batch=batch, dtype=dt_name,
                     exact=exact, **_diffs(got, ref), ms=ms,
-                    plain_ms=plain_ms, k3_ms=k3_ms, library_ms=None,
+                    plain_ms=plain_ms, k3_ms=k3_ms, library_ms=library_ms,
                     bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=moved,
                     launches=n))
                 del got

@@ -1,14 +1,21 @@
 """Stage-2 code-diffuser training CLI (the reference's
 `code_diffuser_train.py`).
 
-Counterpart of `vspbfr_tpu/cli/train_diffuser.py` on one device. Flags
+Counterpart of `vspbfr_tpu/cli/train_diffuser.py`. Flags
 mirror `code_diffuser_train.py:249-273` upstream; the loop body is one
 `DiffuserTrainer.train_step`. The data are degraded on the device
 (`--loader device --jpeg device`, the only chain ported); GT files are
 PNG/JPG or uint8 HWC `.npy`. Without `--psp_ckpt` (a port psp state_dict)
 the weights are random, drawn from `--seed`.
 
+Data parallel under torchrun (`parallel/`): one process a rank, `--batch`
+rows a rank (the global batch is `--batch` x world), NCCL with a card a
+rank, gloo on the CPU or when ranks share a card. Rank 0 writes the log,
+the samples and the checkpoints; every rank reads `--ckpt`.
+
     python -m vspbfr_tpu_torch.cli.train_diffuser --path FACES --device cuda
+    torchrun --standalone --nproc_per_node 4 -m \\
+        vspbfr_tpu_torch.cli.train_diffuser --path FACES
     python -m vspbfr_tpu_torch.cli.train_diffuser --path FACES --device cpu \\
         --tiny --size 32 --decoder_size 64 --batch 2 --iter 2
 """
@@ -27,6 +34,11 @@ from vspbfr_tpu_torch.data import (
     DeviceDegradeLoader,
     RestoreTrainDataset,
     save_image,
+)
+from vspbfr_tpu_torch.parallel import (
+    DataParallel,
+    distributed,
+    process_barrier,
 )
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.diffuser_train import (
@@ -47,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GT face directory (PNG/JPG or uint8 HWC .npy)")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--iter", type=int, default=200_000)
-    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--batch", type=int, default=16,
+                   help="rows a rank (per card); the global batch is this "
+                        "x the world size")
     p.add_argument("--lr", type=float, default=0.002)
     p.add_argument("--percept_loss_weight", type=float, default=0.1)
     p.add_argument("--id_loss_weight", type=float, default=0.1)
@@ -132,15 +146,10 @@ def _samples(trainer: DiffuserTrainer, low, real, it: int):
                                                        target)]
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns {"start_iter", "iter", "steps": [{"it",
-    "seconds", metric: value}]} with per-step host-clock seconds, each
-    ending in a device sync (reading the metrics)."""
-    args = build_parser().parse_args(argv)
-    if args.debug:
-        args.save_inter, args.show_inter = 20, 200
-    device = torch.device(args.device)
-
+def build_trainer(args, device, dp: DataParallel) -> DiffuserTrainer:
+    """The trainer the flags describe, its weights drawn from `--seed` or
+    read from the checkpoints, on `device`, with rank 0's diffuser on every
+    rank."""
     cfg = DiffuserTrainConfig(
         size=args.size, batch=args.batch, lr=args.lr,
         percept_weight=args.percept_loss_weight,
@@ -151,13 +160,34 @@ def main(argv=None) -> dict:
                                decoder_size=args.decoder_size,
                                channel_multiplier=args.channel_multiplier,
                                **tiny_pipeline_kwargs(args.tiny))
-    trainer = DiffuserTrainer(cfg, pipe).init_from_seed(args.seed)
+    trainer = DiffuserTrainer(cfg, pipe, dp).init_from_seed(args.seed)
     if args.psp_ckpt:
         trainer.psp.load_state_dict(load_checkpoint(args.psp_ckpt))
     wire_loss_nets(trainer.lpips, trainer.id_net, args.lpips_ckpt,
                    args.arcface_ckpt, args.percept_loss_weight,
                    args.id_loss_weight)
     trainer.to(device)
+    dp.replicate(trainer.diffuser)
+    return trainer
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns {"start_iter", "iter", "world_size", "steps":
+    [{"it", "seconds", metric: value}]} with per-step host-clock seconds,
+    each ending in a device sync (reading the metrics), the metrics
+    averaged over the ranks."""
+    args = build_parser().parse_args(argv)
+    if args.debug:
+        args.save_inter, args.show_inter = 20, 200
+    with distributed(args.device) as device:
+        return _train(args, device)
+
+
+def _train(args, device) -> dict:
+    dp = DataParallel()
+    print(f"world={dp.world_size} global_batch={args.batch * dp.world_size}",
+          flush=True)
+    trainer = build_trainer(args, device, dp)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     start_iter = 0
     if args.ckpt:
@@ -170,27 +200,35 @@ def main(argv=None) -> dict:
                              seed=args.seed,
                              subset=400 if args.debug else None)
     loader = DeviceDegradeLoader(ds, args.batch, device=device,
-                                 seed=args.seed)
-    logger = Logger(args.out)
+                                 seed=args.seed, shard_index=dp.rank,
+                                 shard_count=dp.world_size)
+    # rank 0 alone logs, samples and saves; a barrier follows each save
+    logger = Logger(args.out) if dp.is_lead else None
     ckpt_dir = os.path.join(args.out, "checkpoint")
     if start_iter == 0:
         # export the frozen psp this diffuser is trained against, so stage
         # 3 and inference can load a consistent encoder and decoder
-        save_checkpoint(os.path.join(ckpt_dir, "psp.pt"),
-                        trainer.psp.state_dict())
+        if dp.is_lead:
+            save_checkpoint(os.path.join(ckpt_dir, "psp.pt"),
+                            trainer.psp.state_dict())
+        process_barrier("psp export")
 
     stop = GracefulShutdown()
     steps, prof = [], None
     it = start_iter
     start_epoch, start_batch = divmod(start_iter, loader.batches_per_epoch())
+    stopping = False
     try:
         t0 = time.perf_counter()
         for lq, gt in loader.forever(start_epoch, start_batch):
-            if it >= args.iter or stop.requested:
+            if it >= args.iter or stopping:
                 break
             metrics = trainer.train_step(lq, gt, generator=gen)
             m = {k: float(v) for k, v in metrics.items()}
             it += 1
+            # a signal on any rank stops every rank after this step, so
+            # none waits alone in a collective
+            stopping = dp.any_(stop.requested, device)
             t1 = time.perf_counter()
             steps.append({"it": it, "seconds": t1 - t0, **m})
             t0 = t1
@@ -208,12 +246,12 @@ def main(argv=None) -> dict:
                     prof.export_chrome_trace(
                         os.path.join(args.out, "trace", "trace.json"))
                     prof = None
-            if it % 10 == 0:
+            if it % 10 == 0 and dp.is_lead:
                 logger.log(it, m)
                 if it % 100 == 0:
                     print(f"[{it}] " + " ".join(f"{k}:{v:.4f}"
                                                 for k, v in m.items()))
-            if it % args.show_inter == 0:
+            if it % args.show_inter == 0 and dp.is_lead:
                 refined, ori, real_inv = _samples(trainer, lq[:4], gt[:4], it)
                 os.makedirs(os.path.join(args.out, "samples"), exist_ok=True)
                 rows = [x.float().cpu().numpy() for x in
@@ -222,16 +260,20 @@ def main(argv=None) -> dict:
                                        for r in rows], axis=0)
                 save_image(os.path.join(args.out, "samples", f"{it:06d}"),
                            grid)
-            if it % args.save_inter == 0 or stop.requested:
-                save_checkpoint(os.path.join(ckpt_dir, "code_diffuser.pt"),
-                                full_ckpt_tree(trainer, gen, it))
+            if it % args.save_inter == 0 or stopping:
+                if dp.is_lead:
+                    save_checkpoint(os.path.join(ckpt_dir,
+                                                 "code_diffuser.pt"),
+                                    full_ckpt_tree(trainer, gen, it))
+                process_barrier("checkpoint")
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
         stop.restore()
-    if stop.requested:
+    if stopping:
         print(f"[shutdown] checkpoint committed at iter {it}", flush=True)
-    return {"start_iter": start_iter, "iter": it, "steps": steps}
+    return {"start_iter": start_iter, "iter": it,
+            "world_size": dp.world_size, "steps": steps}
 
 
 if __name__ == "__main__":

@@ -188,25 +188,34 @@ class DataLoader:
     `.sample(idx, epoch)`.
 
     The batch order is deterministic given the seed: each epoch is a
-    seeded permutation of the indices, cut into full batches; worker
-    threads assemble batches of stacked numpy arrays and hand them out, in
-    order, through a bounded queue."""
+    seeded permutation of the indices, of which shard `shard_index` of
+    `shard_count` (a data-parallel rank's share, DistributedSampler's)
+    takes every shard_count-th from shard_index, cut into full batches;
+    worker threads assemble batches of stacked numpy arrays and hand them
+    out, in order, through a bounded queue. Every shard has the same
+    number of batches an epoch (that of the smallest), so the ranks turn
+    their epochs, and resume, together."""
 
     def __init__(self, dataset, batch_size: int, *, num_workers: int = 8,
-                 prefetch: int = 4, seed: int = 0):
+                 prefetch: int = 4, seed: int = 0, shard_index: int = 0,
+                 shard_count: int = 1):
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
         self.ds = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.seed = seed
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         return np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch])).permutation(
-                len(self.ds))
+                len(self.ds))[self.shard_index::self.shard_count]
 
     def batches_per_epoch(self) -> int:
-        return len(self.ds) // self.batch_size
+        return len(self.ds) // self.shard_count // self.batch_size
 
     def epoch(self, epoch: int = 0,
               start_batch: int = 0) -> Iterator[tuple[np.ndarray, ...]]:

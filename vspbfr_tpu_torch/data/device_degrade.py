@@ -248,13 +248,16 @@ class DeviceDegradeLoader:
 
     Wraps the threaded `DataLoader` over a GT-only view of a
     `RestoreTrainDataset` (uint8 GT and a per-sample seed, from the
-    dataset's own `sample_gt`), samples each image's parameters from its
-    seed on the host, uploads the uint8 batch and runs `degrade_all`. The
-    dataset's quantize_gt, gray_prob and config apply. Yields (lq, gt),
-    both (B, H, W, 3) f32 in [-1, 1] on `device`."""
+    dataset's own `sample_gt`, so a sample degrades alike on any shard),
+    samples each image's parameters from its seed on the host, uploads the
+    uint8 batch and runs `degrade_all`. The dataset's quantize_gt,
+    gray_prob and config apply; `shard_index` / `shard_count` pick a
+    data-parallel rank's share of each epoch (`DataLoader`). Yields (lq,
+    gt), both (B, H, W, 3) f32 in [-1, 1] on `device`."""
 
     def __init__(self, dataset, batch_size: int, *, device="cuda",
-                 num_workers: int = 8, prefetch: int = 4, seed: int = 0):
+                 num_workers: int = 8, prefetch: int = 4, seed: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
         self.ds = dataset
         self.device = torch.device(device)
         self.dd = DeviceDegrader(size=dataset.im_size[0], cfg=dataset.config)
@@ -262,7 +265,8 @@ class DeviceDegradeLoader:
         self.quantize_gt = dataset.quantize_gt
         self.inner = DataLoader(_GTView(dataset), batch_size,
                                 num_workers=num_workers, prefetch=prefetch,
-                                seed=seed)
+                                seed=seed, shard_index=shard_index,
+                                shard_count=shard_count)
 
     def batches_per_epoch(self) -> int:
         return self.inner.batches_per_epoch()

@@ -419,12 +419,20 @@ class ADAState(NamedTuple):
 
 def ada_update(state: ADAState, real_pred: torch.Tensor,
                target: float = 0.6, ada_length: int = 500 * 1000,
-               update_every: int = 256) -> ADAState:
+               update_every: int = 256, all_sum=None) -> ADAState:
     """`AdaptiveAugment.tune` (`non_leaking.py:492-517` upstream): every
     `update_every` calls, p moves by count / ada_length toward the side
-    that brings the sign mean of D's real logits to `target`."""
-    sign_sum = state.sign_sum + torch.sign(real_pred).sum()
-    count = state.count + real_pred.shape[0] * 1.0
+    that brings the sign mean of D's real logits to `target`. `all_sum`
+    (`DataParallel.sum_`) sums the batch's sign sum and count over the
+    ranks, as the JAX package sums over the global batch, so p stays equal
+    on every rank."""
+    stats = torch.stack([torch.sign(real_pred).sum(),
+                         torch.full((), real_pred.shape[0] * 1.0,
+                                    device=real_pred.device)])
+    if all_sum is not None:
+        stats = all_sum(stats)
+    sign_sum = state.sign_sum + stats[0]
+    count = state.count + stats[1]
     steps = state.steps + 1
     fire = steps >= update_every
     sign = torch.where(sign_sum / count > target, 1.0, -1.0)

@@ -27,6 +27,13 @@ Randomness: the DDPM noise and the decoder's noise maps are drawn from an
 explicit `torch.Generator` before the decode (or handed in as `draws`), so
 a rematerialised decode (`remat`, `torch.utils.checkpoint`) recomputes
 with the same noise.
+
+Data parallelism (`parallel.DataParallel`, one rank per process): each
+rank takes `batch` rows and draws the global batch's noise from one
+identically seeded generator, keeping its own rows; the gradients are
+averaged over the ranks once per step, after the `grad_accum`
+microbatches, and the metrics come back as global means. So a world-2
+step at `batch` rows a rank computes the world-1 step at the global batch.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from vspbfr_tpu_torch.diffusion import LatentDDPM
 from vspbfr_tpu_torch.losses import LPIPS, ResNet101Embedder, id_loss, kd_loss
 from vspbfr_tpu_torch.models.layers import init_module
 from vspbfr_tpu_torch.models.psp import adaptive_avg_pool
+from vspbfr_tpu_torch.parallel import DataParallel
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import TrainState
 
@@ -80,8 +88,10 @@ class DiffuserTrainer:
     `pipeline.diffuser` are used (RestoreNet is not trained here)."""
 
     def __init__(self, config: DiffuserTrainConfig,
-                 pipeline: RestorationPipeline | None = None):
+                 pipeline: RestorationPipeline | None = None,
+                 dp: DataParallel | None = None):
         self.cfg = config
+        self.dp = dp or DataParallel()
         self.pipe = pipeline or RestorationPipeline(
             size=config.size, timesteps=config.timesteps)
         self.compute_dtype = (getattr(torch, config.compute_dtype)
@@ -94,7 +104,8 @@ class DiffuserTrainer:
         for m in (self.psp, self.lpips, self.id_net):
             m.requires_grad_(False)
         self.ddpm = LatentDDPM(self.diffuser, self.pipe.schedule)
-        self.state = TrainState(self.diffuser, config.lr, config.reg_every)
+        self.state = TrainState(self.diffuser, config.lr, config.reg_every,
+                                self.dp)
         self._decoder_c = None
 
     @property
@@ -134,16 +145,23 @@ class DiffuserTrainer:
         return self._decoder_c
 
     def draw(self, batch: int, generator: torch.Generator) -> dict:
-        """The step's random draws: the DDPM noise (B, n_latent, 512) and the
-        decoder's noise maps, all f32 N(0, 1)."""
+        """The random draws of this rank's `batch` rows: the DDPM noise (B,
+        n_latent, 512) and the decoder's noise maps, all f32 N(0, 1), drawn
+        for the global batch (batch x world size) and cut to the rank's
+        rows."""
         dev = self.device
         n_lat = self.psp.n_latent
         dec = self.psp.decoder
         res = [4] + [2 ** (i // 2 + 3) for i in range(dec.num_layers - 1)]
-        return {"init_noise": torch.randn((batch, n_lat, 512),
-                                          generator=generator, device=dev),
-                "noise": [torch.randn((batch, r, r, 1), generator=generator,
-                                      device=dev) for r in res]}
+        n = batch * self.dp.world_size
+        rows = self.dp.local_rows(n)
+
+        def randn(shape):
+            return torch.randn(shape, generator=generator,
+                               device=dev)[rows]
+
+        return {"init_noise": randn((n, n_lat, 512)),
+                "noise": [randn((n, r, r, 1)) for r in res]}
 
     def _decode(self, latent: torch.Tensor, *noise) -> torch.Tensor:
         """The pooled decode of the latent, returned in the latent's dtype
@@ -200,7 +218,7 @@ class DiffuserTrainer:
         """One Adam update from the batch, in `grad_accum` microbatches.
         The draws come from `generator` per microbatch, or from `draws`
         (whole-batch tensors, split along the batch). Returns the metrics
-        averaged over the microbatches, as 0-d tensors."""
+        averaged over the microbatches and the ranks, as 0-d tensors."""
         a = self.cfg.grad_accum
         b = low.shape[0]
         if b % a:
@@ -220,4 +238,4 @@ class DiffuserTrainer:
             for k, v in (("loss", loss), *metrics.items()):
                 total[k] = total[k] + v / a
         self.state.apply_gradients()
-        return total
+        return self.dp.mean_metrics(total)

@@ -25,6 +25,17 @@ all drawn from one `torch.Generator` before any checkpointed call, or
 handed in. The JAX package draws them from its key inside the step; the
 two streams differ, the distributions are the same.
 
+Data parallelism (`parallel.DataParallel`, one rank per process): each
+rank takes `batch` rows; the gradients are averaged over the ranks in
+each `TrainState.apply_gradients` (D, R1's second D update, G), ADA's
+controller sums its statistics over them and the metrics come back as
+global means. Every rank draws the global batch's draws from one
+identically seeded generator and keeps its own rows, so the ranks' streams
+stay in lockstep and a world-2 step draws what a world-1 step at the
+global batch draws. The LPIPS term stays mean * the per-rank batch.
+`minibatch_stddev` in D groups the rank's own rows, as under the
+reference's DDP (the JAX package's sharded step groups the global batch).
+
 Remat (`torch.utils.checkpoint`, non-reentrant, so R1's double backward
 runs through it) wraps the G and D forwards; automatic as in JAX: on in
 f32, off with a compute_dtype.
@@ -71,6 +82,7 @@ from vspbfr_tpu_torch.losses import (
     r1_penalty,
 )
 from vspbfr_tpu_torch.models.layers import init_module
+from vspbfr_tpu_torch.parallel import DataParallel
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import (
     EMA_DECAY_DEFAULT,
@@ -119,8 +131,10 @@ class RestoreTrainer:
     `TrainState`s."""
 
     def __init__(self, config: RestoreTrainConfig,
-                 pipeline: RestorationPipeline | None = None):
+                 pipeline: RestorationPipeline | None = None,
+                 dp: DataParallel | None = None):
         self.cfg = config
+        self.dp = dp or DataParallel()
         self.pipe = pipeline or RestorationPipeline(
             size=config.size, mixing_prob=config.mixing)
         self.dt = (getattr(torch, config.compute_dtype)
@@ -136,8 +150,10 @@ class RestoreTrainer:
                   self.id_net):
             m.requires_grad_(False)
         self.ddpm = LatentDDPM(self.diffuser, self.pipe.schedule)
-        self.g_state = TrainState(self.gen, config.lr, config.g_reg_every)
-        self.d_state = TrainState(self.disc, config.lr, config.d_reg_every)
+        self.g_state = TrainState(self.gen, config.lr, config.g_reg_every,
+                                  self.dp)
+        self.d_state = TrainState(self.disc, config.lr, config.d_reg_every,
+                                  self.dp)
         self._decoder_c = None
         # the controller's state (0-d tensors on the trainer's device)
         self.ada_state = ADAState.create() if config.augment else None
@@ -167,6 +183,13 @@ class RestoreTrainer:
     def sync_ema(self) -> None:
         """g_ema <- G (the JAX init returns G's parameters as g_ema)."""
         self.g_ema.load_state_dict(self.gen.state_dict())
+
+    def replicate(self) -> "RestoreTrainer":
+        """Rank 0's G, D and g_ema on every rank (the frozen stages are
+        drawn from the same seed or read from the same file)."""
+        for m in (self.gen, self.disc, self.g_ema):
+            self.dp.replicate(m)
+        return self
 
     def to(self, device) -> "RestoreTrainer":
         for m in self.modules.values():
@@ -199,38 +222,50 @@ class RestoreTrainer:
         return [(batch, q, q, 1) for q in res + [self.psp.out_size]]
 
     def draw(self, batch: int, generator: torch.Generator) -> dict:
-        """One step's random draws, all f32 N(0, 1) unless said:
-        "embed": the DDPM noise and the decoder's noise maps; "gen_d" and
-        "gen_g", one per generator call: z (2, B, 512), the inject index
-        (a Bernoulli(mixing) coin, then uniform in [1, n_latent), else
-        n_latent), RestoreNet's noise maps and the dropout keep mask. With
-        ADA each phase's dict also holds "ada", the `draw_augment` draws of
-        its augment calls: the D phase's real, fake and R1 batch, the G
-        phase's fake."""
+        """One step's random draws for this rank's `batch` rows, all f32
+        N(0, 1) unless said: "embed": the DDPM noise and the decoder's
+        noise maps; "gen_d" and "gen_g", one per generator call: z (2, B,
+        512), the inject index (a Bernoulli(mixing) coin, then uniform in
+        [1, n_latent), else n_latent), RestoreNet's noise maps and the
+        dropout keep mask. With ADA each phase's dict also holds "ada", the
+        `draw_augment` draws of its augment calls: the D phase's real, fake
+        and R1 batch, the G phase's fake. Each per-sample draw is drawn for
+        the global batch (batch x world size) and cut to the rank's rows;
+        the scalars (the coin, the index) are shared."""
         dev = self.device
         g = self.gen
+        n = batch * self.dp.world_size
+        rows = self.dp.local_rows(n)
 
-        def randn(shape):
-            return torch.randn(shape, generator=generator, device=dev)
+        def mine(t, dim=0):
+            return t.narrow(dim, rows.start, batch).contiguous()
+
+        def randn(shape, dim=0):
+            return mine(torch.randn(shape, generator=generator, device=dev),
+                        dim)
 
         def gen_draws():
-            z = randn((2, batch, self.pipe.style_dim))
+            z = randn((2, n, self.pipe.style_dim), dim=1)
             mix = bool(torch.rand((), generator=generator, device=dev)
                        < self.pipe.mixing_prob)
             pick = int(torch.randint(1, g.n_latent, (), generator=generator,
                                      device=dev))
             return {"z": z, "inject_index": pick if mix else g.n_latent,
-                    "noise": [randn(s) for s in g.noise_shapes(batch)],
-                    "keep": g.draw_dropout_mask(batch, generator, dev)}
+                    "noise": [randn(s) for s in g.noise_shapes(n)],
+                    "keep": mine(g.draw_dropout_mask(n, generator, dev))}
 
         out = {"embed": {
-                   "init_noise": randn((batch, self.psp.n_latent, 512)),
+                   "init_noise": randn((n, self.psp.n_latent, 512)),
                    "noise": [randn(s)
-                             for s in self._decoder_noise_shapes(batch)]},
+                             for s in self._decoder_noise_shapes(n)]},
                "gen_d": gen_draws(), "gen_g": gen_draws()}
         if self.cfg.augment:
             def aug():
-                return draw_augment(batch, generator, dev)
+                # every ADA draw has the batch on its last axis
+                return {k: {name: mine(v, v.dim() - 1)
+                            for name, v in part.items()}
+                        for k, part in draw_augment(n, generator,
+                                                    dev).items()}
 
             out["gen_d"]["ada"] = {"real": aug(), "fake": aug(), "r1": aug()}
             out["gen_g"]["ada"] = {"fake": aug()}
@@ -341,7 +376,8 @@ class RestoreTrainer:
         self.d_state.apply_gradients()
         if cfg.augment and cfg.augment_p == 0:
             self.ada_state = ada_update(self.ada_state, real_pred.detach(),
-                                        cfg.ada_target, cfg.ada_length)
+                                        cfg.ada_target, cfg.ada_length,
+                                        all_sum=self.dp.sum_)
         r1 = torch.zeros((), device=real.device)
         if self.g_state.step % cfg.d_reg_every == 0:
             pen = r1_penalty(d_apply, real)
@@ -393,13 +429,13 @@ class RestoreTrainer:
                    draws: dict | None = None) -> dict:
         """Embedding, D phase (with R1 when due), G phase. The draws come
         from `generator` or are handed in. Returns the metrics as 0-d
-        tensors."""
+        tensors, averaged over the ranks."""
         if draws is None:
             draws = self.draw(low.shape[0], generator)
         clean, feats = self.embedding(low, draws["embed"])
         d_m = self.d_phase(low, real, clean, feats, draws["gen_d"])
         g_m = self.g_phase(low, real, clean, feats, draws["gen_g"])
-        return {**d_m, **g_m}
+        return self.dp.mean_metrics({**d_m, **g_m})
 
     # -- checkpoints ---------------------------------------------------------
 

@@ -29,21 +29,29 @@ def make_adam(params: Iterable[torch.Tensor], lr: float,
 
 
 class TrainState:
-    """A trained module, its Adam and the count of updates applied."""
+    """A trained module, its Adam and the count of updates applied; with a
+    `DataParallel`, the gradients are averaged over its ranks before each
+    update."""
 
     def __init__(self, module: nn.Module, lr: float,
-                 reg_every: int | None = None):
+                 reg_every: int | None = None, dp=None):
         self.module = module
         self.opt = make_adam(module.parameters(), lr, reg_every)
         self.step = 0
+        self.dp = dp
 
     def apply_gradients(self) -> None:
         """One Adam update from the gradients in `.grad`, which it clears.
         A parameter the loss did not reach takes a zero gradient, as every
-        leaf does in optax (its second moment decays)."""
-        for p in self.module.parameters():
+        leaf does in optax (its second moment decays), so every rank
+        reduces the same set; then the all-reduce (where XLA puts it in
+        the JAX package's sharded step)."""
+        params = list(self.module.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            self.dp.all_reduce_grads(params)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1

@@ -17,11 +17,17 @@ import torch
 
 
 def save_checkpoint(path: str, tree: Any) -> None:
-    """Write `tree` to the file `path`, atomically."""
+    """Write `tree` to the file `path`, atomically. A write that fails (a
+    full disk) leaves neither a partial file nor its temporary behind."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save(tree, tmp)
-    os.replace(tmp, path)
+    try:
+        torch.save(tree, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 def load_checkpoint(path: str, map_location="cpu") -> Any:
