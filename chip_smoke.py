@@ -145,8 +145,24 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              stage-3 CLI at b2 each, bf16, 2 steps with ADA (G, D, g_ema
              and the ADA state bit-identical across the ranks after each
              step). NCCL across cards needs a machine with more than one.
+14. hostdata - the host degradation chain (`data/host_jpeg.py`,
+             `data/degradations.py`, the C++ engine of `data/native.py`):
+             (a) the stage-3 CLI at full width, bf16, b4, 3 steps (R1 at
+             step 0) with `--loader host --n_degraded 2`, and the stage-2
+             CLI at 256 px, bf16, b16, 3 steps with `--loader device
+             --jpeg host`, each in its own process where cv2, PIL, JAX and
+             the JAX package cannot be imported: the path's kernels
+             launch, every loss is finite; step medians and the seconds
+             each step waited on the loader; (b) images a second at 512 px
+             b4 over 8 batches of the numpy host chain, the C++ engine
+             (the host loader's threads, and alone on `os.cpu_count()`
+             threads), `--jpeg host` and the device chain; (c) on one
+             full-width stage_a batch from the card: the device JPEG's
+             mean and 99th-percentile |diff| against `host_jpeg.py`, the
+             C++ JPEG equal to `host_jpeg.py`, and stage_a / stage_b at
+             sigma 0 against the numpy chain on the same parameters.
 
-Phases 5, 7, 8, 11, 12 and 13 also count the calls of K6's and K7's plain
+Phases 5, 7, 8, 11, 12, 13 and 14 also count the calls of K6's and K7's plain
 versions on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on
 the card the main paths run the kernels.
 
@@ -177,7 +193,8 @@ from vspbfr_tpu_torch.cli.profile import cuda_ms
 from vspbfr_tpu_torch.cli.profile import d2s_library, s2d_library
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
-          "restore", "smart", "experiments", "convert", "sample", "parallel")
+          "restore", "smart", "experiments", "convert", "sample", "parallel",
+          "hostdata")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -2922,6 +2939,292 @@ def phase_parallel():
     REPORT["parallel"] = res
 
 
+# --- phase 14 ---------------------------------------------------------------
+
+HOSTDATA_TIMEOUT = 300  # seconds one phase-14 training process may take
+
+# runs a trainer CLI (argv: CLI module, output JSON, its flags) where any
+# import of cv2, PIL, JAX or the JAX package fails, timing each wait on its
+# loader (the host clock from asking for a batch to receiving it)
+NO_CV_TRAIN = (
+    "import importlib, json, sys, time\n"
+    "for m in ('cv2', 'PIL', 'jax', 'vspbfr_tpu'):\n"
+    "    sys.modules[m] = None\n"
+    "import torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "from vspbfr_tpu_torch import ops\n"
+    "cli = importlib.import_module('vspbfr_tpu_torch.cli.' + sys.argv[1])\n"
+    "waits, build = [], cli.build_loader\n"
+    "def timed_loader(*a, **kw):\n"
+    "    loader = build(*a, **kw)\n"
+    "    forever = loader.forever\n"
+    "    def timed(*fa, **fkw):\n"
+    "        batches = forever(*fa, **fkw)\n"
+    "        while True:\n"
+    "            t0 = time.perf_counter()\n"
+    "            batch = next(batches)\n"
+    "            waits.append(time.perf_counter() - t0)\n"
+    "            yield batch\n"
+    "    loader.forever = timed\n"
+    "    return loader\n"
+    "cli.build_loader = timed_loader\n"
+    "ops.reset_launch_counts()\n"
+    "ops.reset_plain_cuda_calls()\n"
+    "report = cli.main(sys.argv[3:])\n"
+    "torch.cuda.synchronize()\n"
+    "with open(sys.argv[2], 'w') as f:\n"
+    "    json.dump(dict(report=report, launches=ops.launch_counts(),\n"
+    "                   plain=ops.plain_cuda_calls(), waits=waits,\n"
+    "                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),\n"
+    "              f)\n")
+
+
+def _face_dir(d: str, n: int, size: int, seed: int) -> np.ndarray:
+    """n synthetic uint8 faces at `size` px, as `.npy` files in d."""
+    gt_u8 = np.round((synthetic_faces(n, size, seed=seed) + 1.0)
+                     * 127.5).astype(np.uint8)
+    os.makedirs(d)
+    for i, f in enumerate(gt_u8):
+        np.save(os.path.join(d, f"face{i}.npy"), f)
+    return gt_u8
+
+
+def _host_chain_cli(res, key, module, flags, kernels, losses, tmp):
+    """One trainer CLI run in its own process (`NO_CV_TRAIN`): the path's
+    kernels must launch, no plain K6 / K7 may run on the card, every loss
+    must be finite; step medians and the loader's waits."""
+    out = os.path.join(tmp, key)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_CV_TRAIN, module, out + ".json",
+         "--out", out, "--device", "cuda", "--seed", "0", "--iter", "3",
+         "--train_dtype", "bf16", "--save_inter", "100000",
+         "--show_inter", "100000", *flags],
+        cwd=HERE, capture_output=True, text=True, timeout=HOSTDATA_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"hostdata {key}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out + ".json") as f:
+        rec = json.load(f)
+    steps = rec["report"]["steps"]
+    if len(steps) != 3 or not all(np.isfinite(s[k]) for s in steps
+                                  for k in losses):
+        raise AssertionError(f"hostdata {key}: steps {steps}")
+    if "r1" in losses and not steps[0]["r1"] > 0:
+        raise AssertionError(f"hostdata {key}: no R1 at step 0")
+    missing = [k for k in kernels if rec["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"hostdata {key}: kernels never launched "
+                             f"{missing}")
+    if any(rec["plain"].values()):
+        raise AssertionError(f"hostdata {key}: a plain version ran on the "
+                             f"card: {rec['plain']}")
+    secs = [s["seconds"] for s in steps]
+    med = statistics.median(secs[1:])
+    waits = rec["waits"][:3]       # the loop asks for a 4th batch, then ends
+    res[key] = dict(step_seconds=secs, median_step_ms=med * 1e3,
+                    loader_wait_s=waits, launches=rec["launches"],
+                    peak_gib=rec["peak_gib"], wall_s=wall, losses=steps)
+    say(f"hostdata {key}: step seconds {[round(x, 4) for x in secs]}, "
+        f"median (first excluded) {med * 1e3:.1f} ms; seconds waiting on "
+        f"the loader before each step {[round(x, 4) for x in waits]}"
+        f"; peak {rec['peak_gib']:.3f} GiB, wall {wall:.1f} s incl. init; "
+        f"launches {rec['launches']}")
+
+
+def _loader_rate(make, batches: int = 8, sync: bool = False) -> float:
+    """Images a second of a fresh loader's first `batches` batches, from
+    asking for the first to holding the last (the fill included), each
+    batch finished on the card with `sync`."""
+    import torch
+
+    loader = make()
+    t0 = time.perf_counter()
+    it = loader.forever()
+    n = 0
+    for _ in range(batches):
+        batch = next(it)
+        n += batch[0].shape[0]
+        if sync:
+            torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    it.close()
+    return n / dt
+
+
+def _loader_rates(res, faces_dir):
+    """(b) Images a second at 512 px b4 over 8 batches: the numpy host
+    chain and the C++ engine (the CLIs' host loader, one chain a sample),
+    the engine alone on its own thread pool (`os.cpu_count()` threads),
+    the device chain with the host JPEG and with the device JPEG."""
+    import torch
+
+    from vspbfr_tpu_torch.data import (DataLoader, DeviceDegradeLoader,
+                                       RestoreTrainDataset, native)
+
+    def ds(use_native=True):
+        return RestoreTrainDataset(faces_dir, im_size=(512, 512),
+                                   n_degraded=1, seed=0,
+                                   use_native=use_native)
+
+    def device(jpeg):
+        return lambda: DeviceDegradeLoader(ds(), 4, device="cuda",
+                                           jpeg=jpeg)
+
+    next(device("device")().forever())          # warm the device chain
+    torch.cuda.synchronize()
+    rates = {
+        "numpy": _loader_rate(lambda: DataLoader(ds(False), 4)),
+        "native": _loader_rate(lambda: DataLoader(ds(), 4)),
+        "jpeg_host": _loader_rate(device("host"), sync=True),
+        "device": _loader_rate(device("device"), sync=True)}
+    gt = np.stack([np.load(os.path.join(faces_dir, f"face{i}.npy"))
+                   for i in range(32)]).astype(np.float32) / 255.0
+    threads = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    native.degrade_batch(gt, np.arange(32, dtype=np.uint64) + 1, threads)
+    rates["native_pool"] = 32 / (time.perf_counter() - t0)
+    res["loader_imgs_per_s"] = rates
+    res["cpu_count"] = threads
+    say(f"hostdata loader rates, 512 px b4 over 8 batches (imgs/s; "
+        f"{threads} CPUs): numpy host chain {rates['numpy']:.2f}, C++ "
+        f"engine (the host loader's 8 threads) {rates['native']:.2f}, the "
+        f"engine alone on {threads} threads (32 images) "
+        f"{rates['native_pool']:.2f}, --jpeg host {rates['jpeg_host']:.2f}, "
+        f"device chain {rates['device']:.2f}")
+
+
+def _numpy_stages(gt, p, buf: int, size: int, jpg):
+    """The numpy chain's stage A (blur, haze, downscale, u8; sigma 0) of
+    float [0, 1] GT and its stage B (resize back, u8 grid, gray) of the
+    JPEG'd small images, on the device stages' parameters."""
+    from vspbfr_tpu_torch.data.degradations import (BGR2GRAY, filter2d,
+                                                    resize_linear, to_gray,
+                                                    to_u8)
+
+    small = np.zeros((len(gt), buf, buf, 3), np.uint8)
+    lq = np.zeros((len(gt), size, size, 3), np.float32)
+    for i in range(len(gt)):
+        h, w = int(p.dh[i]), int(p.dw[i])
+        x = filter2d(gt[i], p.kernels[i])
+        x = x * p.alpha[i] + (1.0 - p.alpha[i])
+        small[i, :h, :w] = to_u8(resize_linear(x, w, h) * 255.0)
+        y = resize_linear(jpg[i, :h, :w].astype(np.float32) / 255.0, size,
+                          size)
+        y = to_u8(y * 255.0).astype(np.float32) / 255.0
+        lq[i] = (np.repeat(to_gray(y, BGR2GRAY)[..., None], 3, axis=2)
+                 if p.gray[i] else y)
+    return small, lq
+
+
+def _stage_checks(res, gt_u8):
+    """(c) One full-width stage_a batch from the card (b4, one hazy, one
+    gray sample): the device JPEG against `host_jpeg.py` (mean and 99th
+    percentile |diff| over the valid regions), the C++ engine's JPEG equal
+    to `host_jpeg.py`, and stage_a / stage_b at sigma 0 against the numpy
+    chain on the same parameters within the CPU tests' bound for the
+    device stages (`test_degrade_batch_matches_jax`: mean |diff| <= 0.05
+    u8 levels, max 1)."""
+    import torch
+
+    from vspbfr_tpu_torch.data import native
+    from vspbfr_tpu_torch.data.device_degrade import DeviceDegrader, sample_params
+    from vspbfr_tpu_torch.data.device_jpeg import (jpeg_roundtrip_batch,
+                                                   quality_tables)
+    from vspbfr_tpu_torch.data.host_jpeg import jpeg_roundtrip
+
+    dd = DeviceDegrader(512)
+    p = sample_params(np.random.default_rng(14), 4, 512, dd.cfg)
+    p.sigma[:] = 0.0
+    p.alpha[1] = 0.8
+    p.gray[2] = True
+    seeds = np.arange(4, dtype=np.uint32)
+    gt = torch.as_tensor(gt_u8[:4]).cuda().float() / 255.0
+    small_dev = dd.stage_a(gt, p, seeds)
+    small = small_dev.cpu().numpy()
+    host = dd.host_jpeg(small, p)
+    tl = np.stack([quality_tables(int(q))[0] for q in p.quality])
+    tc = np.stack([quality_tables(int(q))[1] for q in p.quality])
+    dev = jpeg_roundtrip_batch(
+        small_dev, torch.as_tensor(p.dh).cuda().long(),
+        torch.as_tensor(p.dw).cuda().long(), torch.as_tensor(tl).cuda(),
+        torch.as_tensor(tc).cuda()).cpu().numpy()
+    diffs, cpp_equal = [], True
+    for i in range(4):
+        h, w = int(p.dh[i]), int(p.dw[i])
+        diffs.append(np.abs(dev[i, :h, :w].astype(np.int32)
+                            - host[i, :h, :w]).ravel())
+        crop = small[i, :h, :w]
+        cpp_equal &= np.array_equal(native.jpeg_roundtrip(crop, p.quality[i]),
+                                    jpeg_roundtrip(crop, int(p.quality[i])))
+    d = np.concatenate(diffs)
+    lq = dd.stage_b(torch.as_tensor(host).cuda(), p).cpu().numpy()
+    ref_small, ref_lq = _numpy_stages(gt_u8[:4].astype(np.float32) / 255.0,
+                                      p, dd.buf, 512, host)
+    da = np.concatenate([np.abs(small[i, :p.dh[i], :p.dw[i]].astype(np.int32)
+                                - ref_small[i, :p.dh[i], :p.dw[i]]).ravel()
+                         for i in range(4)])
+    db = np.abs(np.rint(lq * 255.0) - np.rint(ref_lq * 255.0))
+    res["stages"] = dict(
+        sizes=[[int(p.dh[i]), int(p.dw[i])] for i in range(4)],
+        quality=[int(q) for q in p.quality],
+        device_jpeg_mean_abs=float(d.mean()),
+        device_jpeg_p99_abs=float(np.quantile(d, 0.99)),
+        device_jpeg_max_abs=int(d.max()), cpp_jpeg_equal=bool(cpp_equal),
+        stage_a_equal=float((da == 0).mean()), stage_a_max=int(da.max()),
+        stage_b_equal=float((db == 0).mean()), stage_b_max=float(db.max()))
+    say(f"hostdata stages (b4, downscaled to {res['stages']['sizes']}, q "
+        f"{res['stages']['quality']}): device JPEG vs host_jpeg.py mean "
+        f"|diff| {d.mean():.4f}, p99 {np.quantile(d, 0.99):.1f}, max "
+        f"{d.max()} levels; C++ JPEG equal: {cpp_equal}; stage_a vs numpy "
+        f"{(da == 0).mean():.5f} equal, max {da.max()}; stage_b vs numpy "
+        f"{(db == 0).mean():.5f} equal, max {db.max():.0f}")
+    if not cpp_equal:
+        raise AssertionError("hostdata: the C++ JPEG differs from "
+                             "host_jpeg.py")
+    for name, x in (("stage_a", da), ("stage_b", db)):
+        if not (x.mean() <= 0.05 and x.max() <= 1):
+            raise AssertionError(f"hostdata: {name} vs the numpy chain: "
+                                 f"mean |diff| {x.mean()}, max {x.max()}")
+
+
+def phase_hostdata():
+    """The host degradation chain (`data/host_jpeg.py`, `data/degradations.
+    py`, `data/native.py`): (a) both trainer CLIs on it, each in its own
+    process without cv2, PIL, JAX or the JAX package, (b) loader rates,
+    (c) the JPEG and stage checks."""
+    import torch
+
+    torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 32 faces: 8 batches of 4 an epoch, one for each loader thread
+        # (with fewer, a loader runs fewer threads and refills only when
+        # an epoch turns over)
+        faces512 = os.path.join(tmp, "faces512")
+        gt_u8 = _face_dir(faces512, 32, 512, seed=14)
+        faces256 = os.path.join(tmp, "faces256")
+        _face_dir(faces256, 16, 256, seed=15)
+        _host_chain_cli(
+            res, "stage3_host", "train_restore",
+            ["--path", faces512, "--size", "512", "--decoder_size", "1024",
+             "--batch", "4", "--loader", "host", "--n_degraded", "2"],
+            PATH_KERNELS["restore"],
+            ("d", "r1", "real_score", "fake_score", "g", "gan", "percept",
+             "id"), tmp)
+        _host_chain_cli(
+            res, "stage2_jpeg_host", "train_diffuser",
+            ["--path", faces256, "--size", "256", "--decoder_size", "1024",
+             "--batch", "16", "--loader", "device", "--jpeg", "host"],
+            PATH_KERNELS["train"], ("loss", "l1", "kl", "percept", "id"),
+            tmp)
+        _loader_rates(res, faces512)
+        _stage_checks(res, gt_u8)
+    REPORT["hostdata"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -2932,7 +3235,8 @@ def main() -> None:
         # the path phases: no plain K6 / K7 on the card
         with (no_plain_on_card(name) if name in ("slice", "cli", "train",
                                                  "restore", "convert",
-                                                 "sample", "parallel")
+                                                 "sample", "parallel",
+                                                 "hostdata")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
@@ -2947,7 +3251,11 @@ def main() -> None:
                 "experiments": REPORT["experiments"]["launches"],
                 "convert": REPORT["convert"]["f32"]["launches"],
                 "sample": REPORT["sample"]["launches"],
-                "parallel": REPORT["parallel"]["world1"]["launches"]}
+                "parallel": REPORT["parallel"]["world1"]["launches"],
+                "hostdata_restore":
+                    REPORT["hostdata"]["stage3_host"]["launches"],
+                "hostdata_train":
+                    REPORT["hostdata"]["stage2_jpeg_host"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in REPORT["kernels"] + REPORT["grads"]
                 if r["kernel"] == name and r["dtype"] == "f32"]

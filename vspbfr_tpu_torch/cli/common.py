@@ -5,8 +5,10 @@ from __future__ import annotations
 
 import warnings
 
+import torch
 from torch import nn
 
+from vspbfr_tpu_torch.data import DataLoader, DeviceDegradeLoader
 from vspbfr_tpu_torch.models.e4e import TINY_STAGES
 from vspbfr_tpu_torch.utils import load_checkpoint
 
@@ -47,3 +49,44 @@ def wire_loss_nets(lpips: nn.Module, id_net: nn.Module,
             "RANDOMLY initialized, so the ID loss is meaningless. Pass the "
             "converted Arcface.pth weights with --arcface_ckpt.",
             stacklevel=2)
+
+
+def add_loader_flags(p) -> None:
+    """The data-chain flags both trainer CLIs take."""
+    p.add_argument("--loader", choices=("auto", "device", "host"),
+                   default="auto",
+                   help="'device' runs blur, resize and noise on the "
+                        "training device (data/device_degrade.py), leaving "
+                        "the host image loading and, with --jpeg host, the "
+                        "small-size JPEG; 'host' runs the whole chain on "
+                        "the CPU (the C++ engine for the default config, "
+                        "else numpy; no OpenCV); 'auto' = device unless "
+                        "--device cpu")
+    p.add_argument("--jpeg", choices=("device", "host"), default="device",
+                   help="with the device chain: 'device' simulates the "
+                        "JPEG round-trip on the device (data/device_jpeg.py, "
+                        "float, approximates libjpeg); 'host' runs libjpeg's "
+                        "exact integer round-trip on the CPU "
+                        "(data/host_jpeg.py) between the device stages")
+
+
+def build_loader(args, ds, device: torch.device, dp):
+    """The training loader `--loader` / `--jpeg` describe, on rank
+    `dp.rank`'s shard: the host chain is the `DataLoader` over the dataset
+    (batches (lq_1 .. lq_n, gt) of numpy arrays), the device chain a
+    `DeviceDegradeLoader` (batches (lq, gt) on `device`). `train_batch`
+    takes either's batch to the device."""
+    shard = dict(seed=args.seed, shard_index=dp.rank,
+                 shard_count=dp.world_size)
+    if args.loader == "host" or (args.loader == "auto"
+                                 and device.type == "cpu"):
+        return DataLoader(ds, args.batch, **shard)
+    return DeviceDegradeLoader(ds, args.batch, device=device, jpeg=args.jpeg,
+                               **shard)
+
+
+def train_batch(batch, device: torch.device) -> tuple:
+    """(lq, gt) on `device` from a `build_loader` batch: lq_1 and the GT
+    (the reference degrades twice and consumes the first,
+    `restoration_train.py:160` upstream)."""
+    return tuple(torch.as_tensor(x).to(device) for x in (batch[0], batch[-1]))

@@ -3,9 +3,11 @@
 
 Counterpart of `vspbfr_tpu/cli/train_diffuser.py`. Flags
 mirror `code_diffuser_train.py:249-273` upstream; the loop body is one
-`DiffuserTrainer.train_step`. The data are degraded on the device
-(`--loader device --jpeg device`, the only chain ported); GT files are
-PNG/JPG or uint8 HWC `.npy`. Without `--psp_ckpt` (a port psp state_dict)
+`DiffuserTrainer.train_step`. The data are degraded on the training
+device (`--loader device`, with the JPEG round-trip there or, `--jpeg
+host`, exact on the CPU) or wholly on the CPU (`--loader host`; `auto` is
+the device chain unless `--device cpu`); GT files are PNG/JPG or uint8
+HWC `.npy`. Without `--psp_ckpt` (a port psp state_dict)
 the weights are random, drawn from `--seed`.
 
 Data parallel under torchrun (`parallel/`): one process a rank, `--batch`
@@ -29,12 +31,14 @@ import time
 import numpy as np
 import torch
 
-from vspbfr_tpu_torch.cli.common import tiny_pipeline_kwargs, wire_loss_nets
-from vspbfr_tpu_torch.data import (
-    DeviceDegradeLoader,
-    RestoreTrainDataset,
-    save_image,
+from vspbfr_tpu_torch.cli.common import (
+    add_loader_flags,
+    build_loader,
+    tiny_pipeline_kwargs,
+    train_batch,
+    wire_loss_nets,
 )
+from vspbfr_tpu_torch.data import RestoreTrainDataset, save_image
 from vspbfr_tpu_torch.parallel import (
     DataParallel,
     distributed,
@@ -72,11 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 = the image-space decode (forward and "
                         "backward) and the loss-net trunks in bf16; the "
                         "latent chain stays f32")
-    p.add_argument("--loader", choices=("device",), default="device",
-                   help="the degradation chain runs on the device (the "
-                        "host chain is not ported)")
-    p.add_argument("--jpeg", choices=("device",), default="device",
-                   help="the JPEG round-trip runs on the device")
+    add_loader_flags(p)
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per optimizer step; --batch is the "
                         "optimizer batch (--batch 16 --grad_accum 2 runs "
@@ -196,12 +196,10 @@ def _train(args, device) -> dict:
     # stage-2 data: one degraded copy, uint8-round-tripped GT, no random
     # gray (ImageFolder_restore upstream)
     ds = RestoreTrainDataset(args.path, im_size=(args.size, args.size),
-                             quantize_gt=True, gray_prob=None,
+                             n_degraded=1, quantize_gt=True, gray_prob=None,
                              seed=args.seed,
                              subset=400 if args.debug else None)
-    loader = DeviceDegradeLoader(ds, args.batch, device=device,
-                                 seed=args.seed, shard_index=dp.rank,
-                                 shard_count=dp.world_size)
+    loader = build_loader(args, ds, device, dp)
     # rank 0 alone logs, samples and saves; a barrier follows each save
     logger = Logger(args.out) if dp.is_lead else None
     ckpt_dir = os.path.join(args.out, "checkpoint")
@@ -220,9 +218,10 @@ def _train(args, device) -> dict:
     stopping = False
     try:
         t0 = time.perf_counter()
-        for lq, gt in loader.forever(start_epoch, start_batch):
+        for batch in loader.forever(start_epoch, start_batch):
             if it >= args.iter or stopping:
                 break
+            lq, gt = train_batch(batch, device)
             metrics = trainer.train_step(lq, gt, generator=gen)
             m = {k: float(v) for k, v in metrics.items()}
             it += 1

@@ -4,10 +4,12 @@
 Counterpart of `vspbfr_tpu/cli/train_restore.py`. Flags
 mirror `restoration_train.py:310-342` upstream; the loop body is one
 `RestoreTrainer.train_step` (embedding, D phase with the lazy R1, G phase,
-EMA). The data are degraded on the device (`--loader device --jpeg
-device`, the only chain ported), one degraded copy per sample
-(`--n_degraded 1`: the reference computes two and consumes the first), GT
-in float with the 0.008 gray draw shared with the input. `--augment` turns
+EMA). The data are degraded on the training device (`--loader device`,
+with the JPEG round-trip there or, `--jpeg host`, exact on the CPU) or
+wholly on the CPU (`--loader host`: the C++ engine, no OpenCV; `auto` is
+the device chain unless `--device cpu`); the host chain computes
+`--n_degraded` copies a sample (the reference computes two and consumes
+the first), GT in float with the 0.008 gray draw shared with the input. `--augment` turns
 on ADA: adaptive toward `--ada_target` over `--ada_length` images, or at
 the fixed probability `--augment_p` when that is > 0 (the reference's
 flags). GT files are PNG/JPG or uint8 HWC `.npy`. Without `--psp_ckpt` /
@@ -43,12 +45,14 @@ import time
 import numpy as np
 import torch
 
-from vspbfr_tpu_torch.cli.common import tiny_pipeline_kwargs, wire_loss_nets
-from vspbfr_tpu_torch.data import (
-    DeviceDegradeLoader,
-    RestoreTrainDataset,
-    save_image,
+from vspbfr_tpu_torch.cli.common import (
+    add_loader_flags,
+    build_loader,
+    tiny_pipeline_kwargs,
+    train_batch,
+    wire_loss_nets,
 )
+from vspbfr_tpu_torch.data import RestoreTrainDataset, save_image
 from vspbfr_tpu_torch.losses import ADAState
 from vspbfr_tpu_torch.parallel import (
     DataParallel,
@@ -86,14 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 = G and D compute in bf16 with f32 params, "
                         "optimiser states, EMA, logits, losses and R1; f32 = "
                         "the reference's dtype")
-    p.add_argument("--n_degraded", type=int, default=1, choices=(1,),
-                   help="degraded copies per sample; the reference computes "
-                        "2 and consumes the first, the port computes 1")
-    p.add_argument("--loader", choices=("device",), default="device",
-                   help="the degradation chain runs on the device (the "
-                        "host chain is not ported)")
-    p.add_argument("--jpeg", choices=("device",), default="device",
-                   help="the JPEG round-trip runs on the device")
+    p.add_argument("--n_degraded", type=int, default=1, choices=(1, 2),
+                   help="host chain: degraded copies per sample. The "
+                        "reference computes 2 and consumes the first "
+                        "(`dataset.py:302-303` vs `restoration_train.py:160` "
+                        "upstream); 1 skips the unused chain, 2 repeats the "
+                        "reference's loader. The device chain computes 1")
+    add_loader_flags(p)
     p.add_argument("--percept_loss_weight", type=float, default=0.5)
     p.add_argument("--id_loss_weight", type=float, default=0.1)
     p.add_argument("--augment", action="store_true",
@@ -223,11 +226,9 @@ def _train(args, device) -> dict:
     # stage-3 data (ImageFolder_restore_free_form upstream): float GT, the
     # 0.008 gray draw applied to the input and the GT alike
     ds = RestoreTrainDataset(args.path, im_size=(args.size, args.size),
-                             quantize_gt=False, gray_prob=0.008,
-                             seed=args.seed)
-    loader = DeviceDegradeLoader(ds, args.batch, device=device,
-                                 seed=args.seed, shard_index=dp.rank,
-                                 shard_count=dp.world_size)
+                             n_degraded=args.n_degraded, quantize_gt=False,
+                             gray_prob=0.008, seed=args.seed)
+    loader = build_loader(args, ds, device, dp)
     # rank 0 alone logs, samples and saves (`get_rank() == 0` upstream,
     # `restoration_train.py:258,278,291`); a barrier follows each save
     logger = Logger(args.out) if dp.is_lead else None
@@ -246,9 +247,10 @@ def _train(args, device) -> dict:
     stopping = False
     try:
         t0 = time.perf_counter()
-        for lq, gt in loader.forever(start_epoch, start_batch):
+        for batch in loader.forever(start_epoch, start_batch):
             if it >= args.iter or stopping:
                 break
+            lq, gt = train_batch(batch, device)
             metrics = trainer.train_step(lq, gt, generator=gen)
             m = {k: float(v) for k, v in metrics.items()}
             it += 1

@@ -1,10 +1,10 @@
 """Image-directory datasets and the threaded batch loader.
 
 Counterpart of `vspbfr_tpu/data/datasets.py`: `RestoreTestDataset` (the
-inference reader) and, for training, the GT side of `RestoreTrainDataset`
-(load, flip, resize/crop with per-(seed, epoch, index) numpy streams) and
-the threaded prefetching `DataLoader`. The degradation chain itself runs on
-the device (`data/device_degrade.py`); the host chain waits.
+inference reader), `RestoreTrainDataset` (load, flip, resize/crop with
+per-(seed, epoch, index) numpy streams, then the host degradation chain:
+`sample`) and the threaded prefetching `DataLoader`. The device chain
+(`data/device_degrade.py`) reads the same GT side (`sample_gt`).
 
 Files are PNG/JPG or `.npy`: inference reads [-1, 1] float HWC arrays at
 the target size, training reads uint8 HWC GT arrays (resized only through
@@ -22,7 +22,13 @@ from typing import Iterator
 
 import numpy as np
 
-from vspbfr_tpu_torch.data.degradations import DegradationConfig
+from vspbfr_tpu_torch.data import native
+from vspbfr_tpu_torch.data.degradations import (
+    BGR2GRAY,
+    DegradationConfig,
+    degrade_image,
+    to_gray,
+)
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".webp")
 EXTS = IMG_EXTS + (".npy",)
@@ -143,21 +149,28 @@ class RestoreTestDataset:
 
 @dataclasses.dataclass
 class RestoreTrainDataset:
-    """The GT side of the on-the-fly degradation training set.
+    """The on-the-fly degradation training set.
 
-    quantize_gt=True, gray_prob=None is stage 2 (ImageFolder_restore, whose
-    GT round-trips through uint8); the device loader reads quantize_gt,
-    gray_prob and config from here. `subset` keeps the first N files (the
-    reference's debug subset)."""
+    n_degraded=2 with float GT is stage 3 (ImageFolder_restore_free_form);
+    n_degraded=1, quantize_gt=True, gray_prob=None is stage 2
+    (ImageFolder_restore, whose GT round-trips through uint8,
+    `dataset.py:128-132`). The device loader reads quantize_gt, gray_prob
+    and config from here. `subset` keeps the first N files (the
+    reference's debug subset). With use_native, the default config's
+    chains run on the C++ engine (`native.py`), as in the JAX package;
+    another config runs `degrade_image`, which that engine does not
+    implement."""
 
     root: str
     im_size: tuple[int, int] = (512, 512)
+    n_degraded: int = 2
     quantize_gt: bool = False
     gray_prob: float | None = 0.008
     config: DegradationConfig = dataclasses.field(
         default_factory=DegradationConfig)
     seed: int = 0
     subset: int | None = None
+    use_native: bool = True
 
     def __post_init__(self):
         self.files = list_images(self.root)
@@ -165,6 +178,14 @@ class RestoreTrainDataset:
             raise FileNotFoundError(f"no images under {self.root}")
         if self.subset:
             self.files = self.files[: self.subset]
+        self._native = self.use_native and self.config == DegradationConfig()
+
+    def _degrade(self, rng: np.random.Generator, gt: np.ndarray) -> np.ndarray:
+        if self._native:
+            seed = rng.integers(0, np.iinfo(np.uint64).max, dtype=np.uint64)
+            return native.degrade_batch(gt[None], np.asarray([seed], np.uint64),
+                                        n_threads=1)[0]
+        return degrade_image(rng, gt, self.config)
 
     def __len__(self):
         return len(self.files)
@@ -181,6 +202,30 @@ class RestoreTrainDataset:
             img = img[:, ::-1]
         img = _resize_crop(img, self.im_size, rng)
         return np.ascontiguousarray(img), rng
+
+    def sample(self, idx: int, epoch: int = 0) -> tuple[np.ndarray, ...]:
+        """(lq_1 .. lq_n, gt), each (H, W, 3) float32 in [-1, 1]: n chains
+        of the GT, then the gray draw shared by all of them and the GT
+        (`dataset.py:306-315`), then the stage-2 uint8 GT round-trip with
+        quantize_gt."""
+        gt_u8, rng = self.sample_gt(idx, epoch)
+        gt = gt_u8.astype(np.float32) / 255.0
+
+        lqs = [self._degrade(rng, gt) for _ in range(self.n_degraded)]
+
+        if self.gray_prob and rng.uniform() < self.gray_prob:
+            def gray3(x):
+                return np.repeat(to_gray(x, BGR2GRAY)[..., None], 3, axis=2)
+            lqs = [gray3(x) for x in lqs]
+            gt = gray3(gt)
+
+        if self.quantize_gt:
+            gt = np.round(gt * 255.0).astype(np.uint8).astype(np.float32) \
+                / 127.5 - 1.0
+        else:
+            gt = gt * 2.0 - 1.0
+        lqs = [x * 2.0 - 1.0 for x in lqs]
+        return (*lqs, gt)
 
 
 class DataLoader:

@@ -1,18 +1,21 @@
 """The degradation chain on the device: the training data path.
 
-Counterpart of `vspbfr_tpu/data/device_degrade.py` (its one-program form,
-`degrade_all` with the device JPEG). The host samples each image's
-parameters and builds its blur kernel (`sample_params`, `factor_kernels`);
-the device runs the whole chain on a batch:
+Counterpart of `vspbfr_tpu/data/device_degrade.py`. The host samples each
+image's parameters and builds its blur kernel (`sample_params`,
+`factor_kernels`); the device runs the chain on a batch in two stages
+around the one step that is not dense array math, the JPEG round-trip:
 
-    reflect-pad -> per-sample blur (SVD-separable banded matmuls) ->
-    optional hazy blend -> dynamic bilinear downscale x[0.8, 8] onto a
-    static buffer -> gaussian noise + clip -> u8 quantise -> JPEG round-trip
-    (`device_jpeg.py`) -> bilinear resize back -> u8-grid quantise ->
-    optional gray
+    stage_a: reflect-pad -> per-sample blur (SVD-separable banded
+             matmuls) -> optional hazy blend -> dynamic bilinear downscale
+             x[0.8, 8] onto a static buffer -> gaussian noise + clip -> u8
+    JPEG:    on the device (`device_jpeg.py`, float, approximates libjpeg)
+             or, with jpeg="host", on the host at the small size
+             (`host_jpeg.py`, libjpeg's integer pipeline, exact)
+    stage_b: bilinear resize back -> u8-grid quantise -> optional gray
 
-and finishes the GT the same way (gray, and the stage-2 uint8 round-trip
-with `quantize_gt`). Semantics follow the JAX package, which follows
+`degrade_all` is the one-pass form with the device JPEG, which also
+finishes the GT (gray, and the stage-2 uint8 round-trip with
+`quantize_gt`). Semantics follow the JAX package, which follows
 `degradations.py::degrade_image` / the reference's `dataset.py:327-372`.
 The noise field comes from one `torch.Generator` per sample, seeded from
 the sample's seed: the same distribution as the JAX package's, not the
@@ -23,6 +26,7 @@ and each sample's true (dh, dw) enters only through the resize matrices.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any
 
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 
 from vspbfr_tpu_torch.data.datasets import DataLoader
 from vspbfr_tpu_torch.data.degradations import (
+    BGR2GRAY,
     DegradationConfig,
     random_mixed_kernel,
 )
@@ -39,10 +44,8 @@ from vspbfr_tpu_torch.data.device_jpeg import (
     jpeg_roundtrip_batch,
     quality_tables,
 )
+from vspbfr_tpu_torch.data.host_jpeg import jpeg_roundtrip
 
-# cv2 COLOR_BGR2GRAY taps as the reference's to-gray path applies them to
-# RGB data (`dataset.py:306-315` upstream), so R gets the B weight
-_GRAY_W_RGB = (0.114, 0.587, 0.299)
 # rank buckets of the separable blur (the last is exact for 41x41)
 _RANK_BUCKETS = (12, 24, 41)
 
@@ -180,13 +183,23 @@ def _quantize_u8(x: torch.Tensor) -> torch.Tensor:
 
 
 def _to_gray(x: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor(_GRAY_W_RGB, device=x.device)
+    w = torch.tensor(BGR2GRAY, device=x.device)
     g = torch.sum(x * w, dim=-1, keepdim=True).expand_as(x)
     return torch.where(gray[:, None, None, None], g, x)
 
 
+def _finish_gt(gt: torch.Tensor, gray: np.ndarray,
+               quantize_gt: bool) -> torch.Tensor:
+    """[0, 1] GT -> [-1, 1]: the sample's gray flag (`dataset.py:306-315`)
+    and the stage-2 uint8 round-trip (`dataset.py:128-132`), in the host
+    dataset's order."""
+    gt = _to_gray(gt, torch.as_tensor(np.asarray(gray), device=gt.device))
+    return (torch.round(gt * 255.0) / 127.5 - 1.0 if quantize_gt
+            else gt * 2.0 - 1.0)
+
+
 class DeviceDegrader:
-    """The whole chain as one batched pass on the device of its input."""
+    """The chain as batched passes on the device of its input."""
 
     def __init__(self, size: int = 512,
                  cfg: DegradationConfig = DegradationConfig()):
@@ -207,39 +220,77 @@ class DeviceDegrader:
                                    device=device))
         return torch.stack(out)
 
-    def degrade_all(self, gt_u8: torch.Tensor, p: DegradeParams,
-                    seeds: np.ndarray, quantize_gt: bool = False):
-        """gt_u8 (B, size, size, 3) uint8 on the device -> (lq, gt), both
-        (B, size, size, 3) f32 in [-1, 1] on that device."""
-        dev = gt_u8.device
+    def stage_a(self, gt: torch.Tensor, p: DegradeParams,
+                seeds: np.ndarray) -> torch.Tensor:
+        """(B, size, size, 3) f32 [0, 1] GT on the device -> (B, buf, buf, 3)
+        u8 blurred, hazed, downscaled and noised (valid region (dh, dw) per
+        sample), on that device."""
+        dev = gt.device
         u, v, _ = factor_kernels(np.asarray(p.kernels))
-        tl = np.stack([quality_tables(int(q))[0] for q in p.quality])
-        tc = np.stack([quality_tables(int(q))[1] for q in p.quality])
-
-        def t(a, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-
-        alpha, sigma = t(p.alpha), t(p.sigma)
-        dh, dw = t(p.dh), t(p.dw)
-        gray = t(p.gray, torch.bool)
+        alpha = torch.as_tensor(np.asarray(p.alpha), device=dev).float()
+        sigma = torch.as_tensor(np.asarray(p.sigma), device=dev).float()
+        dh = torch.as_tensor(np.asarray(p.dh), device=dev).float()
+        dw = torch.as_tensor(np.asarray(p.dw), device=dev).float()
         full = torch.full_like(dh, float(self.size))
-        gt = gt_u8.float() / 255.0
-        x = blur_batch_separable(gt, t(u), t(v))
+        x = blur_batch_separable(gt, torch.as_tensor(u, device=dev),
+                                 torch.as_tensor(v, device=dev))
         a = alpha[:, None, None, None]
         x = x * a + (1.0 - a)
         x = resize_bilinear_dynamic(x, full, full, dh, dw, self.buf)
         x = torch.clamp(x + self.noise(seeds, dev)
                         * (sigma / 255.0)[:, None, None, None], 0.0, 1.0)
-        small = _quantize_u8(x)
-        jp = jpeg_roundtrip_batch(small, t(p.dh, torch.int64),
-                                  t(p.dw, torch.int64), t(tl), t(tc))
-        x = resize_bilinear_dynamic(jp.float() / 255.0, dh, dw, full, full,
-                                    self.size)
-        lq = _to_gray(_quantize_u8(x).float() / 255.0, gray)
-        gt = _to_gray(gt, gray)
-        gt = (torch.round(gt * 255.0) / 127.5 - 1.0 if quantize_gt
-              else gt * 2.0 - 1.0)
-        return lq * 2.0 - 1.0, gt
+        return _quantize_u8(x)
+
+    def host_jpeg(self, small_u8: np.ndarray, p: DegradeParams) -> np.ndarray:
+        """The JPEG round-trip of each sample's (dh, dw) crop of a
+        (B, buf, buf, 3) u8 batch on the host, exact (`host_jpeg.py`), at
+        the small size; the rest of each buffer is 0."""
+        out = np.zeros_like(small_u8)
+        for i in range(small_u8.shape[0]):
+            h, w = int(p.dh[i]), int(p.dw[i])
+            out[i, :h, :w] = jpeg_roundtrip(small_u8[i, :h, :w],
+                                            int(p.quality[i]))
+        return out
+
+    def stage_b(self, small_u8: torch.Tensor, p: DegradeParams
+                ) -> torch.Tensor:
+        """JPEG'd (B, buf, buf, 3) u8 -> (B, size, size, 3) f32 [0, 1] LQ on
+        the same device: resize back, u8-grid quantise, gray."""
+        dev = small_u8.device
+        dh = torch.as_tensor(np.asarray(p.dh), device=dev).float()
+        dw = torch.as_tensor(np.asarray(p.dw), device=dev).float()
+        full = torch.full_like(dh, float(self.size))
+        x = resize_bilinear_dynamic(small_u8.float() / 255.0, dh, dw, full,
+                                    full, self.size)
+        gray = torch.as_tensor(np.asarray(p.gray), device=dev)
+        return _to_gray(_quantize_u8(x).float() / 255.0, gray)
+
+    def degrade_all(self, gt_u8: torch.Tensor, p: DegradeParams,
+                    seeds: np.ndarray, quantize_gt: bool = False):
+        """gt_u8 (B, size, size, 3) uint8 on the device -> (lq, gt), both
+        (B, size, size, 3) f32 in [-1, 1] on that device: stage_a, the
+        device JPEG, stage_b and the GT finishing."""
+        dev = gt_u8.device
+        tl = np.stack([quality_tables(int(q))[0] for q in p.quality])
+        tc = np.stack([quality_tables(int(q))[1] for q in p.quality])
+        gt = gt_u8.float() / 255.0
+        small = self.stage_a(gt, p, seeds)
+        jp = jpeg_roundtrip_batch(
+            small, torch.as_tensor(np.asarray(p.dh), device=dev).long(),
+            torch.as_tensor(np.asarray(p.dw), device=dev).long(),
+            torch.as_tensor(tl, device=dev), torch.as_tensor(tc, device=dev))
+        lq = self.stage_b(jp, p)
+        return lq * 2.0 - 1.0, _finish_gt(gt, p.gray, quantize_gt)
+
+    def degrade_batch(self, gt: torch.Tensor, p: DegradeParams,
+                      seeds: np.ndarray | None = None) -> torch.Tensor:
+        """stage_a -> host JPEG -> stage_b of a (B, size, size, 3) f32 [0, 1]
+        GT batch on the device; (B, size, size, 3) f32 [0, 1] LQ there."""
+        if seeds is None:
+            seeds = np.arange(gt.shape[0], dtype=np.uint32)
+        small = self.stage_a(gt, p, seeds).cpu().numpy()
+        jpg = torch.as_tensor(self.host_jpeg(small, p)).to(gt.device)
+        return self.stage_b(jpg, p)
 
 
 class DeviceDegradeLoader:
@@ -249,20 +300,29 @@ class DeviceDegradeLoader:
     Wraps the threaded `DataLoader` over a GT-only view of a
     `RestoreTrainDataset` (uint8 GT and a per-sample seed, from the
     dataset's own `sample_gt`, so a sample degrades alike on any shard),
-    samples each image's parameters from its seed on the host, uploads the
-    uint8 batch and runs `degrade_all`. The dataset's quantize_gt,
-    gray_prob and config apply; `shard_index` / `shard_count` pick a
-    data-parallel rank's share of each epoch (`DataLoader`). Yields (lq,
-    gt), both (B, H, W, 3) f32 in [-1, 1] on `device`."""
+    samples each image's parameters from its seed on the host and uploads
+    the uint8 batch. With jpeg="device" one `degrade_all` degrades it; with
+    jpeg="host" the JPEG round-trip runs on the host, exact, between the
+    device stages, and `lookahead` batches' stage_a are in flight on the
+    device while a batch's JPEG runs (`vspbfr_tpu`'s split loader). The
+    dataset's quantize_gt, gray_prob and config apply; `shard_index` /
+    `shard_count` pick a data-parallel rank's share of each epoch
+    (`DataLoader`). Yields (lq, gt), both (B, H, W, 3) f32 in [-1, 1] on
+    `device`."""
 
     def __init__(self, dataset, batch_size: int, *, device="cuda",
                  num_workers: int = 8, prefetch: int = 4, seed: int = 0,
-                 shard_index: int = 0, shard_count: int = 1):
+                 shard_index: int = 0, shard_count: int = 1,
+                 lookahead: int = 2, jpeg: str = "device"):
+        if jpeg not in ("device", "host"):
+            raise ValueError(f"jpeg={jpeg!r}: 'device' or 'host'")
         self.ds = dataset
         self.device = torch.device(device)
         self.dd = DeviceDegrader(size=dataset.im_size[0], cfg=dataset.config)
         self.gray_prob = float(dataset.gray_prob or 0.0)
         self.quantize_gt = dataset.quantize_gt
+        self.jpeg = jpeg
+        self.lookahead = max(1, lookahead)
         self.inner = DataLoader(_GTView(dataset), batch_size,
                                 num_workers=num_workers, prefetch=prefetch,
                                 seed=seed, shard_index=shard_index,
@@ -280,11 +340,32 @@ class DeviceDegradeLoader:
                                for f in dataclasses.fields(DegradeParams)])
 
     def forever(self, start_epoch: int = 0, start_batch: int = 0):
-        for gt_u8, seeds in self.inner.forever(start_epoch, start_batch):
+        batches = self.inner.forever(start_epoch, start_batch)
+        if self.jpeg == "device":
+            for gt_u8, seeds in batches:
+                seeds = np.asarray(seeds, np.uint32)
+                gt = torch.as_tensor(gt_u8).to(self.device, non_blocking=True)
+                yield self.dd.degrade_all(gt, self.params(seeds), seeds,
+                                          self.quantize_gt)
+            return
+        inflight: collections.deque = collections.deque()
+
+        def submit():
+            gt_u8, seeds = next(batches)
             seeds = np.asarray(seeds, np.uint32)
-            gt = torch.as_tensor(gt_u8).to(self.device, non_blocking=True)
-            yield self.dd.degrade_all(gt, self.params(seeds), seeds,
-                                      self.quantize_gt)
+            p = self.params(seeds)
+            gt = torch.as_tensor(gt_u8).to(self.device).float() / 255.0
+            inflight.append((gt, p, self.dd.stage_a(gt, p, seeds)))
+
+        for _ in range(self.lookahead):
+            submit()
+        while True:
+            gt, p, small = inflight.popleft()
+            small = small.cpu().numpy()     # waits for batch n's stage_a ...
+            submit()                        # ... n+1's is queued behind it
+            jpg = torch.as_tensor(self.dd.host_jpeg(small, p)).to(self.device)
+            lq = self.dd.stage_b(jpg, p)
+            yield lq * 2.0 - 1.0, _finish_gt(gt, p.gray, self.quantize_gt)
 
 
 @dataclasses.dataclass
