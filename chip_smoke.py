@@ -161,10 +161,29 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              mean and 99th-percentile |diff| against `host_jpeg.py`, the
              C++ JPEG equal to `host_jpeg.py`, and stage_a / stage_b at
              sigma 0 against the numpy chain on the same parameters.
+15. packed - the space-to-depth layout at packed_min_res 512 (the JAX
+             CLIs' default): (a) K1 at the assembled packed shapes, K1e
+             and K6 with nc = 4 noise (one value a phase) and the grouped
+             K2 (groups 4) against their plain versions in f32 and bf16,
+             with the library's call (cuDNN; for K2 cuDNN's grouped
+             dilated convs + cat) and the bound, then their gradients
+             against plain autograd and K6's double backward with nc = 4;
+             (b) phase 5's seeded modules (noise gains 0.1) on 4 faces at
+             512 against 0 with explicit equal noise: f32 under the
+             serving gate; bf16 as close to the f32 output as bf16 at 0 is
+             (within 1.5x); launches (the new forms' counters too, and
+             with `VSPBFR_FUSED_EPI=1`), peak memory, `restore` in turns
+             0, 512, 512, 0 with the `upto=` split; (c) phase 4's config
+             at packed_min_res 64 card vs CPU under the serving gate; (d)
+             the stage-3 CLI (512 px, bf16, b4, 3 steps, R1 at step 0) and
+             the stage-2 CLI (256 px, bf16, b16, 3 steps) at 512 in their
+             own processes (`NO_CV_TRAIN`): finite losses, the paths'
+             kernels and forms launching, step medians beside phases 8's
+             and 7's, the backward calls of the kernels' Functions.
 
-Phases 5, 7, 8, 11, 12, 13 and 14 also count the calls of K6's and K7's plain
-versions on CUDA tensors (`ops.plain_cuda_calls`), which must stay 0: on
-the card the main paths run the kernels.
+Phases 5, 7, 8, 11, 12, 13, 14 and 15 (b)-(d) also count the calls of K6's
+and K7's plain versions on CUDA tensors (`ops.plain_cuda_calls`), which
+must stay 0: on the card the main paths run the kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -194,7 +213,7 @@ from vspbfr_tpu_torch.cli.profile import d2s_library, s2d_library
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
           "restore", "smart", "experiments", "convert", "sample", "parallel",
-          "hostdata")
+          "hostdata", "packed")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -213,6 +232,13 @@ KERNEL_INFO = {
                       "vspbfr_tpu/ops/pallas_epilogue.py:96"),
     "fused_leaky_relu": ("vspbfr_tpu_torch/csrc/fused_act.cu",
                          "vspbfr_tpu/ops/fused_act.py:52"),
+    # the space-to-depth layout's forms (counted apart, `ops.form_counts`)
+    "dilated_multi_conv_grouped": ("vspbfr_tpu_torch/csrc/dilated_conv.cu",
+                                   "vspbfr_tpu/ops/pallas_dilated.py:180"),
+    "conv_epilogue_nc4": ("vspbfr_tpu_torch/csrc/epilogue.cu",
+                          "vspbfr_tpu/ops/pallas_epilogue.py:96"),
+    "dense_conv_epilogue_nc4": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
+                                "vspbfr_tpu/ops/pallas_conv.py:524"),
     "interleave_stack": ("vspbfr_tpu_torch/csrc/interleave.cu",
                          "scripts/exp_interleave.py:73"),
     "interleave_repeat": ("vspbfr_tpu_torch/csrc/interleave.cu",
@@ -243,7 +269,23 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                 "sample": ("dense_conv", "d2s", "conv_epilogue",
                            "fused_leaky_relu"),
                 "parallel": ("dense_conv", "dilated_multi_conv", "d2s",
-                             "s2d", "conv_epilogue", "fused_leaky_relu")}
+                             "s2d", "conv_epilogue", "fused_leaky_relu"),
+                # phase 15, packed_min_res 512: serving, serving with the
+                # switch on, the stage-3 and stage-2 CLIs
+                "packed": ("dense_conv", "dilated_multi_conv", "d2s", "s2d",
+                           "conv_epilogue", "fused_leaky_relu",
+                           "dilated_multi_conv_grouped", "conv_epilogue_nc4"),
+                "packed_fused": ("dense_conv_epilogue",
+                                 "dense_conv_epilogue_nc4", "dense_conv",
+                                 "dilated_multi_conv_grouped", "d2s",
+                                 "conv_epilogue", "fused_leaky_relu"),
+                "packed_restore": ("dense_conv", "dilated_multi_conv", "d2s",
+                                   "s2d", "conv_epilogue",
+                                   "fused_leaky_relu",
+                                   "dilated_multi_conv_grouped",
+                                   "conv_epilogue_nc4"),
+                "packed_train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
+                                 "fused_leaky_relu", "conv_epilogue_nc4")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 # phase 5's seeded full-width modules and faces, which phases 11 and 12
@@ -348,8 +390,9 @@ def phase_build():
             raise AssertionError(f"{kernel}: spills or no ptxas report: "
                                  f"{spills}")
     REPORT["tensor_core_lines"] = {}
+    by_kernel = sass_counts(lib.path, tuple(SASS_REQUIRED))
     for kernel, required in SASS_REQUIRED.items():
-        counts = sass_counts(lib.path, kernel)
+        counts = by_kernel[kernel]
         for fn, c in sorted(counts.items()):
             say("  " + " ".join(f"{op} {c[op]:4d}" for op in SASS_OPS)
                 + f" lines in {demangle(fn)}")
@@ -400,25 +443,28 @@ def ptxas_report(log: str, kernels) -> dict[str, dict]:
     return out
 
 
-def sass_counts(so, kernel: str) -> dict[str, dict[str, int]]:
-    """Lines of each of SASS_OPS (HMMA: mma.sync; HGMMA: wgmma; UTMALDG: a
-    TMA load) in the SASS of each function of the library whose (mangled)
-    name holds `kernel`."""
+def sass_counts(so, kernels) -> dict[str, dict[str, dict[str, int]]]:
+    """For each of `kernels`: lines of each of SASS_OPS (HMMA: mma.sync;
+    HGMMA: wgmma; UTMALDG: a TMA load) in the SASS of each function of the
+    library whose (mangled) name holds it, from one disassembly."""
     from vspbfr_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
+    counts = {k: {} for k in kernels}
+    cur = None    # the function's counts, when it is one of the kernels'
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if kernel in fn:
-                counts[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn in counts:
+            kernel = next((k for k in kernels if k in fn), None)
+            cur = None
+            if kernel is not None:
+                cur = counts[kernel][fn] = dict.fromkeys(SASS_OPS, 0)
+        elif cur is not None:
             for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    counts[fn][op] += 1
+                if op in line and re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
     return counts
 
 
@@ -2945,7 +2991,9 @@ HOSTDATA_TIMEOUT = 300  # seconds one phase-14 training process may take
 
 # runs a trainer CLI (argv: CLI module, output JSON, its flags) where any
 # import of cv2, PIL, JAX or the JAX package fails, timing each wait on its
-# loader (the host clock from asking for a batch to receiving it)
+# loader (the host clock from asking for a batch to receiving it) and
+# counting the backward calls of the kernels' autograd Functions (the
+# backward rows' launches in PERF.md)
 NO_CV_TRAIN = (
     "import importlib, json, sys, time\n"
     "for m in ('cv2', 'PIL', 'jax', 'vspbfr_tpu'):\n"
@@ -2954,6 +3002,21 @@ NO_CV_TRAIN = (
     "torch.backends.cudnn.allow_tf32 = False\n"
     "torch.backends.cuda.matmul.allow_tf32 = False\n"
     "from vspbfr_tpu_torch import ops\n"
+    "dense_conv, dilated_conv, epilogue, smart = (\n"
+    "    importlib.import_module('vspbfr_tpu_torch.ops.' + m) for m in\n"
+    "    ('dense_conv', 'dilated_conv', 'epilogue', 'smart'))\n"
+    "backwards = {}\n"
+    "def counted(cls, name):\n"
+    "    backward = cls.backward\n"
+    "    def count(ctx, *g):\n"
+    "        backwards[name] = backwards.get(name, 0) + 1\n"
+    "        return backward(ctx, *g)\n"
+    "    cls.backward = staticmethod(count)\n"
+    "for cls, name in ((dense_conv._DenseConvEpi, 'dense_conv_epilogue'),\n"
+    "                  (dilated_conv._DilatedMulti, 'dilated_multi_conv'),\n"
+    "                  (smart._SmartCore, 'smart_core'),\n"
+    "                  (epilogue._ConvEpilogue, 'conv_epilogue')):\n"
+    "    counted(cls, name)\n"
     "cli = importlib.import_module('vspbfr_tpu_torch.cli.' + sys.argv[1])\n"
     "waits, build = [], cli.build_loader\n"
     "def timed_loader(*a, **kw):\n"
@@ -2975,6 +3038,7 @@ NO_CV_TRAIN = (
     "torch.cuda.synchronize()\n"
     "with open(sys.argv[2], 'w') as f:\n"
     "    json.dump(dict(report=report, launches=ops.launch_counts(),\n"
+    "                   forms=ops.form_counts(), backwards=backwards,\n"
     "                   plain=ops.plain_cuda_calls(), waits=waits,\n"
     "                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),\n"
     "              f)\n")
@@ -3026,12 +3090,13 @@ def _host_chain_cli(res, key, module, flags, kernels, losses, tmp):
     waits = rec["waits"][:3]       # the loop asks for a 4th batch, then ends
     res[key] = dict(step_seconds=secs, median_step_ms=med * 1e3,
                     loader_wait_s=waits, launches=rec["launches"],
+                    backward_calls=rec["backwards"],
                     peak_gib=rec["peak_gib"], wall_s=wall, losses=steps)
     say(f"hostdata {key}: step seconds {[round(x, 4) for x in secs]}, "
         f"median (first excluded) {med * 1e3:.1f} ms; seconds waiting on "
         f"the loader before each step {[round(x, 4) for x in waits]}"
         f"; peak {rec['peak_gib']:.3f} GiB, wall {wall:.1f} s incl. init; "
-        f"launches {rec['launches']}")
+        f"launches {rec['launches']}; backward calls {rec['backwards']}")
 
 
 def _loader_rate(make, batches: int = 8, sync: bool = False) -> float:
@@ -3225,6 +3290,605 @@ def phase_hostdata():
     REPORT["hostdata"] = res
 
 
+# --- phase 15 ---------------------------------------------------------------
+
+PACKED_PMR = 512   # the JAX CLIs' default threshold
+
+
+def _packed_conv_cases():
+    """(label, x shape, unpacked w shape, form) of the convs the packed
+    path at packed_min_res 512 runs as one K1 each, b4 at full width: the
+    assembled stride-1 kernels of the decoder's 1024 px and both models'
+    512 px levels, SMART's d1 + d2 pair, the up-convs into and within the
+    packed levels and the encoder's down-conv out of them."""
+    return [("styled 1024px C32 packed", (4, 512, 512, 128), (3, 3, 32, 32),
+             "s1"),
+            ("styled 512px C64 packed", (4, 256, 256, 256), (3, 3, 64, 64),
+             "s1"),
+            ("SMART d1+d2 512px C64 packed", (4, 256, 256, 256),
+             (3, 3, 64, 16), "d12"),
+            ("up-conv 256->512 packed out", (4, 256, 256, 128),
+             (3, 3, 128, 64), "up"),
+            ("up-conv 512->1024 packed", (4, 256, 256, 256), (3, 3, 64, 32),
+             "up_packed"),
+            ("down-conv 512->256 packed in", (4, 256, 256, 256),
+             (3, 3, 64, 128), "down")]
+
+
+def _packed_weight(rand, dt, ws, form):
+    """(assembled kernel in dt, pads) of a `_packed_conv_cases` entry."""
+    from vspbfr_tpu_torch.ops import packed as pk
+    from vspbfr_tpu_torch.ops.modulated_conv import d12_kernel
+
+    scale = 1.0 / (9 * ws[2]) ** 0.5
+    if form == "d12":
+        wp, py, px = d12_kernel(rand(*ws) * scale, rand(*ws) * scale)
+    else:
+        wp, py, px = pk.assembled_kernel(rand(*ws) * scale, form)
+    return wp.to(dt).contiguous(), (tuple(py), tuple(px))
+
+
+def _nc4_operands(rand, dt, xs, pieces):
+    """kwargs of `conv_epilogue` for an output of shape xs with one noise
+    value a phase (nc = 4): "s" out_scale, "n" noise, "b" bias + lrelu,
+    each "p" a post-add, "2" the second noise / bias / lrelu stage."""
+    b, h, w, c = xs
+    kw = {"act": "b" in pieces}
+    if "s" in pieces:
+        kw["out_scale"] = rand(b, c, scale=0.2, offset=1.0).to(dt)
+    if "n" in pieces:
+        kw["noise"] = rand(b, h, w, 4, scale=0.3).to(dt)
+    if "b" in pieces:
+        kw["bias"] = rand(c, scale=0.3).to(dt)
+    if "p" in pieces:
+        kw["post_add"] = tuple(rand(*xs).to(dt)
+                               for _ in range(pieces.count("p")))
+    if "2" in pieces:
+        kw.update(noise2=rand(b, h, w, 4, scale=0.3).to(dt),
+                  bias2=rand(c, scale=0.3).to(dt), act2=True)
+    return kw
+
+
+# (x shape, pieces, label) of K6 with nc = 4 on the packed path: a styled
+# conv's epilogue, the RestoreNet up-conv's with its two skips, the SMART
+# tail's two stages
+NC4_K6_CASES = (((4, 512, 512, 128), "snb", "styled 1024px C32 packed"),
+                ((4, 256, 256, 256), "snbpp",
+                 "chain: up-conv, 2 skips, 512px packed"),
+                ((4, 256, 256, 256), "b2", "chain: SMART tail 512px packed"))
+# (x shape, unpacked w shape, pieces, label) of K1e with nc = 4
+NC4_K1E_CASES = (((4, 512, 512, 128), (3, 3, 32, 32), "snb",
+                  "styled 1024px C32 packed"),
+                 ((4, 256, 256, 256), (3, 3, 64, 64), "b2",
+                  "SMART fusion 512px C64 packed +stage2"))
+# the grouped K2 of the packed SMART: x, Cb, dilations on the half grid
+GROUPED_K2 = ((4, 256, 256, 256), 16, (2, 4),
+              "SMART d4+d8 512px C64 packed")
+
+
+def _packed_kernel_rows(rows, rand, dt_name, dt):
+    """(a) K1 at the assembled shapes, K1e, K6 with nc = 4 and the grouped
+    K2 against their plain versions: error, CUDA-event medians of the
+    kernel, the plain version and the library's call (cuDNN for K1; for
+    K2 the composition of cuDNN's grouped dilated convs + the
+    concatenation), the bound."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.cli.profile import copies, device_ms, k6_work
+    from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
+
+    def f32(kw):
+        return {k: (tuple(t.float() for t in v) if k == "post_add" else
+                    v.float() if torch_is_tensor(v) else v)
+                for k, v in kw.items()}
+
+    for label, xs, ws, form in _packed_conv_cases():
+        x = rand(*xs).to(dt)
+        w, pads = _packed_weight(rand, dt, ws, form)
+        s = rand(xs[0], xs[3], scale=0.2, offset=1.0).to(dt)
+        got = ops.dense_conv(x, w, pads, in_scale=s)
+        ref = ops.dense_conv_plain(x.float(), w.float(), pads, s.float())
+        ms = cuda_ms(lambda: ops.dense_conv(x, w, pads, in_scale=s))
+        pms = cuda_ms(lambda: ops.dense_conv_plain(x, w, pads, s))
+        xs_ = x * s[:, None, None, :]
+        lms = cuda_ms(lambda: conv_nhwc(xs_, w, 1, pads))
+        _check("dense_conv", label, dt_name, got, ref, ms, pms, rows,
+               flops=conv_flops(x.shape, w.shape, got.shape) + x.numel(),
+               moved=nbytes(x, w, s, got), library_ms=lms,
+               assembled=tuple(w.shape))
+        del x, w, s, got, ref, xs_
+    for xs, ws, pieces, label in NC4_K1E_CASES:
+        x = rand(*xs).to(dt)
+        w, pads = _packed_weight(rand, dt, ws, "s1")
+        b, h, wd, c = xs
+        kw = _nc4_operands(rand, dt, (b, h, wd, w.shape[3]), pieces)
+        if "s" in pieces:
+            kw["in_scale"] = rand(b, c, scale=0.2, offset=1.0).to(dt)
+        before = ops.form_counts()["dense_conv_epilogue_nc4"]
+        got = ops.dense_conv_epilogue(x, w, pads, **kw)
+        if ops.form_counts()["dense_conv_epilogue_nc4"] != before + 1:
+            raise AssertionError(f"K1e nc4 {label}: not one launch")
+        ref = ops.dense_conv_epilogue_plain(x.float(), w.float(), pads,
+                                            **f32(kw))
+        ms = cuda_ms(lambda: ops.dense_conv_epilogue(x, w, pads, **kw))
+        pms = cuda_ms(lambda: ops.dense_conv_epilogue_plain(x, w, pads,
+                                                            **kw))
+        isc = kw.get("in_scale")
+        xs_ = x if isc is None else x * isc[:, None, None, :]
+        cms = cuda_ms(lambda: conv_nhwc(xs_, w, 1, pads))
+        flops, moved = epi_work(x, w, kw, got)
+        _check("dense_conv_epilogue_nc4", label, dt_name, got, ref, ms, pms,
+               rows, flops=flops, moved=moved, cudnn_conv_ms=cms)
+        del x, w, kw, got, ref, xs_
+    for xs, pieces, label in NC4_K6_CASES:
+        x = rand(*xs).to(dt)
+        kw = _nc4_operands(rand, dt, xs, pieces)
+        before = ops.form_counts()["conv_epilogue_nc4"]
+        got = ops.conv_epilogue(x, **kw)
+        if ops.form_counts()["conv_epilogue_nc4"] != before + 1:
+            raise AssertionError(f"K6 nc4 {label}: not one launch")
+        ref = ops.epilogue_plain_chain(x.float(), **f32(kw))
+        ms = cuda_ms(lambda: ops.conv_epilogue(x, **kw))
+        flops, moved = k6_work(x, kw)
+
+        def k6_call(xs=xs, pieces=pieces):
+            x2 = rand(*xs).to(dt)
+            kw2 = _nc4_operands(rand, dt, xs, pieces)
+            return lambda: ops.conv_epilogue(x2, **kw2)
+        dms = device_ms(copies(k6_call, moved))
+        pms = cuda_ms(lambda: ops.epilogue_plain_chain(x, **kw))
+        _check("conv_epilogue_nc4", label, dt_name, got, ref, ms, pms, rows,
+               flops=flops, moved=moved, device_ms=dms)
+        del x, kw, got, ref
+    xs, cb, dils, label = GROUPED_K2
+    cg = xs[3] // 4
+    x = rand(*xs).to(dt)
+    wl = [(rand(3, 3, cg, cb) / (9 * cg) ** 0.5).to(dt) for _ in dils]
+    s = rand(xs[0], xs[3], scale=0.2, offset=1.0).to(dt)
+    o = rand(xs[0], 4 * cb * len(dils), scale=0.2, offset=1.0).to(dt)
+    before = ops.form_counts()["dilated_multi_conv_grouped"]
+    got = ops.dilated_multi_conv(x, wl, dils, groups=4, in_scale=s,
+                                 out_scale=o)
+    if ops.form_counts()["dilated_multi_conv_grouped"] != before + 1:
+        raise AssertionError("grouped K2: not one launch")
+    ref = ops.dilated_multi_conv_plain(x.float(), [w.float() for w in wl],
+                                       dils, s.float(), o.float(), groups=4)
+    ms = cuda_ms(lambda: ops.dilated_multi_conv(x, wl, dils, groups=4,
+                                                in_scale=s, out_scale=o))
+    pms = cuda_ms(lambda: ops.dilated_multi_conv_plain(x, wl, dils, s, o,
+                                                       groups=4))
+    # no one library call computes it: cuDNN's grouped dilated convs (the
+    # shared weights tiled over the groups) on x * in_scale and the
+    # concatenation stand beside it
+    xs_ = x * s[:, None, None, :]
+    tiled = [torch.cat([w] * 4, dim=-1) for w in wl]
+    cms = cuda_ms(lambda: torch.cat(
+        [conv_nhwc(xs_, w, 1, ((d, d), (d, d)), dilation=d, groups=4)
+         for w, d in zip(tiled, dils)], dim=-1))
+    _check("dilated_multi_conv_grouped", label, dt_name, got, ref, ms, pms,
+           rows, flops=2 * got.numel() * 9 * cg,
+           moved=nbytes(x, *wl, s, o, got), composition_ms=cms)
+    say(f"{'':20s} {label:28s} {dt_name:4s} cuDNN grouped dilated convs + "
+        f"cat (composition) {cms:.4f} ms")
+    del x, wl, s, o, got, ref, xs_, tiled
+
+
+def _packed_grads(rows, rand, dt_name, dt):
+    """The new forms' gradients against plain autograd: the grouped K2
+    Function (dx, both shared weights, d_in_scale, d_out_scale), K6 and
+    K1e with nc = 4 (every operand; the elements within 1e-5 of an
+    activation's kink get no incoming gradient), and K6's double backward
+    with nc = 4 noise (R1's pattern through the SMART tail's chain)."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    xs, cb, dils, label = GROUPED_K2
+    cg = xs[3] // 4
+    leaves = [rand(*xs).to(dt)]
+    leaves += [(rand(3, 3, cg, cb) / (9 * cg) ** 0.5).to(dt) for _ in dils]
+    leaves += [rand(xs[0], xs[3], scale=0.2, offset=1.0).to(dt),
+               rand(xs[0], 4 * cb * len(dils), scale=0.2, offset=1.0).to(dt)]
+    for t in leaves:
+        t.requires_grad_()
+
+    def k2(x, w4, w8, s, o, fn=ops.dilated_multi_conv):
+        return fn(x, [w4, w8], dils, in_scale=s, out_scale=o, groups=4)
+
+    def k2_plain(*a):
+        return k2(*a, fn=ops.dilated_multi_conv_plain)
+
+    g = rand(xs[0], xs[1], xs[2], 4 * cb * len(dils)).to(dt)
+    got, ref, ms, pms = _grads_vs_plain(k2, k2_plain, leaves, g)
+    # the timed backward: dx and dw, each the forward's multiply-adds
+    work = dict(flops=2 * 2 * g.numel() * 9 * cg,
+                moved=nbytes(*leaves, g, *leaves))
+    for i, (name, a, b) in enumerate(zip(
+            ("dx", "dw4", "dw8", "d_in_scale", "d_out_scale"), got, ref)):
+        _check(f"dilated_multi_conv_grouped_grad {name}", label, dt_name, a,
+               b, ms if i == 0 else float("nan"),
+               pms if i == 0 else float("nan"), rows,
+               **(work if i == 0 else {}))
+    del leaves, g, got, ref
+
+    xs, pieces, label = NC4_K6_CASES[2]
+    x = rand(*xs).to(dt)
+    kw = _nc4_operands(rand, dt, xs, pieces)
+    flags = {k: kw.pop(k) for k in ("act", "act2")}
+    names = list(kw)
+    leaves = [x, *kw.values()]
+    for t in leaves:
+        t.requires_grad_()
+
+    def k6(x_, *o, fn=ops.conv_epilogue):
+        return fn(x_, **dict(zip(names, o)), **flags)
+
+    def k6_plain(*a):
+        return k6(*a, fn=ops.epilogue_plain_chain)
+
+    # the pre-activations of both stages, from the plain chain in f32
+    u = ops.epilogue_plain(x.detach().float(),
+                           bias=kw["bias"].detach().float(), act=False)
+    keep = _kink_keep(u) & _kink_keep(ops.epilogue_plain_chain(
+        u, act=True, noise2=kw["noise2"].detach().float(),
+        bias2=kw["bias2"].detach().float()))
+    g = (rand(*xs) * keep).to(dt)
+    got, ref, ms, pms = _grads_vs_plain(k6, k6_plain, leaves, g)
+    # the timed backward reads g and y (or x) and writes dx
+    work = dict(flops=2 * x.numel(), moved=nbytes(g, x, x))
+    for i, (name, a, b) in enumerate(zip(["dx", *names], got, ref)):
+        _check(f"conv_epilogue_nc4_grad {name}", label, dt_name, a, b,
+               ms if i == 0 else float("nan"),
+               pms if i == 0 else float("nan"), rows,
+               kink_share=1.0 - float(keep.float().mean()),
+               **(work if i == 0 else {}))
+    del x, kw, leaves, g, got, ref, u, keep
+
+    def r1(fn, x_, b_, **kw_):
+        x_ = x_.detach().requires_grad_()
+        b_ = b_.detach().requires_grad_()
+        (gx,) = torch.autograd.grad((fn(x_, bias=b_, **kw_).float() ** 2)
+                                    .sum(), x_, create_graph=True)
+        return torch.autograd.grad((gx.float() ** 2).sum(), b_)[0]
+
+    x, bias = rand(*xs).to(dt), rand(xs[3], scale=0.3).to(dt)
+    tail = dict(noise2=rand(*xs[:3], 4, scale=0.3).to(dt),
+                bias2=rand(xs[3], scale=0.3).to(dt), act2=True)
+    tail32 = {k: (v.float() if torch_is_tensor(v) else v)
+              for k, v in tail.items()}
+    got = r1(ops.conv_epilogue, x, bias, **tail)
+    ref = r1(ops.epilogue_plain_chain, x.float(), bias.float(), **tail32)
+    ms = cuda_ms(lambda: r1(ops.conv_epilogue, x, bias, **tail), iters=5)
+    pms = cuda_ms(lambda: r1(ops.epilogue_plain_chain, x, bias, **tail),
+                  iters=5)
+    _check("conv_epilogue_nc4_grad r1 d_bias", label, dt_name, got, ref, ms,
+           pms, rows)
+    del x, bias, tail, got, ref
+
+    xs, ws, pieces, label = NC4_K1E_CASES[0]
+    x = rand(*xs).to(dt)
+    w, pads = _packed_weight(rand, dt, ws, "s1")
+    b, h, wd, c = xs
+    kw = _nc4_operands(rand, dt, (b, h, wd, w.shape[3]), pieces)
+    kw["in_scale"] = rand(b, c, scale=0.2, offset=1.0).to(dt)
+    flags = {k: kw.pop(k) for k in ("act",)}
+    names = list(kw)
+    leaves = [x, w, *kw.values()]
+    for t in leaves:
+        t.requires_grad_()
+    keep = kink_free(x.detach(), w.detach(), pads,
+                     {**{k: v.detach() for k, v in kw.items()}, **flags})
+
+    def k1e(x_, w_, *o, fn=ops.dense_conv_epilogue, dt_=dt):
+        kw_ = dict(zip(names, o))
+        if fn is not ops.dense_conv_epilogue:   # round x * in_scale as K1e
+            x_ = scaled_input(x_, kw_.pop("in_scale"), dt_)
+        return fn(x_, w_, pads, **kw_, **flags)
+
+    def k1e_plain(*a):
+        return k1e(*a, fn=ops.dense_conv_epilogue_plain)
+
+    g = (rand(b, h, wd, w.shape[3]) * keep).to(dt)
+    flops, moved = epi_work(x, w, {**kw, **flags}, g)
+    got, ref, ms, pms = _grads_vs_plain(k1e, k1e_plain, leaves, g)
+    # the timed backward: dx and dw, each a conv of the forward's size,
+    # plus the epilogue's elementwise work again
+    work = dict(flops=2 * flops, moved=2 * moved)
+    for i, (name, a, b_) in enumerate(zip(["dx", "dw", *names], got, ref)):
+        _check(f"dense_conv_epilogue_nc4_grad {name}", label, dt_name, a, b_,
+               ms if i == 0 else float("nan"),
+               pms if i == 0 else float("nan"), rows,
+               kink_share=1.0 - float(keep.float().mean()),
+               **(work if i == 0 else {}))
+    del x, w, kw, leaves, g, got, ref, keep
+
+
+def _noise_maps(shapes, seed, device):
+    """Seeded N(0, 1) maps of the given shapes (explicit noise: both
+    layouts read the same values)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=device) for s in shapes]
+
+
+def _serving_gate(name, got, ref, gate: bool = True) -> dict:
+    """mean |err| and max |err| relative to ref's range; with `gate`, the
+    serving gate (mean <= 1e-3, max <= 1e-2) raises."""
+    import torch
+
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite")
+    span = float(ref.max() - ref.min())
+    err = (got - ref).abs()
+    out = dict(range=span, mean_rel=float(err.mean()) / span,
+               max_rel=float(err.max()) / span)
+    say(f"{name}: range {span:.4f} mean|err|/range {out['mean_rel']:.3e} "
+        f"max|err|/range {out['max_rel']:.3e}")
+    if gate and (out["mean_rel"] > 1e-3 or out["max_rel"] > 1e-2):
+        raise AssertionError(f"{name}: out of the serving gate")
+    return out
+
+
+def _packed_launches(fn) -> dict:
+    """Every kernel's and form's launches during fn() (counts set to 0
+    just before)."""
+    from vspbfr_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    fn()
+    return {**ops.launch_counts(), **ops.form_counts()}
+
+
+def _packed_serving(res):
+    """(b) Phase 5's seeded full-width modules (noise gains set to 0.1, so
+    that the noise paths count) at packed_min_res 512 against the same
+    weights at 0 on 4 faces with explicit equal noise, f32 and bf16, under
+    the serving gate; launches and peak memory; `restore` in turns, 0,
+    512, 512, 0, with the `upto=` split; the switch on (K1e with nc = 4)."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    base = SEEDED.get("pipe")
+    if base is None:
+        base = RestorationPipeline().init_from_seed(0).eval()
+    sd = {k: torch.full_like(v, 0.1) if k.endswith("noise.weight") else v
+          for k, v in base.state_dict().items()}
+    faces = SEEDED.get("faces")
+    if faces is None:
+        faces = synthetic_faces(4, 512, seed=5)
+    low = torch.tensor(faces[:4], device="cuda")
+    draws = _draws(base, 4, 15, "cuda")
+    draws["decoder_noise"] = _noise_maps(
+        base.psp.decoder.noise_shapes(4), 16, "cuda")
+    draws["noise"] = _noise_maps(base.generator.noise_shapes(4), 17, "cuda")
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        pipes = {}
+        for pmr in (0, PACKED_PMR):
+            p = RestorationPipeline(compute_dtype=dt, packed_min_res=pmr)
+            p.load_state_dict(sd)
+            pipes[pmr] = p.cuda().eval().prepare_params()
+
+        def run(pmr, upto="full", sample=True):
+            return pipes[pmr].restore(
+                low, torch.Generator(device="cuda").manual_seed(0),
+                upto=upto, return_sample=sample and upto == "full",
+                draws=draws)
+
+        torch.cuda.reset_peak_memory_stats()
+        counts = _packed_launches(lambda: run(PACKED_PMR))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        missing = [k for k in PATH_KERNELS["packed"] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"packed serve {mode}: kernels never "
+                                 f"launched: {missing}")
+        outs = dict(zip(("restored", "sample"), zip(run(PACKED_PMR),
+                                                     run(0))))
+        if dt is None:
+            # f32: the serving gate, 512 against 0; kept as bf16's reference
+            ref32 = {k: v[1].float().cpu() for k, v in outs.items()}
+            gates = {k: _serving_gate(f"packed serve f32 {k} 512 vs 0", *v)
+                     for k, v in outs.items()}
+        else:
+            # bf16: two bf16 roundings of the same sums disagree by more
+            # than the serving gate, whatever the layout, at these random
+            # weights (bf16 against f32 is ~25-35 dB PSNR); so each layout
+            # is held to the f32 output at 0, and 512 must be as close to
+            # it as 0 is (within 1.5x, mean and max); 512 against 0 in
+            # bf16 is reported
+            gates = {}
+            for k, (pk_, flat_) in outs.items():
+                e512 = _serving_gate(f"packed serve bf16 {k} 512 vs f32 0",
+                                     pk_, ref32[k], gate=False)
+                e0 = _serving_gate(f"packed serve bf16 {k} 0 vs f32 0",
+                                   flat_, ref32[k], gate=False)
+                gates[k] = dict(vs_f32_512=e512, vs_f32_0=e0,
+                                vs_bf16_0=_serving_gate(
+                                    f"packed serve bf16 {k} 512 vs 0",
+                                    pk_, flat_, gate=False))
+                if (e512["mean_rel"] > 1.5 * e0["mean_rel"]
+                        or e512["max_rel"] > 1.5 * e0["max_rel"]):
+                    raise AssertionError(f"packed serve bf16 {k}: 512 "
+                                         "further from f32 than 0 is")
+        del outs
+        turns = {0: [], PACKED_PMR: []}
+        for pmr in (0, PACKED_PMR, PACKED_PMR, 0):
+            turns[pmr].append(cuda_ms(lambda: run(pmr), iters=5, warmup=1))
+        split = {}
+        for pmr in (0, PACKED_PMR):
+            ms = {u: cuda_ms(lambda: run(pmr, u), iters=3, warmup=1)
+                  for u in ("encode", "ddpm", "decode", "full")}
+            split[pmr] = {"encode": ms["encode"],
+                          "ddpm": ms["ddpm"] - ms["encode"],
+                          "decode": ms["decode"] - ms["ddpm"],
+                          "restore": ms["full"] - ms["decode"]}
+        with fused_epi("1"):
+            fused = _packed_launches(lambda: run(PACKED_PMR))
+        missing = [k for k in PATH_KERNELS["packed_fused"] if fused[k] == 0]
+        if missing:
+            raise AssertionError(f"packed serve {mode}, switch on: kernels "
+                                 f"never launched: {missing}")
+        med = {pmr: statistics.median(v) for pmr, v in turns.items()}
+        say(f"packed serve {mode} b4 with the sample image (ms, medians of 5 "
+            f"in turns 0, 512, 512, 0): pmr 0 {turns[0]}, pmr 512 "
+            f"{turns[PACKED_PMR]}; imgs/s {4e3 / med[0]:.3f} / "
+            f"{4e3 / med[PACKED_PMR]:.3f}; split (medians of 3) " + "; ".join(
+                f"pmr {pmr}: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                           sp.items())
+                for pmr, sp in split.items())
+            + f"; peak {peak:.3f} GiB; launches {counts}; switch on "
+            f"{fused}")
+        res[mode] = dict(launches=counts, fused_launches=fused,
+                         peak_gib=peak, gates=gates,
+                         turns_ms={str(k): v for k, v in turns.items()},
+                         imgs_per_s={str(k): 4e3 / v for k, v in med.items()},
+                         split_ms={str(k): v for k, v in split.items()})
+        del pipes
+        torch.cuda.empty_cache()
+
+
+def _packed_card_vs_cpu(res):
+    """(c) Phase 4's mid-size config at packed_min_res 64 (half its size),
+    card (kernels) against CPU (plain versions), same weights, draws and
+    explicit noise (gains 0.1)."""
+    import torch
+
+    from vspbfr_tpu_torch.models.e4e import TINY_STAGES
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    cfg = dict(size=128, decoder_size=256, encode_size=64,
+               encoder_stages=TINY_STAGES, channel_div=4, packed_min_res=64)
+    cpu = RestorationPipeline(**cfg).init_from_seed(1).eval()
+    _condition_diffuser(cpu)
+    with torch.no_grad():
+        for k, v in cpu.named_parameters():
+            if k.endswith("noise.weight"):
+                v.fill_(0.1)
+    card = RestorationPipeline(**cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().eval()
+    low = torch.tensor(synthetic_faces(1, 128, seed=2))
+    noise = {"decoder_noise": _noise_maps(
+        cpu.psp.decoder.noise_shapes(1), 18, "cpu"),
+        "noise": _noise_maps(cpu.generator.noise_shapes(1), 19, "cpu")}
+
+    def draws(device):
+        d = _draws(cpu, 1, 3, device)
+        d.update({k: [t.to(device) for t in v] for k, v in noise.items()})
+        return d
+
+    outs = {}
+    counts = _packed_launches(lambda: outs.update(card=card.restore(
+        low.cuda(), None, return_sample=True, draws=draws("cuda"))))
+    outs["cpu"] = cpu.restore(low, None, return_sample=True,
+                              draws=draws("cpu"))
+    gates = {name: _serving_gate(f"packed slice {name} card vs CPU",
+                                 g, c)
+             for name, g, c in zip(("restored", "sample"), outs["card"],
+                                   outs["cpu"])}
+    missing = [k for k in PATH_KERNELS["packed"] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"packed slice: kernels never launched: "
+                             f"{missing}")
+    say(f"packed slice (size 128, decoder 256, channel_div 4, pmr 64, b1): "
+        f"launches {counts}")
+    res["slice"] = dict(launches=counts, gates=gates)
+
+
+def _packed_cli(res, key, module, flags, kernels, losses, tmp):
+    """(d) One trainer CLI at --packed_min_res 512 in its own process
+    (`NO_CV_TRAIN`): the path's kernels and forms must launch, no plain K6
+    / K7 may run on the card, every loss must be finite; step medians,
+    peak memory, launches and the backward calls of the kernels'
+    Functions."""
+    out = os.path.join(tmp, key)
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_CV_TRAIN, module, out + ".json",
+         "--out", out, "--device", "cuda", "--seed", "0", "--iter", "3",
+         "--train_dtype", "bf16", "--save_inter", "100000",
+         "--show_inter", "100000", "--packed_min_res", str(PACKED_PMR),
+         *flags],
+        cwd=HERE, capture_output=True, text=True, timeout=HOSTDATA_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"packed {key}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out + ".json") as f:
+        rec = json.load(f)
+    steps = rec["report"]["steps"]
+    if len(steps) != 3 or not all(np.isfinite(s[k]) for s in steps
+                                  for k in losses):
+        raise AssertionError(f"packed {key}: steps {steps}")
+    if "r1" in losses and not steps[0]["r1"] > 0:
+        raise AssertionError(f"packed {key}: no R1 at step 0")
+    counts = {**rec["launches"], **rec["forms"]}
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"packed {key}: kernels never launched "
+                             f"{missing}")
+    if any(rec["plain"].values()):
+        raise AssertionError(f"packed {key}: a plain version ran on the "
+                             f"card: {rec['plain']}")
+    secs = [s["seconds"] for s in steps]
+    med = statistics.median(secs[1:])
+    res[key] = dict(step_seconds=secs, median_step_ms=med * 1e3,
+                    launches=counts, backward_calls=rec["backwards"],
+                    peak_gib=rec["peak_gib"], losses=steps)
+    say(f"packed {key}: step seconds {[round(x, 4) for x in secs]}, median "
+        f"(first excluded) {med * 1e3:.1f} ms; peak {rec['peak_gib']:.3f} "
+        f"GiB; launches {counts}; backward calls {rec['backwards']}")
+
+
+def phase_packed():
+    """The space-to-depth layout at packed_min_res 512 (the JAX CLIs'
+    default): (a) the new kernel forms and K1 at the assembled shapes
+    against plain, with their gradients; (b) serving, 512 against 0; (c)
+    the card against the CPU at the mid-size config; (d) both trainer
+    CLIs at --packed_min_res 512."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def rand(*shape, scale=1.0, offset=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    res = {"kernels": []}
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        _packed_kernel_rows(res["kernels"], rand, dt_name, dt)
+        torch.cuda.empty_cache()
+        _packed_grads(res["kernels"], rand, dt_name, dt)
+        torch.cuda.empty_cache()
+    res["serve"] = {}
+    # (b)-(d) are the main paths: no plain K6 / K7 on the card there ((a)
+    # calls the plain versions on purpose, as phases 3 and 6 do)
+    with no_plain_on_card("packed"), tempfile.TemporaryDirectory() as tmp:
+        _packed_serving(res["serve"])
+        _packed_card_vs_cpu(res)
+        faces512 = os.path.join(tmp, "faces512")
+        _face_dir(faces512, 8, 512, seed=14)
+        faces256 = os.path.join(tmp, "faces256")
+        _face_dir(faces256, 16, 256, seed=15)
+        _packed_cli(res, "stage3", "train_restore",
+                    ["--path", faces512, "--size", "512", "--decoder_size",
+                     "1024", "--batch", "4"], PATH_KERNELS["packed_restore"],
+                    ("d", "r1", "real_score", "fake_score", "g", "gan",
+                     "percept", "id"), tmp)
+        _packed_cli(res, "stage2", "train_diffuser",
+                    ["--path", faces256, "--size", "256", "--decoder_size",
+                     "1024", "--batch", "16"], PATH_KERNELS["packed_train"],
+                    ("loss", "l1", "kl", "percept", "id"), tmp)
+    for key, phase in (("stage3", "restore"), ("stage2", "train")):
+        unpacked = REPORT.get(phase, {}).get("bf16", {}).get("median_step_ms")
+        res[key]["unpacked_median_step_ms"] = unpacked
+        say(f"packed {key} bf16 median step {res[key]['median_step_ms']:.1f}"
+            f" ms at 512, beside phase {phase}'s bf16 at 0: {unpacked}")
+    REPORT["packed"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -3255,9 +3919,15 @@ def main() -> None:
                 "hostdata_restore":
                     REPORT["hostdata"]["stage3_host"]["launches"],
                 "hostdata_train":
-                    REPORT["hostdata"]["stage2_jpeg_host"]["launches"]}
+                    REPORT["hostdata"]["stage2_jpeg_host"]["launches"],
+                "packed": REPORT["packed"]["serve"]["f32"]["launches"],
+                "packed_fused":
+                    REPORT["packed"]["serve"]["bf16"]["fused_launches"],
+                "packed_restore": REPORT["packed"]["stage3"]["launches"],
+                "packed_train": REPORT["packed"]["stage2"]["launches"]}
     for name, (src, replaces) in KERNEL_INFO.items():
-        rows = [r for r in REPORT["kernels"] + REPORT["grads"]
+        rows = [r for r in (REPORT["kernels"] + REPORT["grads"]
+                            + REPORT["packed"]["kernels"])
                 if r["kernel"] == name and r["dtype"] == "f32"]
         big = max(rows, key=lambda r: r["plain_ms"])
         path = next(p for p, ks in PATH_KERNELS.items() if name in ks)
@@ -3270,7 +3940,7 @@ def main() -> None:
                         "bound_by": big["bound_by"],
                         "library_ms": big["library_ms"],
                         "case": big["case"], "path": path,
-                        "launches_by_path": {p: c[name]
+                        "launches_by_path": {p: c.get(name)
                                              for p, c in launches.items()},
                         **{k: big[k] for k in ("composition_ms",
                                                "device_ms") if k in big}})

@@ -243,9 +243,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             1, 5, device=dev))
     with pytest.raises(ValueError, match="post_add"):
         ops.dense_conv_epilogue(x, w, pads, post_add=(x,))
-    with pytest.raises(ValueError, match="noise"):
+    with pytest.raises(ValueError, match="noise"):   # nc is 1 or 4
         ops.dense_conv_epilogue(x, w, pads, noise=torch.zeros(
-            1, 4, 4, 4, device=dev))
+            1, 4, 4, 2, device=dev))
     with pytest.raises(TypeError):
         ops.dense_conv_epilogue(x, w, pads, bias=torch.zeros(
             4, device=dev, dtype=torch.bfloat16))
@@ -1019,3 +1019,180 @@ def test_experiment_kernels_count_launches_and_refuse(dev):
         ops.stripe_conv(x.bfloat16(),
                         torch.zeros(17, 17, 16, 8, device=dev).bfloat16(),
                         ((8, 8), (8, 8)))
+
+
+# --- the space-to-depth layout's forms: K2 grouped, K6 / K1e nc = 4 --------
+# K2 with groups = 4: each group's Cg input channels staged at their offset
+# of a wider x, the shared weights, the group's output block; cases put the
+# group width off 8 (plain-load fill), the branch width off every tile
+# (ragged), the image under the dilations' reach. K6 and K1e with one noise
+# value a phase: C / 4 off the vector width (the per-element path), on it
+# (one value a vector), a second stage, post-adds.
+
+GROUPED_CASES = [   # (hw, Cg, cos, dils)
+    ((6, 10), 5, (3, 5), (1, 2)),          # Cg 5: plain loads, odd widths
+    ((4, 4), 8, (4, 4), (2, 4)),           # halo > image
+    ((9, 13), 16, (20, 12), (2, 4)),       # a branch past the 16 tile
+    ((16, 16), 64, (16, 16), (2, 4)),      # the packed SMART's form
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,cg,cos,dils", GROUPED_CASES)
+def test_dilated_multi_grouped_matches_plain(dev, dtype, hw, cg, cos, dils):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, g = 2, 4
+    x = _rand(gen, dev, b, *hw, g * cg).to(dtype)
+    ws = [(_rand(gen, dev, 3, 3, cg, c) * 0.3).to(dtype) for c in cos]
+    s = _rand(gen, dev, b, g * cg, scale=0.2, offset=1.0).to(dtype)
+    o = _rand(gen, dev, b, g * sum(cos), scale=0.2, offset=1.0).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.dilated_multi_conv(x, ws, dils, groups=g, in_scale=s,
+                                 out_scale=o)
+    assert ops.form_counts()["dilated_multi_conv_grouped"] == 1
+    ref = ops.dilated_multi_conv_plain(x.float(), [w.float() for w in ws],
+                                       dils, s.float(), o.float(), groups=g)
+    _assert_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,cg,cos,dils", GROUPED_CASES[:3])
+def test_dilated_multi_grouped_grads_match_plain_autograd(dev, dtype, hw, cg,
+                                                          cos, dils):
+    """Every operand's gradient of the grouped K2 Function (the shared
+    weights' the sum over the groups) against plain autograd in f32."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, g = 2, 4
+    x = _rand(gen, dev, b, *hw, g * cg).to(dtype)
+    ws = [(_rand(gen, dev, 3, 3, cg, c) * 0.3).to(dtype) for c in cos]
+    s = _rand(gen, dev, b, g * cg, scale=0.2, offset=1.0).to(dtype)
+    o = _rand(gen, dev, b, g * sum(cos), scale=0.2, offset=1.0).to(dtype)
+    leaves = [x, *ws, s, o]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = ops.dilated_multi_conv(x, ws, dils, groups=g, in_scale=s,
+                                 out_scale=o)
+    gy = _rand(gen, dev, *out.shape).to(dtype)
+    got = torch.autograd.grad(out, leaves, gy)
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(ops.dilated_multi_conv_plain(
+        rl[0], rl[1:-2], dils, rl[-2], rl[-1], groups=g), rl, gy.float())
+    for a, r in zip(got, ref):
+        _assert_close(a, r, dtype)
+
+
+# (shape, pieces): s scale, n noise, b bias, p a post-add, 2 stage 2
+NC4_CASES = [
+    ((2, 5, 7, 12), "snb"),      # C / 4 = 3: per element
+    ((2, 4, 6, 32), "snb"),      # C / 4 = 8: one value a vector
+    ((1, 3, 5, 20), "snbp"),     # post-adds
+    ((2, 6, 4, 4), "sn"),        # one channel a phase
+    ((3, 5, 3, 48), "b2"),       # the SMART tail: noise2 packed
+]
+
+
+def _nc4_case(gen, dev, dtype, shape, pieces):
+    b, h, w, c = shape
+    kw = {}
+    if "s" in pieces:
+        kw["out_scale"] = _rand(gen, dev, b, c, scale=0.2, offset=1.0)
+    if "n" in pieces:
+        kw["noise"] = _rand(gen, dev, b, h, w, 4, scale=0.3)
+    if "b" in pieces:
+        kw["bias"] = _rand(gen, dev, c, scale=0.3)
+    if "p" in pieces:
+        kw["post_add"] = (_rand(gen, dev, *shape),)
+    if "2" in pieces:
+        kw.update(noise2=_rand(gen, dev, b, h, w, 4, scale=0.3),
+                  bias2=_rand(gen, dev, c, scale=0.3), act2=True)
+    return {k: (tuple(t.to(dtype) for t in v) if k == "post_add" else
+                v.to(dtype) if torch.is_tensor(v) else v)
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pieces", NC4_CASES)
+def test_conv_epilogue_nc4_matches_plain(dev, dtype, shape, pieces):
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = _rand(gen, dev, *shape).to(dtype)
+    kw = _nc4_case(gen, dev, dtype, shape, pieces)
+    ops.reset_launch_counts()
+    got = ops.conv_epilogue(x, **kw)
+    assert ops.form_counts()["conv_epilogue_nc4"] == 1
+    _assert_close(got, ops.epilogue_plain_chain(x.float(), **_f32(kw)),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pieces", [NC4_CASES[0], NC4_CASES[4]])
+def test_conv_epilogue_nc4_grads_match_plain_autograd(dev, dtype, shape,
+                                                      pieces):
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = _rand(gen, dev, *shape).to(dtype)
+    kw = _nc4_case(gen, dev, dtype, shape, pieces)
+    names = [k for k, v in kw.items() if torch.is_tensor(v)]
+    leaves = [x.requires_grad_()] + [kw[k].requires_grad_() for k in names]
+    out = ops.conv_epilogue(x, **kw)
+    gy = _rand(gen, dev, *out.shape).to(dtype)
+    got = torch.autograd.grad(out, leaves, gy)
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref_out = ops.epilogue_plain_chain(
+        rl[0], **dict(zip(names, rl[1:])),
+        **{k: v for k, v in kw.items() if k not in names})
+    for a, r in zip(got, torch.autograd.grad(ref_out, rl, gy.float())):
+        _assert_close(a, r, dtype)
+
+
+def test_conv_epilogue_nc4_double_backward_matches_plain(dev):
+    """R1's pattern through K6 with one noise value a phase: the noise's
+    gradient of |dL/dx|^2."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x = _rand(gen, dev, 2, 6, 6, 32)
+    nz = _rand(gen, dev, 2, 6, 6, 4, scale=0.5)
+    osc = _rand(gen, dev, 2, 32, scale=0.2, offset=1.0)
+
+    def r1(fn):
+        xt, nt = x.clone().requires_grad_(), nz.clone().requires_grad_()
+        (gx,) = torch.autograd.grad((fn(xt, osc, nt) ** 2).sum(), xt,
+                                    create_graph=True)
+        return torch.autograd.grad((gx ** 2).sum(), nt)[0]
+
+    _assert_close(r1(ops.conv_epilogue), r1(ops.epilogue_plain),
+                  torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,co,stage2", [((2, 7, 9, 8), 12, False),
+                                             ((1, 6, 6, 16), 36, True),
+                                             ((2, 9, 5, 20), 64, False)])
+def test_dense_conv_epilogue_nc4_matches_plain(dev, dtype, shape, co, stage2):
+    """K1e with one noise value a phase, and its gradient."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    b, h, w_, ci = shape
+    pads = ((1, 1), (1, 1))
+    x = _rand(gen, dev, *shape).to(dtype)
+    w = (_rand(gen, dev, 3, 3, ci, co) * 0.2).to(dtype)
+    s = _rand(gen, dev, b, ci, scale=0.2, offset=1.0).to(dtype)
+    kw = _nc4_case(gen, dev, dtype, (b, h, w_, co),
+                   "snb2" if stage2 else "snbp")
+    ops.reset_launch_counts()
+    got = ops.dense_conv_epilogue(x, w, pads, in_scale=s, **kw)
+    assert ops.form_counts()["dense_conv_epilogue_nc4"] == 1
+    ref = ops.dense_conv_epilogue_plain(x.float(), w.float(), pads,
+                                        s.float(), **_f32(kw))
+    _assert_close(got, ref, dtype)
+    if not stage2:
+        return
+    names = [k for k, v in kw.items() if torch.is_tensor(v)]
+    leaves = [x, w, s] + [kw[k] for k in names]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = ops.dense_conv_epilogue(x, w, pads, in_scale=s, **kw)
+    gy = _rand(gen, dev, *out.shape).to(dtype)
+    got = torch.autograd.grad(out, leaves, gy)
+    rl = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref_out = ops.dense_conv_epilogue_plain(
+        _scaled_input(rl[0], rl[2], dtype), rl[1], pads,
+        **dict(zip(names, rl[3:])), act2=True)
+    for a, r in zip(got, torch.autograd.grad(ref_out, rl, gy.float())):
+        _assert_close(a, r, dtype)

@@ -222,13 +222,26 @@ def test_forward_primitive_returns_stage1_sign_mask(rng, n_post, stage2):
 
 
 def test_chain_refuses_what_the_kernel_does_not_take():
+    """A second stage with the packed layout's nc = 4 noise2 is taken and
+    equals JAX's `_epi_ref`; other noise widths, noises of two widths,
+    more or misshapen post-adds and a wrong bias2 raise."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 4, 4, 8)).astype(np.float32)
+    nz2 = rng.standard_normal((1, 4, 4, 4)).astype(np.float32)
+    ref = _epi_ref(jnp.asarray(x), None, None, None, True,
+                   noise2=jnp.asarray(nz2), act2=True)
+    assert_rel(ops.conv_epilogue(torch.tensor(x), noise2=torch.tensor(nz2),
+                                 act2=True), ref, 1e-5)
     x = torch.zeros(1, 4, 4, 8)
     with pytest.raises(ValueError, match="post_add"):
         ops.conv_epilogue(x, post_add=(x, x, x))
     with pytest.raises(ValueError, match="post_add"):
         ops.conv_epilogue(x, post_add=(x[..., :4],))
-    with pytest.raises(NotImplementedError, match="packed"):
-        ops.conv_epilogue(x, noise2=torch.zeros(1, 4, 4, 4))
+    with pytest.raises(ValueError, match="nc must be 1 or 4"):
+        ops.conv_epilogue(x, noise2=torch.zeros(1, 4, 4, 3))
+    with pytest.raises(ValueError, match="nc must be 1 or 4"):
+        ops.conv_epilogue(x, noise=torch.zeros(1, 4, 4, 1),
+                          noise2=torch.zeros(1, 4, 4, 4))
     with pytest.raises(ValueError, match="bias2"):
         ops.conv_epilogue(x, bias2=torch.zeros(4))
 

@@ -40,6 +40,7 @@ from vspbfr_tpu.ops import fused_act as jfa  # noqa: E402
 from vspbfr_tpu.ops.packed import depth_to_space, space_to_depth  # noqa: E402
 from vspbfr_tpu.ops.pallas_epilogue import (  # noqa: E402
     conv_epilogue as j_conv_epilogue,
+    epilogue_ref,
 )
 from vspbfr_tpu.ops.pallas_smart import (  # noqa: E402
     smart_core as j_smart_core,
@@ -135,10 +136,21 @@ def test_conv_epilogue_function_is_twice_differentiable(rng, check):
     assert check(lambda x, o, n, b: ops.conv_epilogue(x, o, n, b), args)
 
 
-def test_conv_epilogue_refuses_packed_noise_and_other_devices():
+def test_conv_epilogue_refuses_packed_noise_and_other_devices(rng):
+    """The packed layout's nc = 4 noise (one value a phase) is taken and
+    equals JAX's `epilogue_ref`; other numbers of noise values a pixel,
+    nc = 4 where C is no multiple of 4, a wrong bias and other devices
+    raise."""
+    x, nz = _rand(rng, 1, 4, 4, 8), _rand(rng, 1, 4, 4, 4)
+    assert_rel(ops.conv_epilogue(T(x), noise=T(nz)),
+               epilogue_ref(jnp.asarray(x), None, jnp.asarray(nz), None,
+                            True), 1e-5)
     x = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(NotImplementedError, match="packed"):
-        ops.conv_epilogue(x, noise=torch.zeros(1, 4, 4, 4))
+    with pytest.raises(ValueError, match="nc must be 1 or 4"):
+        ops.conv_epilogue(x, noise=torch.zeros(1, 4, 4, 2))
+    with pytest.raises(ValueError, match="nc must be 1 or 4"):
+        ops.conv_epilogue(torch.zeros(1, 4, 4, 6),
+                          noise=torch.zeros(1, 4, 4, 4))
     with pytest.raises(ValueError, match="bias"):
         ops.conv_epilogue(x, bias=torch.zeros(4))
     with pytest.raises(ValueError, match="no kernel"):

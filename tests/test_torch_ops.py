@@ -32,6 +32,7 @@ from vspbfr_tpu.ops.pallas_conv import (  # noqa: E402
 from vspbfr_tpu.ops.pallas_d2s import _d2s_pallas, _s2d_pallas  # noqa: E402
 from vspbfr_tpu.ops.pallas_dilated import (  # noqa: E402
     _multi_pallas,
+    _multi_ref,
     dilated_multi_conv,
 )
 from vspbfr_tpu_torch import ops  # noqa: E402
@@ -188,10 +189,24 @@ def test_dilated_multi_grads_match_jax_vjp(rng, isc, osc):
         assert_rel(a, r, rel=1e-5)
 
 
-def test_dilated_multi_refuses_groups():
+def test_dilated_multi_refuses_groups(rng):
+    """groups = 4 (the packed layout's form: the weights shared by the
+    groups, tiled along Co) is taken and equals `_multi_ref`; groups that
+    do not divide Ci, weights of another group width and a wrong
+    out_scale width raise."""
+    x = _rand(rng, 1, 4, 4, 8)
+    w = _rand(rng, 3, 3, 2, 4, scale=0.3)
+    ref = _multi_ref(jnp.asarray(x), (jnp.asarray(w),), None, None, (2,), 4)
+    assert_rel(ops.dilated_multi_conv(T(x), [T(w)], (2,), groups=4), ref,
+               rel=1e-5)
     x = torch.zeros(1, 4, 4, 8)
-    with pytest.raises(NotImplementedError):
-        ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=4)
+    with pytest.raises(ValueError, match="groups do not divide"):
+        ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=3)
+    with pytest.raises(ValueError, match="weights"):
+        ops.dilated_multi_conv(x, [torch.zeros(3, 3, 4, 4)], (2,), groups=4)
+    with pytest.raises(ValueError, match="out_scale"):
+        ops.dilated_multi_conv(x, [torch.zeros(3, 3, 2, 4)], (2,), groups=4,
+                               out_scale=torch.ones(1, 4))
 
 
 def test_every_c_entry_point_has_its_signature():
@@ -482,10 +497,12 @@ def test_compose_blur_and_assembly_match_jax(rng):
     d_ref = jmc.compose_blur_kernel(jnp.asarray(w), taps, gain=4.0)
     d_got = tmc.compose_blur_kernel(T(w), taps, gain=4.0)
     assert_rel(d_got, d_ref)
-    m_ref, m_got = jpk._map_up(6, 1, False), tmc._map_up(6, 1)
+    # the assembly helpers live in the port's ops/packed.py
+    tpk = importlib.import_module("vspbfr_tpu_torch.ops.packed")
+    m_ref, m_got = jpk._map_up(6, 1, False), tpk._map_up(6, 1, False)
     assert [m_ref(a, 0) for a in (0, 1)] == [m_got(a, 0) for a in (0, 1)]
     wp_ref, py_ref, px_ref = jpk._assemble2(d_ref, m_ref, m_ref, 1, 2)
-    wp_got, py_got, px_got = tmc._assemble2(d_got, m_got, m_got, 1, 2)
+    wp_got, py_got, px_got = tpk._assemble2(d_got, m_got, m_got, 1, 2)
     assert (py_ref, px_ref) == (py_got, px_got)
     assert_rel(wp_got, wp_ref)
 

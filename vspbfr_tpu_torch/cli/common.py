@@ -21,6 +21,28 @@ def tiny_pipeline_kwargs(tiny: bool) -> dict:
             if tiny else {})
 
 
+def add_packed_min_res(p) -> None:
+    """The CLIs' `--packed_min_res` (the JAX CLIs' flag)."""
+    p.add_argument(
+        "--packed_min_res", type=int, default=0,
+        help="space-to-depth layout threshold: the decoder's and "
+             "RestoreNet's resolutions at or above it run packed; 0 (the "
+             "default) for none, else a power of two above 4 and at most "
+             "the larger of --size and --decoder_size. The JAX CLIs default "
+             "to 512 (a TPU choice: it fills the 128-lane channel axis); on "
+             "the H100 a packed stride-1 3x3 conv does 4x the multiply-adds "
+             "of the unpacked one, so the port defaults to 0 (PERF.md has "
+             "the measured cost of 512)")
+
+
+def check_packed_min_res(p, args) -> None:
+    """Refuse a `--packed_min_res` the models cannot take (parser error)."""
+    v, top = args.packed_min_res, max(args.size, args.decoder_size)
+    if v and not (4 < v <= top and v & (v - 1) == 0):
+        p.error(f"--packed_min_res {v}: 0, or a power of two above 4 and at "
+                f"most {top}")
+
+
 def wire_loss_nets(lpips: nn.Module, id_net: nn.Module,
                    lpips_ckpt: str | None, arcface_ckpt: str | None,
                    percept_weight: float, id_weight: float) -> None:

@@ -22,7 +22,11 @@ import time
 
 import torch
 
-from vspbfr_tpu_torch.cli.common import tiny_pipeline_kwargs
+from vspbfr_tpu_torch.cli.common import (
+    add_packed_min_res,
+    check_packed_min_res,
+    tiny_pipeline_kwargs,
+)
 from vspbfr_tpu_torch.data import RestoreTestDataset, save_image
 from vspbfr_tpu_torch.evaluation import PairScorer
 from vspbfr_tpu_torch.losses import (
@@ -54,9 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--decoder_size", type=int, default=1024,
                    help="frozen StyleGAN2 decoder resolution")
-    p.add_argument("--packed_min_res", type=int, default=0, choices=[0],
-                   help="space-to-depth layout threshold; the port runs the "
-                        "unpacked layout only")
+    add_packed_min_res(p)
     p.add_argument("--debug", action="store_true",
                    help="truncate each dataset to 10 batches")
     p.add_argument("--save_images", action=argparse.BooleanOptionalAction,
@@ -86,13 +88,16 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {"datasets": {name: {...}}} with per-batch
     seconds of `restore` and of the scoring (host clock, each ending in a
     device sync) and the scores."""
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    check_packed_min_res(p, args)
     device = torch.device(args.device)
     pipe = RestorationPipeline(size=args.size, decoder_size=args.decoder_size,
                                mixing_prob=args.mixing,
                                channel_multiplier=args.channel_multiplier,
                                compute_dtype=torch.bfloat16 if args.bf16
                                else None,
+                               packed_min_res=args.packed_min_res,
                                **tiny_pipeline_kwargs(args.tiny))
     if args.ckpt:
         sd = torch.load(args.ckpt, map_location="cpu", weights_only=True)

@@ -33,7 +33,9 @@ import torch
 
 from vspbfr_tpu_torch.cli.common import (
     add_loader_flags,
+    add_packed_min_res,
     build_loader,
+    check_packed_min_res,
     tiny_pipeline_kwargs,
     train_batch,
     wire_loss_nets,
@@ -95,9 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--decoder_size", type=int, default=1024,
                    help="frozen StyleGAN2 decoder resolution")
-    p.add_argument("--packed_min_res", type=int, default=0, choices=[0],
-                   help="space-to-depth layout threshold; the port runs the "
-                        "unpacked layout only")
+    add_packed_min_res(p)
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="trace N steps (after 4 warm-up steps) with "
                         "torch.profiler into <out>/trace")
@@ -159,6 +159,7 @@ def build_trainer(args, device, dp: DataParallel) -> DiffuserTrainer:
     pipe = RestorationPipeline(size=args.size, timesteps=args.timesteps,
                                decoder_size=args.decoder_size,
                                channel_multiplier=args.channel_multiplier,
+                               packed_min_res=args.packed_min_res,
                                **tiny_pipeline_kwargs(args.tiny))
     trainer = DiffuserTrainer(cfg, pipe, dp).init_from_seed(args.seed)
     if args.psp_ckpt:
@@ -176,7 +177,9 @@ def main(argv=None) -> dict:
     [{"it", "seconds", metric: value}]} with per-step host-clock seconds,
     each ending in a device sync (reading the metrics), the metrics
     averaged over the ranks."""
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    check_packed_min_res(p, args)
     if args.debug:
         args.save_inter, args.show_inter = 20, 200
     with distributed(args.device) as device:

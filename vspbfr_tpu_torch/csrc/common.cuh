@@ -122,10 +122,12 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
 //     y = lrelu(u + noise2[pix] + bias2[c]) * sqrt2  (stage 2)
 //
 // every piece optional. x, y and the post-adds are in the working dtype T;
-// osc (B, C), noise and noise2 (one value a pixel), bias and bias2 (C) in
+// osc (B, C), noise and noise2 (nc values a pixel), bias and bias2 (C) in
 // O, float or bf16, each rounded to T as it is read (what the JAX
 // wrappers' astype(x.dtype) does). The arithmetic is f32 in registers; y
-// is stored once, in T.
+// is stored once, in T. nc is 1, or 4 in the space-to-depth layout, where
+// channel c of a pixel adds its phase's value, phase c / (C / 4)
+// (`_expand_matrix`, pallas_epilogue.py:33, as an index).
 //
 // Bound by bytes (read x and the post-adds, write y; a few flops an
 // element). The design:
@@ -137,8 +139,9 @@ inline cudaError_t set_smem(K kernel, size_t bytes) {
 //   bytes a thread: one division finds a vector's first pixel and
 //   channel; VEC = 1 serves pointers that are not 16-byte aligned; the
 //   last n % VEC elements go one a thread;
-// - WHOLE (C % VEC == 0 and the scale and bias rows 16-byte aligned): the
-//   vector lies in one pixel, so its noises are one load each and its
+// - WHOLE (C % VEC == 0, with nc = 4 also (C / 4) % VEC == 0, and the
+//   scale and bias rows 16-byte aligned): the vector lies in one pixel and
+//   one phase, so its noises are one load each and its
 //   scale and bias values one 16-byte row access each (the rows stay in
 //   L1); otherwise the lanes step on channel by channel from the first
 //   and read their operands an element at a time;
@@ -165,10 +168,10 @@ struct StreamArgs {
   const T* x;
   T* y;
   const O* osc;               // (B, C)
-  const O* noise;             // (B, H, W): one value a pixel
+  const O* noise;             // (B, H, W, nc): nc values a pixel
   const O* bias;              // (C)
   const T* post[kEpiPost];    // like x, added after stage 1's activation
-  const O* noise2;            // stage 2: one value a pixel
+  const O* noise2;            // stage 2: like noise
   const O* bias2;             // (C)
   unsigned char* mask;        // like x, out: stage 1's pre-activation >= 0
   int n_post;
@@ -177,7 +180,15 @@ struct StreamArgs {
   float gain, sgain, gain2, sgain2;
   int n;                      // elements (< 2^31)
   int C, HW;
+  int nc = 1, cq = 0;         // noise values a pixel (1 or 4); C / nc
 };
+
+// Where the noise value of (pixel, channel c) lies.
+template <typename T, typename O>
+__device__ __forceinline__ int noise_at(const StreamArgs<T, O>& a, int pix,
+                                        int c) {
+  return a.nc == 1 ? pix : pix * a.nc + c / a.cq;
+}
 
 // One operand value, read through the read-only path, rounded to T.
 __device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
@@ -260,8 +271,9 @@ __device__ __forceinline__ void stream_vec(const StreamArgs<T, O>& a,
   // each lane's scale (1 where absent), noise + bias and noise2 + bias2
   float os[VEC], a1[VEC], a2[VEC];
   if constexpr (WHOLE) {   // one pixel: its noises once, the rows as vectors
-    const float nz = SN && a.noise ? ld_op<T>(a.noise + pix) : 0.f;
-    const float nz2 = S2 && a.noise2 ? ld_op<T>(a.noise2 + pix) : 0.f;
+    const int q = SN || S2 ? noise_at(a, pix, c) : 0;
+    const float nz = SN && a.noise ? ld_op<T>(a.noise + q) : 0.f;
+    const float nz2 = S2 && a.noise2 ? ld_op<T>(a.noise2 + q) : 0.f;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) os[e] = 1.f, a1[e] = 0.f, a2[e] = 0.f;
     if (SN && a.osc) ld_row<T>(a.osc + b * C + c, os);
@@ -281,10 +293,11 @@ __device__ __forceinline__ void stream_vec(const StreamArgs<T, O>& a,
           ++b;
         }
       }
+      const int q = SN || S2 ? noise_at(a, pix, c) : 0;
       os[e] = SN && a.osc ? ld_op<T>(a.osc + b * C + c) : 1.f;
       a1[e] = (a.bias ? ld_op<T>(a.bias + c) : 0.f) +
-              (SN && a.noise ? ld_op<T>(a.noise + pix) : 0.f);
-      a2[e] = S2 ? (a.noise2 ? ld_op<T>(a.noise2 + pix) : 0.f) +
+              (SN && a.noise ? ld_op<T>(a.noise + q) : 0.f);
+      a2[e] = S2 ? (a.noise2 ? ld_op<T>(a.noise2 + q) : 0.f) +
                        (a.bias2 ? ld_op<T>(a.bias2 + c) : 0.f)
                  : 0.f;
     }

@@ -186,12 +186,16 @@ __host__ __device__ constexpr int smem_bytes(int SH, int SW, int taps) {
 }
 
 // What one block's passes read: the stripe at (row0, col0) of image b, of
-// SH x SW pixels, and taps KH x KW spaced d apart.
+// SH x SW pixels, and taps KH x KW spaced d apart, over Ci input channels
+// from channel coff of x, whose pixels lie cs elements apart (0: Ci; K2's
+// groups read one group's Ci of a wider x).
 struct Pass {
   int H, W, Ci;
   int b, row0, col0, SH, SW;
   int KH, KW, d;
   bool vec_x;
+  int cs = 0, coff = 0;
+  __device__ __forceinline__ int stride() const { return cs ? cs : Ci; }
 };
 
 // Where a 16-byte segment of a staged weight row comes from: its first
@@ -420,12 +424,13 @@ struct FullStripe {
     const int dr = STEP / s.SW, dc = STEP % s.SW;
     int sp = tid / kXSegs;
     int r = sp / s.SW, col = sp % s.SW;
-    const T* img = x + (size_t)s.b * s.H * s.W * s.Ci + c;
+    const int cs = s.stride();
+    const T* img = x + (size_t)s.b * s.H * s.W * cs + s.coff + c;
     for (; sp < s.SH * s.SW; sp += STEP) {
       const int iy = s.row0 + r, ix = s.col0 + col;
       const bool in = cin && (unsigned)iy < (unsigned)s.H &&
                       (unsigned)ix < (unsigned)s.W;
-      const T* src = in ? img + ((size_t)iy * s.W + ix) * s.Ci : x;
+      const T* src = in ? img + ((size_t)iy * s.W + ix) * cs : x;
       load_seg<T>(xs + sp * kXRow + seg * 16, src, in ? s.Ci - c : 0,
                   s.vec_x);
       r += dr;
@@ -465,8 +470,9 @@ __device__ __forceinline__ void stage_pass(const T* __restrict__ x,
                 wseg.vec);
   }
   if (isc && tid < CK)
-    iscs[tid] = c0 + tid < s.Ci ? to_f(isc[(size_t)s.b * s.Ci + c0 + tid])
-                                : 0.f;
+    iscs[tid] = c0 + tid < s.Ci
+                    ? to_f(isc[(size_t)s.b * s.stride() + s.coff + c0 + tid])
+                    : 0.f;
 }
 
 // The staged stripe times the pass's input scales, rounded to T (as

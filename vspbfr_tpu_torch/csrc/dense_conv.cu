@@ -54,7 +54,10 @@
 // the first activation, the wrapper may ask for that activation's sign as
 // one byte per output element (`mask`): the backward needs it, and
 // recovering it from the rounded bf16 output flips it wherever the first
-// stage's value is within rounding of 0.
+// stage's value is within rounding of 0. The noises have nc = 1 value a
+// pixel, or in the space-to-depth layout nc = 4, one a phase: channel co
+// of Co adds the value of phase co / (Co / 4), `_expand_matrix`
+// (pallas_epilogue.py:33) as an index instead of a product.
 #include "conv_tile.cuh"
 
 namespace vspbfr {
@@ -68,28 +71,31 @@ constexpr int kMaxPost = 2;
 template <typename T>
 struct Epilogue {
   const T* osc;              // (B, Co) demod scale
-  const T* noise;            // (B, OH, OW, 1), already scaled by its gain
+  const T* noise;            // (B, OH, OW, nc), already scaled by its gain
   const T* bias;             // (Co)
   const T* post[kMaxPost];   // (B, OH, OW, Co), added after the activation
-  const T* noise2;           // second stage: (B, OH, OW, 1)
+  const T* noise2;           // second stage: (B, OH, OW, nc)
   const T* bias2;            // (Co)
   unsigned char* mask;       // (B, OH, OW, Co) out: first pre-activation >= 0
   int n_post, act, act2;
+  int nc, cq;                // noise values a pixel (1 or 4), Co / nc
 };
 
 template <typename T>
 __device__ __forceinline__ float apply_epilogue(const Epilogue<T>& e, float v,
                                                 int b, size_t pix, int co,
                                                 int Co) {
+  // the pixel's noise value for channel co: its phase's where nc = 4
+  const size_t nz = pix * e.nc + (e.nc > 1 ? co / e.cq : 0);
   if (e.osc) v *= to_f(e.osc[(size_t)b * Co + co]);
-  if (e.noise) v += to_f(e.noise[pix]);
+  if (e.noise) v += to_f(e.noise[nz]);
   if (e.bias) v += to_f(e.bias[co]);
   if (e.mask) e.mask[pix * Co + co] = v >= 0.f;
   if (e.act) v = lrelu_sqrt2(v);
 #pragma unroll
   for (int k = 0; k < kMaxPost; ++k)
     if (k < e.n_post) v += to_f(e.post[k][pix * Co + co]);
-  if (e.noise2) v += to_f(e.noise2[pix]);
+  if (e.noise2) v += to_f(e.noise2[nz]);
   if (e.bias2) v += to_f(e.bias2[co]);
   if (e.act2) v = lrelu_sqrt2(v);
   return v;
@@ -198,7 +204,7 @@ Epilogue<T> make_epilogue(const void* osc, const void* noise,
                           const void* bias, const void* post0,
                           const void* post1, const void* noise2,
                           const void* bias2, void* mask, int n_post, int act,
-                          int act2) {
+                          int act2, int nc, int Co) {
   Epilogue<T> e;
   e.osc = (const T*)osc;
   e.noise = (const T*)noise;
@@ -211,6 +217,8 @@ Epilogue<T> make_epilogue(const void* osc, const void* noise,
   e.n_post = n_post;
   e.act = act;
   e.act2 = act2;
+  e.nc = nc;
+  e.cq = Co / nc;
   return e;
 }
 
@@ -234,28 +242,31 @@ extern "C" int vspbfr_dense_conv(const void* x, const void* w, const void* isc,
 }
 
 // K1e: K1 with the styled epilogue in the store. Null operands are absent;
-// n_post <= 2; mask (uint8, the output's shape) is written when not null.
+// n_post <= 2; nc (1, or 4 with Co % 4 == 0) noise values a pixel; mask
+// (uint8, the output's shape) is written when not null.
 extern "C" int vspbfr_dense_conv_epi(
     const void* x, const void* w, const void* isc, void* y, const void* osc,
     const void* noise, const void* bias, const void* post0, const void* post1,
     const void* noise2, const void* bias2, void* mask, int n_post, int act,
-    int act2,
+    int act2, int nc,
     int dtype, int B, int H, int W, int Ci, int Co, int KH, int KW, int py0,
     int px0, int OH, int OW, void* stream) {
   using namespace vspbfr;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_post < 0 || n_post > kMaxPost) return (int)cudaErrorInvalidValue;
+  if (n_post < 0 || n_post > kMaxPost ||
+      !(nc == 1 || (nc == 4 && Co % 4 == 0)))
+    return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
     return launch<float, true>(
         x, w, isc, y, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW,
         make_epilogue<float>(osc, noise, bias, post0, post1, noise2, bias2,
-                             mask, n_post, act, act2),
+                             mask, n_post, act, act2, nc, Co),
         s);
   if (dtype == kBF16)
     return launch<__nv_bfloat16, true>(
         x, w, isc, y, B, H, W, Ci, Co, KH, KW, py0, px0, OH, OW,
         make_epilogue<__nv_bfloat16>(osc, noise, bias, post0, post1, noise2,
-                                     bias2, mask, n_post, act, act2),
+                                     bias2, mask, n_post, act, act2, nc, Co),
         s);
   return (int)cudaErrorInvalidValue;
 }

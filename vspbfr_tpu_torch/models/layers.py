@@ -1,10 +1,13 @@
 """StyleGAN2 / SMART building blocks as torch modules, NHWC.
 
-Counterpart of `vspbfr_tpu/models/layers.py` (unpacked layout only), plus
-torch versions of the three flax layers the JAX package uses directly
-(`Dense`, `Conv`, `LayerNorm`). Parameter names and layouts mirror the
-flax tree: linears (in, out), convs HWIO, and `convs_3/conv/weight` there
-is `convs.3.conv.weight` here (see `vspbfr_tpu_torch/convert.py`).
+Counterpart of `vspbfr_tpu/models/layers.py`, plus torch versions of the
+three flax layers the JAX package uses directly (`Dense`, `Conv`,
+`LayerNorm`). The `packed*` flags select the space-to-depth layout
+(`ops/packed.py`) of a layer's input and output, (B, R/2, R/2, 4C) with
+phase-major channels; the parameters are the same in either layout.
+Parameter names and layouts mirror the flax tree: linears (in, out), convs
+HWIO, and `convs_3/conv/weight` there is `convs.3.conv.weight` here (see
+`vspbfr_tpu_torch/convert.py`).
 
 Equalized-lr convention: weights are stored unscaled, drawn from N(0, 1)
 (divided by lr_mul for linears), and 1/sqrt(fan_in) (times lr_mul) is
@@ -13,12 +16,16 @@ applied at use time. Each module with parameters of its own defines
 distributions; `init_module` runs it over a whole tree.
 
 Noise injection draws (B, H, W, 1) float32 normals from an explicit
-`torch.Generator` when no noise tensor is passed.
+`torch.Generator` when no noise tensor is passed; a packed layer draws
+(B, h, w, 4), one value a phase, and takes given (B, 2h, 2w, 1) noise
+through `space_to_depth`.
 """
 
 from __future__ import annotations
 
 import math
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,10 +41,31 @@ from vspbfr_tpu_torch.ops.dense_conv import (
     conv2d_dense_epilogue,
     conv_nhwc,
 )
-from vspbfr_tpu_torch.ops.modulated_conv import fused_blur_strided_conv
+from vspbfr_tpu_torch.ops import packed as pk
+from vspbfr_tpu_torch.ops.modulated_conv import (
+    fused_blur_strided_conv,
+    modulated_conv2d_d12_packed,
+    modulated_conv2d_d48_packed,
+)
 
 BLUR_KERNEL = (1, 3, 3, 1)  # the FIR taps of every up/down path
 RATES = (1, 2, 4, 8)       # SMART / LargeConv dilation rates
+
+
+def _branch_major_perm(features: int, n_branches: int) -> tuple:
+    """The packed-channel permutation that maps the fusion conv's
+    phase-major (ph, br, cb) input onto the branch-major (br, ph, cb)
+    concatenation the SMART / LargeConv branches produce: perm[j] is the
+    packed channel held at data channel j (`_branch_major_perm`,
+    layers.py:40). Folded into the fusion's weight, never applied to the
+    tensor."""
+    cb = features // n_branches
+    perm = np.empty(4 * features, np.int64)
+    for br in range(n_branches):
+        for ph in range(4):
+            j = br * 4 * cb + ph * cb
+            perm[j:j + cb] = ph * features + br * cb + np.arange(cb)
+    return tuple(int(v) for v in perm)
 
 
 # ---------------------------------------------------------------------------
@@ -188,14 +216,20 @@ class EqualConv2d(nn.Module):
     """Equalized-lr conv (`models/RestoreNet.py:104-139`; dilated variant
     `:683-722`), bias only with use_bias. pre_blur=(pad0, pad1) composes a
     FIR blur with those pads into the kernel of a strided conv (one conv
-    instead of blur + conv, as the JAX package does)."""
+    instead of blur + conv, as the JAX package does). packed: the
+    space-to-depth layout in and out (stride 1), with packed_in_perm, a
+    permutation of the packed input channels, folded into the kernel."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 use_bias: bool = False, pre_blur: tuple | None = None):
+                 use_bias: bool = False, pre_blur: tuple | None = None,
+                 packed: bool = False, packed_in_perm: tuple | None = None):
         super().__init__()
+        if packed and (stride != 1 or pre_blur is not None):
+            raise ValueError("EqualConv2d: the packed layout is stride 1")
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.pre_blur = pre_blur
+        self.packed, self.packed_in_perm = packed, packed_in_perm
         self.scale = 1.0 / math.sqrt(in_ch * kernel_size ** 2)
         self.weight = nn.Parameter(
             torch.empty(kernel_size, kernel_size, in_ch, features))
@@ -211,6 +245,20 @@ class EqualConv2d(nn.Module):
         conv without a bias of its own takes it in its store
         (`conv2d_dense_epilogue`)."""
         w = self.weight * self.scale
+        if self.packed:
+            if self.bias is not None and epi is not None:
+                raise ValueError("EqualConv2d: a bias of its own and an "
+                                 "epilogue")
+            if w.shape[0] == 1:
+                out = pk.conv1x1_packed(x, w, in_ch_perm=self.packed_in_perm,
+                                        epi=epi)
+            else:
+                out = pk.conv2d_packed(x, w, dilation=self.dilation,
+                                       in_ch_perm=self.packed_in_perm,
+                                       epi=epi)
+            if self.bias is not None:
+                out = out + pk.pack_vector(self.bias).to(out.dtype)
+            return out
         if self.pre_blur is not None:
             out = fused_blur_strided_conv(x, w, BLUR_KERNEL, self.pre_blur,
                                           stride=self.stride)
@@ -227,34 +275,53 @@ class EqualConv2d(nn.Module):
 
 
 class FusedLeakyReLU(nn.Module):
-    """Per-channel learnable bias + lrelu*sqrt(2) (`op/fused_act.py:199-213`)."""
+    """Per-channel learnable bias + lrelu*sqrt(2) (`op/fused_act.py:199-213`);
+    packed: the bias tiled over the four phase groups (K7 either way)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, packed: bool = False):
         super().__init__()
+        self.packed = packed
         self.bias = nn.Parameter(torch.empty(features))
 
     def init_from(self, gen):
         self.bias.zero_()
 
+    def vector(self) -> torch.Tensor:
+        """The bias as the layer's layout adds it."""
+        return pk.pack_vector(self.bias) if self.packed else self.bias
+
     def forward(self, x):
-        return fused_leaky_relu(x, self.bias)
+        return fused_leaky_relu(x, self.vector())
 
 
 class NoiseInjection(nn.Module):
     """The scalar learnable noise gain (`models/RestoreNet.py:557-569`);
     callers add `scaled(...)` in their epilogue."""
 
-    def __init__(self):
+    def __init__(self, packed: bool = False):
         super().__init__()
+        self.packed = packed
         self.weight = nn.Parameter(torch.empty(1))
 
     def init_from(self, gen):
         self.weight.zero_()
 
     def scaled(self, shape, like, noise=None, generator=None):
-        """weight * noise, drawing (B, H, W, 1) noise when none is given."""
+        """weight * noise for an output of `shape` (B, H, W, C). Unpacked:
+        noise (B, H, W, 1), drawn when none is given. Packed: (B, H, W, 4),
+        one value a phase, drawn in that layout when none is given (the
+        same N(0, 1) draws as unpacked, in another order: cross-layout
+        comparisons pass noise); given noise may be (B, 2H, 2W, 1), which
+        goes through `space_to_depth`, or already (B, H, W, 4)."""
+        b, h, w = shape[:3]
+        nc = 4 if self.packed else 1
         if noise is None:
-            noise = draw_noise(shape, like, generator)
+            noise = draw_noise((b, h, w, nc), like, generator)
+        elif self.packed and noise.shape[-1] == 1:
+            noise = pk.space_to_depth(noise)
+        if tuple(noise.shape) != (b, h, w, nc):
+            raise ValueError(f"noise {tuple(noise.shape)} for an output "
+                             f"{tuple(shape)}, packed {self.packed}")
         return self.weight * noise
 
 
@@ -266,12 +333,14 @@ class ModulatedConv2d(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  style_dim: int | None, demodulate: bool = True,
                  upsample: bool = False, downsample: bool = False,
-                 dilation: int = 1):
+                 dilation: int = 1, packed_in: bool = False,
+                 packed_out: bool = False):
         super().__init__()
         self.demodulate, self.upsample, self.downsample = (demodulate,
                                                            upsample,
                                                            downsample)
         self.dilation = dilation
+        self.packed_in, self.packed_out = packed_in, packed_out
         self.modulation = (EqualLinear(style_dim, in_ch, bias_init=1.0)
                            if style_dim is not None else None)
         self.weight = nn.Parameter(
@@ -286,7 +355,8 @@ class ModulatedConv2d(nn.Module):
         return modulated_conv2d(
             x, self.weight, style, demodulate=self.demodulate,
             up=self.upsample, down=self.downsample, dilation=self.dilation,
-            blur_kernel=BLUR_KERNEL, epilogue=epilogue)
+            blur_kernel=BLUR_KERNEL, packed_in=self.packed_in,
+            packed_out=self.packed_out, epilogue=epilogue)
 
 
 class StyledConv(nn.Module):
@@ -294,41 +364,65 @@ class StyledConv(nn.Module):
     (`models/RestoreNet.py:571-643`, StyledConv and StyledConv_down)."""
 
     def __init__(self, in_ch: int, features: int, style_dim: int,
-                 upsample: bool = False, downsample: bool = False):
+                 upsample: bool = False, downsample: bool = False,
+                 packed_in: bool = False, packed_out: bool = False):
         super().__init__()
         self.upsample, self.downsample = upsample, downsample
-        self.noise = NoiseInjection()
-        self.activate = FusedLeakyReLU(features)
+        self.packed_in, self.packed_out = packed_in, packed_out
+        self.features = features
+        self.noise = NoiseInjection(packed=packed_out)
+        self.activate = FusedLeakyReLU(features, packed=packed_out)
         self.conv = ModulatedConv2d(in_ch, features, 3, style_dim,
-                                    upsample=upsample, downsample=downsample)
+                                    upsample=upsample, downsample=downsample,
+                                    packed_in=packed_in,
+                                    packed_out=packed_out)
+
+    def out_shape(self, xshape) -> tuple:
+        """The output's shape for an input of shape xshape (the layouts'
+        static geometry, `_styled_out_shape`, layers.py:286)."""
+        b, h = xshape[0], xshape[1]
+        res = 2 * h if self.packed_in else h
+        res = 2 * res if self.upsample else (res // 2 if self.downsample
+                                              else res)
+        if self.packed_out:
+            return (b, res // 2, res // 2, 4 * self.features)
+        return (b, res, res, self.features)
 
     def forward(self, x, style, noise=None, post_add=(), generator=None):
         """post_add: tensors of the output shape added after the lrelu (the
         RestoreNet decoder's skip fusion, `models/RestoreNet.py:1029-1035`)."""
-        b, h = x.shape[0], x.shape[1]
-        res = 2 * h if self.upsample else (h // 2 if self.downsample else h)
-        nz = self.noise.scaled((b, res, res, 1), x, noise, generator)
+        nz = self.noise.scaled(self.out_shape(x.shape), x, noise, generator)
         return self.conv(x, style, epilogue=dict(
-            noise=nz, bias=self.activate.bias, act=True,
+            noise=nz, bias=self.activate.vector(), act=True,
             post_add=tuple(post_add)))
 
 
 class ToRGB(nn.Module):
     """1x1 modulated conv (no demod) + bias, plus the upsampled skip
-    (`models/RestoreNet.py:647-666`)."""
+    (`models/RestoreNet.py:647-666`). packed: the features and the RGB in
+    the packed layout; skip_packed: the half-resolution skip's layout."""
 
-    def __init__(self, in_ch: int, style_dim: int):
+    def __init__(self, in_ch: int, style_dim: int, packed: bool = False,
+                 skip_packed: bool = False):
         super().__init__()
-        self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, demodulate=False)
+        self.packed, self.skip_packed = packed, skip_packed
+        self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, demodulate=False,
+                                    packed_in=packed, packed_out=packed)
         self.bias = nn.Parameter(torch.empty(3))
 
     def init_from(self, gen):
         self.bias.zero_()
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias
+        if not self.packed:
+            out = self.conv(x, style) + self.bias
+            if skip is not None:
+                out = out + upsample2d(skip, BLUR_KERNEL)
+            return out
+        out = self.conv(x, style) + pk.pack_vector(self.bias)
         if skip is not None:
-            out = out + upsample2d(skip, BLUR_KERNEL)
+            out = out + pk.upsample2d_packed(skip, BLUR_KERNEL,
+                                             packed_in=self.skip_packed)
         return out
 
 
@@ -340,11 +434,18 @@ class ConvLayer(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  downsample: bool = False, use_bias: bool = True,
-                 activate: bool = True):
+                 activate: bool = True, packed: bool = False,
+                 packed_in_perm: tuple | None = None):
         super().__init__()
         k = kernel_size
         conv_bias = use_bias and not activate
-        if downsample:
+        if packed:
+            if downsample:
+                raise ValueError("ConvLayer: the packed layout is stride 1")
+            self.conv = EqualConv2d(in_ch, features, k, padding=k // 2,
+                                    use_bias=conv_bias, packed=True,
+                                    packed_in_perm=packed_in_perm)
+        elif downsample:
             p = (len(BLUR_KERNEL) - 2) + (k - 1)
             self.conv = EqualConv2d(in_ch, features, k, stride=2,
                                     use_bias=conv_bias,
@@ -353,8 +454,8 @@ class ConvLayer(nn.Module):
             self.conv = EqualConv2d(in_ch, features, k, padding=k // 2,
                                     use_bias=conv_bias)
         self.act = activate
-        self.activate = (FusedLeakyReLU(features) if activate and use_bias
-                         else None)
+        self.activate = (FusedLeakyReLU(features, packed=packed)
+                         if activate and use_bias else None)
 
     def forward(self, x, epi_extra=None):
         """epi_extra: extra epilogue pieces (noise2/bias2/act2: the SMART
@@ -363,7 +464,7 @@ class ConvLayer(nn.Module):
             if epi_extra:
                 raise ValueError("ConvLayer: epi_extra needs activate=True")
             return self.conv(x)
-        bias = None if self.activate is None else self.activate.bias
+        bias = None if self.activate is None else self.activate.vector()
         return self.conv(x, epi=dict(bias=bias, act=True,
                                      **(epi_extra or {})))
 
@@ -389,34 +490,47 @@ class SMARTLayer(nn.Module):
     four parallel dilated 3x3 modulated convs (rates 1/2/4/8, out/4
     channels each), concatenated, then a 3x3 fusion conv, noise and fused
     lrelu (`models/RestoreNet.py:179-268`). Stride 1: no SMART on the
-    serving path upsamples."""
+    serving path upsamples. packed: the space-to-depth layout in and out;
+    the branches run as two launches (`modulated_conv2d_d12_packed`, one
+    K1, and `modulated_conv2d_d48_packed`, one grouped K2), their
+    branch-major concatenation read by the fusion conv through a
+    permutation folded into its weight."""
 
-    def __init__(self, in_ch: int, features: int, style_dim: int):
+    def __init__(self, in_ch: int, features: int, style_dim: int,
+                 packed: bool = False):
         super().__init__()
+        self.packed = packed
         branch = features // len(RATES)
         self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0)
         self.dilated = nn.ModuleList(
-            ModulatedConv2d(in_ch, branch, 3, None, dilation=r)
+            ModulatedConv2d(in_ch, branch, 3, None, dilation=r,
+                            packed_in=packed, packed_out=packed)
             for r in RATES)
-        self.noise = NoiseInjection()
-        self.activate = FusedLeakyReLU(features)
-        self.fusion = ConvLayer(branch * len(RATES), features, 3)
+        self.noise = NoiseInjection(packed=packed)
+        self.activate = FusedLeakyReLU(features, packed=packed)
+        self.fusion = ConvLayer(
+            branch * len(RATES), features, 3, packed=packed,
+            packed_in_perm=(_branch_major_perm(features, len(RATES))
+                            if packed else None))
 
     def forward(self, x, style, noise=None, return_intermediates: bool = False,
                 generator=None):
         """return_intermediates=True also returns the per-dilation branch
         outputs and the final tensor (`forward_vis`)."""
         mod = self.modulation(style)
+        ws = [m.weight for m in self.dilated]
         if return_intermediates:
             outs = [m(x, mod) for m in self.dilated]
+        elif self.packed:
+            outs = [modulated_conv2d_d12_packed(x, ws[0], ws[1], mod),
+                    modulated_conv2d_d48_packed(x, ws[2], ws[3], mod)]
         else:
             # all branches in one K2 launch
-            outs = [modulated_conv2d_multi(
-                x, [m.weight for m in self.dilated], RATES, mod)]
+            outs = [modulated_conv2d_multi(x, ws, RATES, mod)]
         out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
-        nz = self.noise.scaled((*out.shape[:3], 1), out, noise, generator)
+        nz = self.noise.scaled(out.shape, out, noise, generator)
         out = self.fusion(out, epi_extra=dict(
-            noise2=nz, bias2=self.activate.bias, act2=True))
+            noise2=nz, bias2=self.activate.vector(), act2=True))
         if return_intermediates:
             return out, outs + [out]
         return out
@@ -425,18 +539,24 @@ class SMARTLayer(nn.Module):
 class LargeConvLayer(nn.Module):
     """Unmodulated multi-dilation aggregation: four dilated equal-convs ->
     concat -> 1x1 fusion -> fused lrelu (`models/RestoreNet.py:725-787`;
-    stride 1, the only form on the serving path)."""
+    stride 1, the only form on the serving path). packed: the
+    space-to-depth layout in and out, the fusion reading the branch-major
+    concatenation through a permutation folded into its weight."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: int):
+    def __init__(self, in_ch: int, features: int, kernel_size: int,
+                 packed: bool = False):
         super().__init__()
         k = kernel_size
         branch = features // len(RATES)
         self.dilated = nn.ModuleList(
             EqualConv2d(in_ch, branch, k, padding=((k - 1) * r) // 2,
-                        dilation=r)
+                        dilation=r, packed=packed)
             for r in RATES)
-        self.fusion = ConvLayer(branch * len(RATES), features, 1)
-        self.activate = FusedLeakyReLU(features)
+        self.fusion = ConvLayer(
+            branch * len(RATES), features, 1, packed=packed,
+            packed_in_perm=(_branch_major_perm(features, len(RATES))
+                            if packed else None))
+        self.activate = FusedLeakyReLU(features, packed=packed)
 
     def forward(self, x):
         out = torch.cat([m(x) for m in self.dilated], dim=-1)

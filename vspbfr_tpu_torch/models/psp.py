@@ -40,12 +40,13 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 class PSPFacade(nn.Module):
     """out_size: pipeline resolution (512); size: decoder resolution (1024);
     mapping: give the decoder its z -> w MLP (`mean_latent`,
-    `noise_mapping`)."""
+    `noise_mapping`); packed_min_res: the decoder's space-to-depth
+    threshold (0: none)."""
 
     def __init__(self, out_size: int = 512, size: int = 1024,
                  input_channels: int = 3, encode_size: int = 256,
                  encoder_stages=None, channel_div: int = 1,
-                 mapping: bool = False):
+                 mapping: bool = False, packed_min_res: int = 0):
         super().__init__()
         self.out_size, self.size = out_size, size
         self.n_latent = 2 * int(math.log2(size)) - 2
@@ -54,7 +55,8 @@ class PSPFacade(nn.Module):
             stylegan_size=size, input_channels=input_channels,
             stages=encoder_stages or IR50_STAGES, encode_size=encode_size)
         self.decoder = Generator(size=size, channel_div=channel_div,
-                                 mapping=mapping)
+                                 mapping=mapping,
+                                 packed_min_res=packed_min_res)
         self.latent_avg = nn.Parameter(torch.empty(self.n_latent, 512))
 
     def init_from(self, gen):
@@ -70,6 +72,25 @@ class PSPFacade(nn.Module):
         codes = self.encoder(resize_bilinear(img, (es, es)))
         return (codes + self.latent_avg[None])[:, : self.n_latent]
 
+    def _pooled_from_packed(self) -> bool:
+        """Whether the pooled image is the phase mean of the packed RGB:
+        the top resolution packed and the pool exactly 2x2 (size to size /
+        2), so no depth-to-space of the full image is needed
+        (`_pooled_from_packed`, psp.py:105)."""
+        return (self.decoder.packed(self.size)
+                and 2 * self.out_size == self.size)
+
+    def _pooled(self, decoder, codes, **kw):
+        """(image pooled to out_size or None, features or None)."""
+        if kw.get("return_image", True) and self._pooled_from_packed():
+            packed, feats = decoder(codes, return_packed_rgb=True, **kw)
+            b, h, w, _ = packed.shape
+            return packed.reshape(b, h, w, 4, 3).mean(dim=3), feats
+        image, feats = decoder(codes, **kw)
+        if image is not None:
+            image = adaptive_avg_pool(image, (self.out_size, self.out_size))
+        return image, feats
+
     def decode_with_feats(self, codes: torch.Tensor,
                           generator: torch.Generator | None = None,
                           return_image: bool = True, noise=None,
@@ -79,22 +100,21 @@ class PSPFacade(nn.Module):
         out_size, the last feature RestoreNet reads. noise: optional list of
         the decoder's per-layer maps (else drawn from `generator`); decoder:
         a stand-in for the own one (a copy in another dtype)."""
-        image, feats = (decoder or self.decoder)(
-            codes, noise=noise, return_features=True,
-            return_image=return_image,
+        image, feats = self._pooled(
+            decoder or self.decoder, codes, noise=noise,
+            return_features=True, return_image=return_image,
             max_feature_res=None if return_image else self.out_size,
             generator=generator)
-        if image is not None:
-            image = adaptive_avg_pool(image, (self.out_size, self.out_size))
         return image, feats[: self.out_n_latent]
 
     def decode(self, codes: torch.Tensor,
                generator: torch.Generator | None = None,
-               noise=None) -> torch.Tensor:
+               noise=None, decoder: nn.Module | None = None) -> torch.Tensor:
         """W+ code -> image pooled to out_size. noise: optional list of the
-        decoder's per-layer noise maps (else drawn from `generator`)."""
-        image, _ = self.decoder(codes, noise=noise, generator=generator)
-        return adaptive_avg_pool(image, (self.out_size, self.out_size))
+        decoder's per-layer noise maps (else drawn from `generator`);
+        decoder: a stand-in for the own one."""
+        return self._pooled(decoder or self.decoder, codes, noise=noise,
+                            generator=generator)[0]
 
     def mean_latent(self, n_samples: int = 4096,
                     generator: torch.Generator | None = None,

@@ -1,8 +1,8 @@
 """RestoreNet: the SMART-layer U-Net restoration generator, and the
 StyleGAN2 discriminator stage 3 trains it against.
 
-Counterpart of `vspbfr_tpu/models/restorenet.py` (`RestorationNet`,
-unpacked layout, and `Discriminator`). Dataflow of the generator:
+Counterpart of `vspbfr_tpu/models/restorenet.py` (`RestorationNet` and
+`Discriminator`). Dataflow of the generator:
 
   z -> style MLP -> mixing -> noise_latent (B, n_latent, 512)
   latent = concat(diffused W+ [:n_latent], noise_latent) -> (B, n, 1024)
@@ -18,6 +18,14 @@ order the layers run, `noise_shapes`) or from a `torch.Generator`. The
 encoder head's Dropout(0.5) on x_global (`restorenet.py:132-133`) runs in
 training only, with a keep mask handed in (`dropout_mask`, drawn by
 `draw_dropout_mask`): kept units are scaled by 2, as flax's Dropout does.
+
+Resolutions at or above `packed_min_res` (0: none; else above 4, the 4x4
+head stays unpacked) run in the space-to-depth layout (`ops/packed.py`),
+with the same parameters: the input images go through `space_to_depth`,
+the encoder's and the decoder's features at those resolutions are packed
+(so the decoder features handed in must come from a Generator with the
+same threshold), and the output through `depth_to_space`. D stays
+unpacked, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from vspbfr_tpu_torch.models.layers import (
     styles_to_latent,
 )
 from vspbfr_tpu_torch.models.stylegan2 import channel_dict
+from vspbfr_tpu_torch.ops.packed import depth_to_space, space_to_depth
 
 
 DROPOUT_RATE = 0.5
@@ -47,8 +56,14 @@ DROPOUT_RATE = 0.5
 
 class RestorationNet(nn.Module):
     def __init__(self, size: int = 512, style_dim: int = 512, n_mlp: int = 8,
-                 channel_multiplier: int = 2, channel_div: int = 1):
+                 channel_multiplier: int = 2, channel_div: int = 1,
+                 packed_min_res: int = 0):
         super().__init__()
+        if 0 < packed_min_res <= 4:
+            raise ValueError("packed_min_res must be 0 or above 4 (the 4x4 "
+                             "head is never packed)")
+        self.packed_min_res = packed_min_res
+        pk = self.packed
         self.size = size
         self.log_size = int(math.log2(size))
         self.n_latent = self.log_size * 2 - 2
@@ -64,19 +79,24 @@ class RestorationNet(nn.Module):
         for i in range(3, self.log_size + 1):
             res = 2 ** i
             convs.append(StyledConv(ch[res // 2], ch[res], dec_dim,
-                                    upsample=True))
-            convs.append(SMARTLayer(ch[res], ch[res], dec_dim))
-            to_rgbs.append(ToRGB(ch[res], dec_dim))
+                                    upsample=True, packed_in=pk(res // 2),
+                                    packed_out=pk(res)))
+            convs.append(SMARTLayer(ch[res], ch[res], dec_dim,
+                                    packed=pk(res)))
+            to_rgbs.append(ToRGB(ch[res], dec_dim, packed=pk(res),
+                                 skip_packed=pk(res // 2)))
         self.convs = nn.ModuleList(convs)
         self.to_rgbs = nn.ModuleList(to_rgbs)
 
-        self.down_from_big = LargeConvLayer(3, ch[size], 1)
+        self.down_from_big = LargeConvLayer(3, ch[size], 1, packed=pk(size))
         enc = []
         for i in range(self.log_size, 2, -1):
             res = 2 ** i
-            enc.append(SMARTLayer(ch[res], ch[res], lat_dim))
+            enc.append(SMARTLayer(ch[res], ch[res], lat_dim, packed=pk(res)))
+            # packed -> packed down conv while res / 2 is still packed
             enc.append(StyledConv(ch[res], ch[res // 2], lat_dim,
-                                  downsample=True))
+                                  downsample=True, packed_in=pk(res),
+                                  packed_out=pk(res // 2)))
         self.encoder_convs = nn.ModuleList(enc)
         self.final_layer = LargeConvLayer(ch[4], ch[4], 3)
         self.final_linear = EqualLinear(ch[4] * 16, ch[4] * 2,
@@ -84,16 +104,23 @@ class RestorationNet(nn.Module):
         self.final_transfer = EqualLinear(ch[4] * 2, ch[4] * 16,
                                           activation=True)
 
+    def packed(self, res: int) -> bool:
+        """Whether resolution res runs in the packed layout."""
+        return bool(self.packed_min_res) and res >= self.packed_min_res
+
     def noise_shapes(self, batch: int) -> list[tuple]:
         """Shapes of the noise maps, in the order the layers run: per
         encoder level the SMART at res and the down conv at res / 2, then
-        the decoder's SMART at 4 and per level the up conv and the SMART."""
+        the decoder's SMART at 4 and per level the up conv and the SMART;
+        (B, r, r, 1), or the packed draw (B, r/2, r/2, 4) at a packed
+        resolution."""
         enc = []
         for i in range(self.log_size, 2, -1):
             enc += [2 ** i, 2 ** (i - 1)]
         dec = [4] + [2 ** i for i in range(3, self.log_size + 1)
                      for _ in range(2)]
-        return [(batch, r, r, 1) for r in enc + dec]
+        return [(batch, r // 2, r // 2, 4) if self.packed(r)
+                else (batch, r, r, 1) for r in enc + dec]
 
     def draw_dropout_mask(self, batch: int, generator: torch.Generator,
                           device=None) -> torch.Tensor:
@@ -105,6 +132,8 @@ class RestorationNet(nn.Module):
     def encoder_forward(self, imgs, latent, noise, generator, dropout_mask):
         """`models/RestoreNet.py:915-942`. latent: flipped (B, n, 1024)."""
         b = imgs.shape[0]
+        if self.packed(self.size):
+            imgs = space_to_depth(imgs)
         out = self.down_from_big(imgs)
         features = []
         for ii in range(0, len(self.encoder_convs), 2):
@@ -173,6 +202,8 @@ class RestorationNet(nn.Module):
                                     generator=generator)
             skip = self.to_rgbs[k // 2](out, sty(i + 2), skip)
             i += 2
+        if self.packed(self.size):
+            skip = depth_to_space(skip)
         return skip
 
 

@@ -1,11 +1,17 @@
 """StyleGAN2 generator: the frozen FFHQ decoder of the pipeline.
 
-Counterpart of `vspbfr_tpu/models/stylegan2.py` (unpacked layout). Driven
-with W+ codes (input_is_latent); `return_features` collects the
-per-resolution features the RestoreNet skip fusion reads. Eager torch runs
-every layer it is asked for, so a caller that needs only the features up to
-some resolution (and no image) says so with `return_image=False,
-max_feature_res=...` and the levels above are not computed.
+Counterpart of `vspbfr_tpu/models/stylegan2.py`. Driven with W+ codes
+(input_is_latent); `return_features` collects the per-resolution features
+the RestoreNet skip fusion reads. Eager torch runs every layer it is asked
+for, so a caller that needs only the features up to some resolution (and
+no image) says so with `return_image=False, max_feature_res=...` and the
+levels above are not computed.
+
+Resolutions at or above `packed_min_res` (0: none) run in the
+space-to-depth layout (`ops/packed.py`), with the same parameters; their
+feature taps come back packed, (B, r/2, r/2, 4C), so RestoreNet must use
+the same threshold. The JAX package's default is 512, the port's 0 (the
+CLIs' `--packed_min_res` sets it).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 from torch import nn
 
 from vspbfr_tpu_torch.models.layers import StyledConv, StyleMLP, ToRGB, _normal
+from vspbfr_tpu_torch.ops.packed import depth_to_space
 
 
 def channel_dict(channel_multiplier: int = 2,
@@ -44,13 +51,15 @@ class Generator(nn.Module):
 
     def __init__(self, size: int = 1024, style_dim: int = 512,
                  channel_multiplier: int = 2, channel_div: int = 1,
-                 mapping: bool = False, n_mlp: int = 8):
+                 mapping: bool = False, n_mlp: int = 8,
+                 packed_min_res: int = 0):
         super().__init__()
         self.style = StyleMLP(style_dim, n_mlp) if mapping else None
         self.size = size
         self.log_size = int(math.log2(size))
         self.n_latent = self.log_size * 2 - 2
         self.num_layers = (self.log_size - 2) * 2 + 1
+        self.packed_min_res = packed_min_res
         ch = channel_dict(channel_multiplier, channel_div)
         self.const_input = nn.Parameter(torch.empty(1, 4, 4, ch[4]))
         self.conv1 = StyledConv(ch[4], ch[4], style_dim)
@@ -58,15 +67,30 @@ class Generator(nn.Module):
         convs, to_rgbs = [], []
         for i in range(3, self.log_size + 1):
             res = 2 ** i
+            pk_in, pk_out = self.packed(res // 2), self.packed(res)
             convs.append(StyledConv(ch[res // 2], ch[res], style_dim,
-                                    upsample=True))
-            convs.append(StyledConv(ch[res], ch[res], style_dim))
-            to_rgbs.append(ToRGB(ch[res], style_dim))
+                                    upsample=True, packed_in=pk_in,
+                                    packed_out=pk_out))
+            convs.append(StyledConv(ch[res], ch[res], style_dim,
+                                    packed_in=pk_out, packed_out=pk_out))
+            to_rgbs.append(ToRGB(ch[res], style_dim, packed=pk_out,
+                                 skip_packed=pk_in))
         self.convs = nn.ModuleList(convs)
         self.to_rgbs = nn.ModuleList(to_rgbs)
 
     def init_from(self, gen):
         _normal(self.const_input, gen)
+
+    def packed(self, res: int) -> bool:
+        """Whether resolution res runs in the packed layout."""
+        return bool(self.packed_min_res) and res >= self.packed_min_res
+
+    def noise_shapes(self, batch: int) -> list[tuple]:
+        """The per-layer noise maps' shapes as the layers draw them: (B, r,
+        r, 1), or (B, r/2, r/2, 4) at a packed resolution."""
+        res = [4] + [2 ** (i // 2 + 3) for i in range(self.num_layers - 1)]
+        return [(batch, r // 2, r // 2, 4) if self.packed(r)
+                else (batch, r, r, 1) for r in res]
 
     def map_latent(self, z: torch.Tensor) -> torch.Tensor:
         """z (..., style_dim) -> w through the mapping MLP (its bias +
@@ -79,14 +103,19 @@ class Generator(nn.Module):
     def forward(self, latent: torch.Tensor, noise=None,
                 return_features: bool = False, return_image: bool = True,
                 max_feature_res: int | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                return_packed_rgb: bool = False):
         """Decode a (B, n_latent, style_dim) W+ code.
 
-        noise: optional list of num_layers (B, r, r, 1) maps; otherwise each
-        layer draws from `generator`. Returns (image (B, size, size, 3) or
-        None, features or None); features[0] is the 4x4 map after conv1,
-        then one per up-conv at 8, 16, ... With return_image=False the
-        decode stops after the up-conv at max_feature_res."""
+        noise: optional list of num_layers (B, r, r, 1) maps (or, at a
+        packed resolution, the packed draw of `noise_shapes`); otherwise
+        each layer draws from `generator`. Returns (image (B, size, size,
+        3) or None, features or None); features[0] is the 4x4 map after
+        conv1, then one per up-conv at 8, 16, ..., packed at the packed
+        resolutions. With return_image=False the decode stops after the
+        up-conv at max_feature_res. return_packed_rgb: where the top
+        resolution is packed, return the (B, size/2, size/2, 12) packed RGB
+        (phase groups (gy, gx, rgb)) without the final depth-to-space."""
         b = latent.shape[0]
         if noise is None:
             noise = [None] * self.num_layers
@@ -102,11 +131,14 @@ class Generator(nn.Module):
             if return_features:
                 features.append(out)
             if (not return_image and max_feature_res is not None
-                    and out.shape[1] >= max_feature_res):
+                    and 2 ** (k // 2 + 3) >= max_feature_res):
                 break
             out = self.convs[k + 1](out, latent[:, i + 1], noise=noise[k + 2],
                                     generator=generator)
             if return_image:
                 skip = self.to_rgbs[k // 2](out, latent[:, i + 2], skip)
             i += 2
+        if skip is not None and self.packed(self.size) and not (
+                return_packed_rgb):
+            skip = depth_to_space(skip)
         return skip, features

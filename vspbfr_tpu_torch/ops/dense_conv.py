@@ -28,8 +28,10 @@ serves both devices, so the CPU tests exercise its backward math:
         + sum(post_add)
     y = lrelu(y + noise2 + bias2) * sqrt2          # optional second stage
 
-(every piece optional; noise is (B, OH, OW, 1), already scaled by its gain:
-the packed nc = 4 noise of the space-to-depth layout is not ported). Its
+(every piece optional; noise is (B, OH, OW, nc), already scaled by its
+gain, nc = 1 or the space-to-depth layout's 4, one value a phase:
+`ops/epilogue.py` `noise_term`; `phase_launches` counts the nc = 4
+launches apart, as they count in `launches` too). Its
 Function follows `_convepi_bwd` (pallas_conv.py:451-518): the
 pre-activations are recovered from the saved output y (lrelu is sign
 preserving and invertible), so nothing is recomputed, and dx goes through
@@ -67,6 +69,9 @@ from vspbfr_tpu_torch.ops.epilogue import (
     conv_epilogue,
     epilogue_plain_chain,
     has_stage2,
+    noise_grad,
+    noise_phases,
+    noise_term,
     stage2_grads,
 )
 from vspbfr_tpu_torch.ops.fused_act import SQRT2, act_slope, sum_f32
@@ -260,8 +265,9 @@ def _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias, act, post, nz2,
     oh, ow = _out_shape(name, x, w, pads, isc)
     b, h, wd, ci = x.shape
     kh, kw, _, co = w.shape
-    want = {"out_scale": (osc, (b, co)), "noise": (nz, (b, oh, ow, 1)),
-            "bias": (bias, (co,)), "noise2": (nz2, (b, oh, ow, 1)),
+    nc = noise_phases(name, nz, nz2, (b, oh, ow, co))
+    want = {"out_scale": (osc, (b, co)), "noise": (nz, (b, oh, ow, nc)),
+            "bias": (bias, (co,)), "noise2": (nz2, (b, oh, ow, nc)),
             "bias2": (bias2, (co,))}
     for key, (t, shape) in want.items():
         if t is not None and tuple(t.shape) != shape:
@@ -281,10 +287,12 @@ def _dense_conv_epi_forward(x, w, pads, isc, osc, nz, bias, act, post, nz2,
                  _build.ptr(isc), y.data_ptr(), _build.ptr(osc),
                  _build.ptr(nz), _build.ptr(bias), _build.ptr(posts[0]),
                  _build.ptr(posts[1]), _build.ptr(nz2), _build.ptr(bias2),
-                 _build.ptr(mask), len(post), int(act), int(act2),
+                 _build.ptr(mask), len(post), int(act), int(act2), nc,
                  _build.dtype_code(x), b, h, wd, ci, co, kh, kw, py0, px0,
                  oh, ow, _build.stream_of(x))
     dense_conv_epilogue.launches += 1
+    if nc > 1:
+        dense_conv_epilogue.phase_launches += 1
     return y, mask
 
 
@@ -324,7 +332,7 @@ class _DenseConvEpi(torch.autograd.Function):
             # the stage-1 activated value: invert stage 2 on y
             v = _unact(y, act2)
             if nz2 is not None:
-                v = v - nz2
+                v = v - noise_term(nz2, y.shape[-1])
             if bias2 is not None:
                 v = v - bias2.reshape(1, 1, 1, -1)
             g1 = du2
@@ -339,13 +347,13 @@ class _DenseConvEpi(torch.autograd.Function):
               else g1)
         dbias = sum_f32(du, (0, 1, 2), bias.dtype) if bias is not None \
             else None
-        dnz = du.sum(dim=-1, keepdim=True) if nz is not None else None
+        dnz = noise_grad(du, nz) if nz is not None else None
         dosc = None
         dz = du
         if osc is not None:
             u = _unact(v, act)
             if nz is not None:
-                u = u - nz
+                u = u - noise_term(nz, u.shape[-1])
             if bias is not None:
                 u = u - bias.reshape(1, 1, 1, -1)
             z = u / osc[:, None, None, :]
@@ -373,6 +381,7 @@ def dense_conv_epilogue(x: torch.Tensor, w: torch.Tensor, pads,
 
 
 dense_conv_epilogue.launches = 0
+dense_conv_epilogue.phase_launches = 0
 
 
 def conv2d_dense_epilogue(x: torch.Tensor, w: torch.Tensor, pads,

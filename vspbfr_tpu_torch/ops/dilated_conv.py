@@ -7,8 +7,14 @@ concatenated on channels, with an optional (B, Ci) input scale and a
 reads each branch's weights where they lie (one pointer a branch), so the
 forward copies no weights.
 
-Only `groups=1` (the unpacked layout) is ported; the grouped form served
-the space-to-depth layout, which the port does not carry.
+`groups=G` is the packed layout's form (`_multi_ref`, pallas_dilated.py:
+253): x's Ci channels are G groups (the space-to-depth phases) of Ci/G, each
+branch's (3, 3, Ci/G, Co_i) weights are shared by every group, and branch
+i's block of the output holds G * Co_i channels, group-major. On the card
+one launch covers every group (the group a grid dimension, its channel
+offsets applied in the kernel), so no block-diagonal weight is built and no
+multiply-add falls on a zero; `grouped_launches` counts these launches
+apart (they count in `launches` too).
 
 `dilated_multi_conv` is a `torch.autograd.Function` following the JAX
 custom VJP (`_multi_fwd` / `_multi_bwd`, pallas_dilated.py:280-302): its
@@ -25,6 +31,8 @@ unscaled concatenated output and g_z = g * out_scale:
 - per branch i: dw_i by `torch.nn.grad.conv2d_weight` of (x * in_scale,
   g_z_i) at dilation d_i, and the input gradient as the dilated conv of
   g_z_i with the flipped, in/out-swapped kernel (pads d_i); dxs sums them;
+  with groups both are cuDNN's grouped convs, and the shared weight's
+  gradient is the sum of its groups' (as XLA's VJP of `_multi_ref`);
 - dx = dxs * in_scale, d_in_scale = sum over (h, w) of dxs * x.
 """
 
@@ -41,49 +49,63 @@ from vspbfr_tpu_torch.ops.fused_act import sum_f32
 MAX_BRANCHES = 8
 
 
+def _tiled(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """A shared (3, 3, Ci/G, Co) weight as the grouped conv's (3, 3, Ci/G,
+    G*Co)."""
+    return w if groups == 1 else torch.cat([w] * groups, dim=-1)
+
+
 def dilated_multi_conv_plain(x: torch.Tensor, ws, dils,
                              in_scale: torch.Tensor | None = None,
-                             out_scale: torch.Tensor | None = None
-                             ) -> torch.Tensor:
-    """What K2 computes, in plain torch (`_multi_ref`, pallas_dilated.py:253,
-    groups=1)."""
+                             out_scale: torch.Tensor | None = None,
+                             groups: int = 1) -> torch.Tensor:
+    """What K2 computes, in plain torch (`_multi_ref`, pallas_dilated.py:
+    253): cuDNN's (grouped) dilated convs and the concatenation."""
     xs = x if in_scale is None else x * in_scale[:, None, None, :]
-    out = torch.cat([conv_nhwc(xs, w, 1, ((d, d), (d, d)), dilation=d)
+    out = torch.cat([conv_nhwc(xs, _tiled(w, groups), 1, ((d, d), (d, d)),
+                               dilation=d, groups=groups)
                      for w, d in zip(ws, dils)], dim=-1)
     if out_scale is not None:
         out = out * out_scale[:, None, None, :].to(out.dtype)
     return out.contiguous()
 
 
-def _check(x, ws, dils, in_scale, out_scale) -> list[int]:
-    """The wrapper's argument checks; returns the branch widths."""
+def _check(x, ws, dils, groups, in_scale, out_scale) -> list[int]:
+    """The wrapper's argument checks; returns the branch widths (of one
+    group)."""
     name = "dilated_multi_conv"
     b, _, _, ci = x.shape
     cos = [w.shape[3] for w in ws]
     if not 1 <= len(ws) <= MAX_BRANCHES or len(dils) != len(ws):
         raise ValueError(f"{name}: {len(ws)} weights, {len(dils)} dilations")
-    if any(tuple(w.shape[:3]) != (3, 3, ci) for w in ws) or min(dils) < 1:
+    if groups < 1 or ci % groups:
+        raise ValueError(f"{name}: {groups} groups do not divide Ci {ci}")
+    cg = ci // groups
+    if any(tuple(w.shape[:3]) != (3, 3, cg) for w in ws) or min(dils) < 1:
         raise ValueError(f"{name}: weights {[tuple(w.shape) for w in ws]}, "
-                         f"dilations {dils}, Ci {ci}")
+                         f"dilations {dils}, Ci {ci}, groups {groups}")
     if in_scale is not None and tuple(in_scale.shape) != (b, ci):
         raise ValueError(f"{name}: in_scale {tuple(in_scale.shape)}")
-    if out_scale is not None and tuple(out_scale.shape) != (b, sum(cos)):
+    if (out_scale is not None
+            and tuple(out_scale.shape) != (b, groups * sum(cos))):
         raise ValueError(f"{name}: out_scale {tuple(out_scale.shape)}")
     return cos
 
 
-def _multi_forward(x, ws, dils, in_scale, out_scale) -> torch.Tensor:
+def _multi_forward(x, ws, dils, groups, in_scale, out_scale) -> torch.Tensor:
     """The forward primitive: the plain version for CPU tensors, K2 for
     CUDA tensors."""
     if x.device.type == "cpu":
-        return dilated_multi_conv_plain(x, ws, dils, in_scale, out_scale)
+        return dilated_multi_conv_plain(x, ws, dils, in_scale, out_scale,
+                                        groups)
     name = "dilated_multi_conv"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    cos = _check(x, ws, dils, in_scale, out_scale)
+    cos = _check(x, ws, dils, groups, in_scale, out_scale)
     _build.check_cuda_inputs(name, x, *ws, in_scale, out_scale)
     b, h, wd, ci = x.shape
-    y = torch.empty((b, h, wd, sum(cos)), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, h, wd, groups * sum(cos)), dtype=x.dtype,
+                    device=x.device)
     # the kernel reads each branch's weights in place, one pointer a branch
     c_ws = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
     c_dils = (ctypes.c_int * len(dils))(*dils)
@@ -92,64 +114,85 @@ def _multi_forward(x, ws, dils, in_scale, out_scale) -> torch.Tensor:
     with torch.cuda.device(x.device):
         lib.call("vspbfr_dilated_multi_conv", x.data_ptr(), c_ws, _build.ptr(in_scale),
                  _build.ptr(out_scale), y.data_ptr(), _build.dtype_code(x),
-                 b, h, wd, ci, len(ws), c_dils, c_cos, _build.stream_of(x))
+                 b, h, wd, ci, groups, len(ws), c_dils, c_cos,
+                 _build.stream_of(x))
     dilated_multi_conv.launches += 1
+    if groups > 1:
+        dilated_multi_conv.grouped_launches += 1
     return y
 
 
 class _DilatedMulti(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dils, x, in_scale, out_scale, *ws):
-        y = _multi_forward(x, ws, dils, in_scale, out_scale)
+    def forward(ctx, dils, groups, x, in_scale, out_scale, *ws):
+        y = _multi_forward(x, ws, dils, groups, in_scale, out_scale)
         ctx.save_for_backward(x, in_scale, out_scale, y, *ws)
-        ctx.dils = dils
+        ctx.dils, ctx.groups = dils, groups
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, in_scale, out_scale, y, *ws = ctx.saved_tensors
         need = ctx.needs_input_grad
+        grp = ctx.groups
         dosc = None
         if out_scale is not None:
             osc = out_scale[:, None, None, :].to(g.dtype)
-            if need[3]:
+            if need[4]:
                 dosc = sum_f32(g * (y / osc), (1, 2), out_scale.dtype)
             g = g * osc
         xs = x if in_scale is None else x * in_scale[:, None, None, :]
         dxs, dws, c0 = None, [], 0
         for i, (w, d) in enumerate(zip(ws, ctx.dils)):
-            co = w.shape[3]
-            gi = g[..., c0:c0 + co]
-            c0 += co
-            if need[1] or need[2]:
-                wt = w.flip((0, 1)).transpose(2, 3).to(g.dtype)
-                dxi = conv_nhwc(gi, wt, 1, ((d, d), (d, d)), dilation=d)
+            co, cg = w.shape[3], w.shape[2]
+            gi = g[..., c0:c0 + grp * co]
+            c0 += grp * co
+            if need[2] or need[3]:
+                # per group: the flipped, in/out-swapped kernel
+                wt = _tiled(w.flip((0, 1)).transpose(2, 3), grp).to(g.dtype)
+                dxi = conv_nhwc(gi, wt, 1, ((d, d), (d, d)), dilation=d,
+                                groups=grp)
                 dxs = dxi if dxs is None else dxs + dxi
-            dws.append(torch.nn.grad.conv2d_weight(
-                xs.permute(0, 3, 1, 2), (co, w.shape[2], 3, 3),
-                gi.permute(0, 3, 1, 2), padding=d, dilation=d
-            ).permute(2, 3, 1, 0).to(w.dtype) if need[4 + i] else None)
+            dw = None
+            if need[5 + i]:
+                dw = torch.nn.grad.conv2d_weight(
+                    xs.permute(0, 3, 1, 2), (grp * co, cg, 3, 3),
+                    gi.permute(0, 3, 1, 2), padding=d, dilation=d,
+                    groups=grp)
+                # the shared weight's gradient: the sum over its groups
+                dw = dw.reshape(grp, co, cg, 3, 3).sum(0)
+                dw = dw.permute(2, 3, 1, 0).to(w.dtype)
+            dws.append(dw)
         dx = dis = None
-        if need[1]:
-            dx = dxs if in_scale is None else dxs * in_scale[:, None, None, :]
         if need[2]:
+            dx = dxs if in_scale is None else dxs * in_scale[:, None, None, :]
+        if need[3]:
             dis = sum_f32(dxs * x, (1, 2), in_scale.dtype)
-        return (None, dx, dis, dosc, *dws)
+        return (None, None, dx, dis, dosc, *dws)
 
 
 def dilated_multi_conv(x: torch.Tensor, ws, dils, groups: int = 1,
                        in_scale: torch.Tensor | None = None,
                        out_scale: torch.Tensor | None = None) -> torch.Tensor:
     """concat_i(conv(x * in_scale, ws[i], dilation=dils[i], 'same'))
-    * out_scale. x (B, H, W, Ci); ws[i] (3, 3, Ci, Co_i) in x's dtype.
+    * out_scale. x (B, H, W, Ci); ws[i] (3, 3, Ci/groups, Co_i) in x's
+    dtype, shared by the groups (branch i's output block: groups x Co_i
+    channels, group-major); out_scale (B, groups * sum Co_i).
     Differentiable in x, every ws[i], in_scale and out_scale."""
-    if groups != 1:
-        raise NotImplementedError(
-            "dilated_multi_conv: groups > 1 served the packed layout, which "
-            "is not ported")
-    ws, dils = tuple(ws), tuple(int(d) for d in dils)
-    _check(x, ws, dils, in_scale, out_scale)
-    return _DilatedMulti.apply(dils, x, in_scale, out_scale, *ws)
+    ws, dils, groups = tuple(ws), tuple(int(d) for d in dils), int(groups)
+    _check(x, ws, dils, groups, in_scale, out_scale)
+    return _DilatedMulti.apply(dils, groups, x, in_scale, out_scale, *ws)
 
 
 dilated_multi_conv.launches = 0
+dilated_multi_conv.grouped_launches = 0
+
+
+def dilated_pair_conv(x: torch.Tensor, wa: torch.Tensor, wb: torch.Tensor,
+                      dil_a: int, dil_b: int, groups: int = 1,
+                      in_scale: torch.Tensor | None = None,
+                      out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Two branches of `dilated_multi_conv` (`dilated_pair_conv`,
+    pallas_dilated.py:344)."""
+    return dilated_multi_conv(x, (wa, wb), (dil_a, dil_b), groups,
+                              in_scale=in_scale, out_scale=out_scale)

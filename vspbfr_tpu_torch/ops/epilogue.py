@@ -11,10 +11,14 @@ extended to the whole chain. The CUDA source is `csrc/epilogue.cu`.
     y = lrelu(u) * sqrt2 + sum(post_add)              # act; the skips
     y = lrelu(y + noise2 + bias2[c]) * sqrt2          # second stage, act2
 
-x (B, H, W, C); out_scale (B, C), noise and noise2 (B, H, W, 1) already
+x (B, H, W, C); out_scale (B, C), noise and noise2 (B, H, W, nc) already
 scaled by their gains, bias and bias2 (C,), up to `MAX_POST` post-adds of
-x's shape: each optional. The packed nc = 4 noise of the space-to-depth
-layout is not ported (it raises), as in K1e.
+x's shape: each optional. nc is 1, or 4 in the space-to-depth layout:
+channel c then adds the value of phase c // (C / 4) (`_expand_matrix`,
+pallas_epilogue.py:33, as an index, `noise_term`), and the noise's
+gradient is the sum over its phase's channels (`noise_grad`); the two
+noises take the same nc. `phase_launches` counts the launches with nc = 4
+apart (they count in `launches` too).
 
 `conv_epilogue` makes one K6 launch for the whole chain on a CUDA tensor
 (launches or raises); a CPU tensor takes the plain version. The kernel
@@ -37,7 +41,8 @@ torch ops, so a double backward (stage 3's R1 through D's strided
   gradient is needed (the value recovered by subtracting what follows
   would flip sign in bf16 wherever it is within rounding of 0);
 - dx = du * out_scale; d_out_scale = sum over (h, w) of du * x with the
-  saved input x; d_noise = du summed over channels; d_bias = du summed
+  saved input x; d_noise = du summed over channels (over each phase's
+  channels where nc = 4); d_bias = du summed
   over (b, h, w); the reductions in at least f32, each gradient in its
   operand's dtype; d_post = g.
 
@@ -58,20 +63,38 @@ from vspbfr_tpu_torch.ops.fused_act import (
 )
 
 MAX_POST = 2   # post_add tensors K6's and K1e's passes take
+NOISE_PHASES = (1, 4)   # the noises' values a pixel (nc)
+
+
+def noise_term(nz: torch.Tensor, c: int) -> torch.Tensor:
+    """The noise (B, H, W, nc) as a term of a (B, H, W, c) tensor: itself
+    (broadcast) where nc = 1, each phase's value over its c / 4 channels
+    where nc = 4."""
+    return nz if nz.shape[-1] == 1 else nz.repeat_interleave(
+        c // nz.shape[-1], dim=-1)
+
+
+def noise_grad(du: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
+    """d_noise from the gradient du of the term `noise_term(nz, C)`: du
+    summed over the channels of each of nz's nc values, in at least f32,
+    in nz's dtype."""
+    b, h, w, c = du.shape
+    nc = nz.shape[-1]
+    return sum_f32(du.reshape(b, h, w, nc, c // nc), (4,), nz.dtype)
 
 
 def epilogue_plain(x: torch.Tensor, out_scale=None, noise=None, bias=None,
                    act: bool = True) -> torch.Tensor:
-    """One stage of the chain in plain torch (`epilogue_ref`, nc = 1).
-    Counts its calls on CUDA tensors (`cuda_calls`): on the card no main
-    path should make one."""
+    """One stage of the chain in plain torch (`epilogue_ref`). Counts its
+    calls on CUDA tensors (`cuda_calls`): on the card no main path should
+    make one."""
     if x.is_cuda:
         epilogue_plain.cuda_calls += 1
     out = x
     if out_scale is not None:
         out = out * out_scale[:, None, None, :]
     if noise is not None:
-        out = out + noise
+        out = out + noise_term(noise, x.shape[-1])
     if bias is not None:
         out = out + bias.reshape(1, 1, 1, -1)
     if act:
@@ -104,17 +127,32 @@ def has_stage2(noise2, bias2, act2) -> bool:
 
 
 def _bad_shape(key, t, want):
-    name = "conv_epilogue"
-    if key.startswith("noise") and t.shape[:3] == want[:3]:
-        raise NotImplementedError(
-            f"{name}: {key} with {t.shape[3]} phases served the packed "
-            "layout, which is not ported")
-    raise ValueError(f"{name}: {key} {tuple(t.shape)}, want {want}")
+    raise ValueError(f"conv_epilogue: {key} {tuple(t.shape)}, want {want}")
 
 
-def _check(x, osc, nz, bias, post, nz2, bias2) -> None:
+def noise_phases(name: str, nz, nz2, shape) -> int:
+    """nc of the noises (1 when there are none) for an output of `shape`
+    (B, H, W, C): each (B, H, W, nc), nc in NOISE_PHASES (4 only where C %
+    4 == 0), the two alike; raises otherwise."""
+    b, h, w, c = shape
+    ncs = {t.shape[-1] for t in (nz, nz2) if t is not None}
+    for key, t in (("noise", nz), ("noise2", nz2)):
+        if t is not None and (t.dim() != 4 or t.shape[:3] != (b, h, w)):
+            raise ValueError(f"{name}: {key} {tuple(t.shape)}, want "
+                             f"{(b, h, w)} and nc")
+    nc = ncs.pop() if len(ncs) == 1 else 1
+    if ncs or nc not in NOISE_PHASES or c % nc:
+        got = [None if t is None else t.shape[-1] for t in (nz, nz2)]
+        raise ValueError(f"{name}: noise values a pixel {got} for {c} "
+                         "channels; nc must be 1 or 4 (C % 4 == 0), the same "
+                         "for both noises")
+    return nc
+
+
+def _check(x, osc, nz, bias, post, nz2, bias2) -> int:
     """The shapes every device takes; raises on any other (each operand
-    compared only when present: this runs at every call)."""
+    compared only when present: this runs at every call). Returns the
+    noises' nc."""
     shape = x.shape
     if len(shape) != 4:
         raise ValueError(f"conv_epilogue: x {tuple(shape)} is not (B, H, W, "
@@ -122,19 +160,18 @@ def _check(x, osc, nz, bias, post, nz2, bias2) -> None:
     b, h, w, c = shape
     if osc is not None and osc.shape != (b, c):
         _bad_shape("out_scale", osc, (b, c))
-    if nz is not None and nz.shape != (b, h, w, 1):
-        _bad_shape("noise", nz, (b, h, w, 1))
     if bias is not None and bias.shape != (c,):
         _bad_shape("bias", bias, (c,))
-    if nz2 is not None and nz2.shape != (b, h, w, 1):
-        _bad_shape("noise2", nz2, (b, h, w, 1))
     if bias2 is not None and bias2.shape != (c,):
         _bad_shape("bias2", bias2, (c,))
+    nc = (1 if nz is None and nz2 is None
+          else noise_phases("conv_epilogue", nz, nz2, shape))
     if post and (len(post) > MAX_POST
                  or any(p.shape != shape for p in post)):
         raise ValueError(f"conv_epilogue: post_add "
                          f"{[tuple(p.shape) for p in post]}; at most "
                          f"{MAX_POST} of x's shape {tuple(shape)}")
+    return nc
 
 
 # one launch's arguments: `struct K6Launch` of csrc/epilogue.cu, in order
@@ -142,7 +179,7 @@ def _check(x, osc, nz, bias, post, nz2, bias2) -> None:
 LAUNCH_FIELDS = tuple((f, "q") for f in (
     "x", "y", "osc", "noise", "bias", "post0", "post1", "noise2", "bias2",
     "mask", "n_post", "act", "act2", "dtype", "op_dtype", "n", "C", "HW",
-    "aligned"))
+    "aligned", "nc"))
 _pack, _launch = _build.launcher("vspbfr_conv_epilogue", LAUNCH_FIELDS)
 
 
@@ -186,11 +223,14 @@ def _epilogue_forward(x, osc, nz, bias, act, post, nz2, bias2, act2,
     if n == 0:
         return y, mask
     _, h, w, c = x.shape
+    nc = next((t.shape[-1] for t in (nz, nz2) if t is not None), 1)
     _launch(x, _pack(xp, y.data_ptr(), _build.addr(osc), _build.addr(nz),
                      _build.addr(bias), pp[0], pp[1], _build.addr(nz2),
                      _build.addr(bias2), _build.addr(mask), len(post), act,
-                     act2, code, op_code, n, c, h * w, aligned))
+                     act2, code, op_code, n, c, h * w, aligned, nc))
     conv_epilogue.launches += 1
+    if nc > 1:
+        conv_epilogue.phase_launches += 1
     return y, mask
 
 
@@ -198,8 +238,7 @@ def stage2_grads(g, y, nz2, bias2, act2):
     """(du2, d_noise2, d_bias2) of the second stage for the incoming g:
     stage 2's slope read from the sign of its output y."""
     du2 = g * act_slope(y, g.dtype) if act2 else g
-    dnz2 = (None if nz2 is None
-            else sum_f32(du2, (3,), nz2.dtype).unsqueeze(-1))
+    dnz2 = None if nz2 is None else noise_grad(du2, nz2)
     dbias2 = None if bias2 is None else sum_f32(du2, (0, 1, 2), bias2.dtype)
     return du2, dnz2, dbias2
 
@@ -239,7 +278,7 @@ class _ConvEpilogue(torch.autograd.Function):
                   else g1 * osc.to(g1.dtype)[:, None, None, :])
         if need[3]:
             dosc = sum_f32(g1 * x, (1, 2), osc.dtype)
-        dnz = None if nz is None else sum_f32(g1, (3,), nz.dtype).unsqueeze(-1)
+        dnz = None if nz is None else noise_grad(g1, nz)
         dbias = None if bias is None else sum_f32(g1, (0, 1, 2), bias.dtype)
         return (None, None, dx, dosc, dnz, dbias, dnz2, dbias2,
                 *(g for _ in range(ctx.n_post)))
@@ -267,3 +306,4 @@ def conv_epilogue(x: torch.Tensor, out_scale=None, noise=None, bias=None,
 
 
 conv_epilogue.launches = 0
+conv_epilogue.phase_launches = 0

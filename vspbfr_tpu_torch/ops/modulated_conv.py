@@ -16,7 +16,13 @@ c_out < 128 to the subpixel composed conv (K1) followed by the phase
 interleave K3 (`d2s`).
 Strided and dilated single convs and the c_out >= 128 transposed conv go to
 `F.conv2d` / `F.conv_transpose2d`, as the JAX package leaves them to XLA.
-The space-to-depth layout is not ported.
+
+With `packed_in` / `packed_out` the conv runs on the space-to-depth layout
+(`ops/packed.py`), with the same parameters: `_modulated_conv2d_packed`
+routes each form to its packed op, and SMART's four branches become two
+launches, `modulated_conv2d_d12_packed` (dilations 1 and 2: one K1 on the
+(3, 3, 4C, 8Cb) assembled kernel, the demod as the epilogue's out_scale)
+and `modulated_conv2d_d48_packed` (dilations 4 and 8: one grouped K2).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vspbfr_tpu_torch.ops import packed as pk
 from vspbfr_tpu_torch.ops.d2s import d2s
 from vspbfr_tpu_torch.ops.dense_conv import (
     apply_epilogue,
@@ -32,7 +39,10 @@ from vspbfr_tpu_torch.ops.dense_conv import (
     conv_nhwc,
     dense_conv,
 )
-from vspbfr_tpu_torch.ops.dilated_conv import dilated_multi_conv
+from vspbfr_tpu_torch.ops.dilated_conv import (
+    dilated_multi_conv,
+    dilated_pair_conv,
+)
 from vspbfr_tpu_torch.ops.upfirdn2d import blur as _blur
 
 
@@ -85,56 +95,12 @@ def fused_blur_strided_conv(x: torch.Tensor, w: torch.Tensor, taps: tuple,
     return conv_nhwc(x, e, stride, ((pad[0], pad[1]), (pad[0], pad[1])))
 
 
-def _map_up(dk: int, c0: int):
-    """Transposed stride-2 composed op y[j] = sum_i D[j + c0 - 2i] x[i] on
-    an unpacked input: output phase a in [0, 2) -> [(u, t)] taps
-    (`ops/packed.py:165`, packed_in=False)."""
-    def m(a, e):
-        del e  # single input phase
-        return [(-((t - a - c0) // 2), t) for t in range(dk)
-                if (t - a - c0) % 2 == 0]
-    return m
-
-
-def _assemble2(d2: torch.Tensor, map_y, map_x, n_in_ph: int, n_out_ph: int):
-    """2D phase-kernel assembly (`ops/packed.py:114`): returns the kernel
-    (KpY, KpX, n_in_ph^2*Ci, n_out_ph^2*Co), pad_y and pad_x. Built as one
-    contraction of d2 with a 0/1 selection tensor made in numpy."""
-    dky, dkx, ci, co = d2.shape
-
-    def collect(m):
-        out = {(a, e): m(a, e) for a in range(n_out_ph)
-               for e in range(n_in_ph)}
-        us = [u for lst in out.values() for u, _ in lst]
-        return out, min(us), max(us)
-
-    my, y0, y1 = collect(map_y)
-    mx, x0, x1 = collect(map_x)
-    kpy, kpx = y1 - y0 + 1, x1 - x0 + 1
-    sel = np.zeros((kpy, kpx, n_in_ph, n_in_ph, n_out_ph, n_out_ph, dky, dkx),
-                   np.float32)
-    for (ay, ey), ly in my.items():
-        for (ax, ex), lx in mx.items():
-            for uy, ty in ly:
-                for ux, tx in lx:
-                    sel[uy - y0, ux - x0, ey, ex, ay, ax, ty, tx] += 1.0
-    s = torch.as_tensor(sel, device=d2.device)
-    wp = torch.einsum("uvefabst,stio->uvefiabo", s, d2.float())
-    wp = wp.reshape(kpy, kpx, n_in_ph * n_in_ph * ci, n_out_ph * n_out_ph * co)
-    return wp.to(d2.dtype), (-y0, y1), (-x0, x1)
-
-
 def up_conv_blur_unpacked(x: torch.Tensor, w: torch.Tensor,
                           taps: tuple) -> torch.Tensor:
     """StyleGAN2 up path (stride-2 transposed conv + FIR blur) as the
     subpixel composed conv on K1, emitting the 4 output phases as channel
     groups, then the phase interleave K3. x (B, h, w, Ci) -> (B, 2h, 2w, Co)."""
-    k, lk, factor = w.shape[0], len(taps), 2
-    d2 = compose_blur_kernel(w, taps, gain=float(factor ** 2))
-    p = (lk - factor) - (k - 1)
-    pad0 = (p + 1) // 2 + factor - 1
-    m = _map_up(k + lk - 1, lk - 1 - pad0)
-    wp, pady, padx = _assemble2(d2, m, m, 1, 2)
+    wp, pady, padx = pk.assembled_kernel(w, "up", taps)
     out4 = dense_conv(x.contiguous(), wp.to(x.dtype).contiguous(), (pady, padx))
     return d2s(out4, w.shape[3])
 
@@ -160,17 +126,118 @@ def modulated_conv2d_multi(x: torch.Tensor, ws, rates, style: torch.Tensor,
         tuple(rates), in_scale=style.to(x.dtype).contiguous(), out_scale=dv)
 
 
+def d12_kernel(w1: torch.Tensor, w2: torch.Tensor):
+    """(kernel, pad_y, pad_x) of the packed d1 + d2 conv: the assembled
+    dilation-1 kernel of w1 beside w2's block-diagonal one (dilation 2 is
+    phase-diagonal at the half grid's dilation 1), (3, 3, 4C, 8Cb)."""
+    c_in, cb = w1.shape[2], w1.shape[3]
+    wp1, pady, padx = pk.assembled_kernel(w1, "s1")
+    wd2 = torch.zeros((3, 3, 4 * c_in, 4 * cb), dtype=w2.dtype,
+                      device=w2.device)
+    for ph in range(4):
+        wd2[:, :, ph * c_in:(ph + 1) * c_in, ph * cb:(ph + 1) * cb] = w2
+    return torch.cat([wp1, wd2], dim=3), pady, padx
+
+
+def modulated_conv2d_d12_packed(x: torch.Tensor, w1: torch.Tensor,
+                                w2: torch.Tensor, style: torch.Tensor,
+                                eps: float = 1e-8) -> torch.Tensor:
+    """SMART's dilation-1 and dilation-2 branches as ONE packed conv
+    (`modulated_conv2d_d12_packed`, modulated_conv.py:201): on the half
+    grid both are 3x3 pad-1 kernels (d=1 mixes phases, d=2 is phase-
+    diagonal), concatenated on the output channels into one (3, 3, 4C, 8Cb)
+    K1 launch; the demod is the epilogue's out_scale. Output channels:
+    [d1 phase-major 4Cb | d2 phase-major 4Cb]. x (B, h, w, 4C); w1, w2
+    (3, 3, C, Cb); style (B, C)."""
+    scale = 1.0 / ((w1.shape[2] * 9) ** 0.5)
+    wp, pady, padx = d12_kernel(scale * w1, scale * w2)
+    dv = torch.cat([pk.pack_vector(demod_coeffs(w, style, scale, eps))
+                    for w in (w1, w2)], -1)
+    return pk._conv(x, wp.to(x.dtype), pady, padx,
+                    in_scale=pk.pack_vector(style).to(x.dtype).contiguous(),
+                    epi=dict(out_scale=dv, act=False))
+
+
+def modulated_conv2d_d48_packed(x: torch.Tensor, w4: torch.Tensor,
+                                w8: torch.Tensor, style: torch.Tensor,
+                                eps: float = 1e-8) -> torch.Tensor:
+    """SMART's dilation-4 and dilation-8 branches as ONE grouped K2 launch
+    (`modulated_conv2d_d48_packed`, modulated_conv.py:242): on the half
+    grid both are phase-diagonal convs at dilations 2 and 4, the weights
+    shared by the four phase groups, the demod at the store. Output
+    channels: [d4 phase-major 4Cb | d8 phase-major 4Cb]."""
+    c_in = w4.shape[2]
+    scale = 1.0 / ((c_in * 9) ** 0.5)
+    dv = torch.cat([pk.pack_vector(demod_coeffs(w, style, scale, eps))
+                    for w in (w4, w8)], -1)
+    return dilated_pair_conv(
+        x.contiguous(), (scale * w4).to(x.dtype).contiguous(),
+        (scale * w8).to(x.dtype).contiguous(), 2, 4, groups=4,
+        in_scale=pk.pack_vector(style).to(x.dtype).contiguous(),
+        out_scale=dv.to(x.dtype).contiguous())
+
+
+def _modulated_conv2d_packed(x, w, style, *, demodulate, up, down, dilation,
+                             blur_kernel, eps, packed_in, packed_out,
+                             epilogue):
+    """The packed-layout modulated conv (`_modulated_conv2d_packed`,
+    modulated_conv.py:307): x (B, h, w, 4Ci) when packed_in else (B, H, W,
+    Ci); the output packed iff packed_out. The style rides the conv's
+    in_scale, the demod the epilogue's out_scale."""
+    k, _, c_in, _ = w.shape
+    scale = 1.0 / ((c_in * k * k) ** 0.5)
+    dv = None
+    if demodulate:
+        d = demod_coeffs(w, style, scale, eps)
+        dv = pk.pack_vector(d) if packed_out else d
+    sty = (pk.pack_vector(style) if packed_in else style).to(x.dtype)
+    sty = sty.contiguous()
+    ws = (scale * w).to(x.dtype)
+    epi = dict(epilogue, out_scale=dv) if epilogue is not None else None
+    if up:
+        if not packed_out or dilation != 1:
+            raise ValueError("packed up-conv: packed output, dilation 1")
+        out = pk.up_conv_blur_packed(x, ws, tuple(blur_kernel),
+                                     packed_in=packed_in, in_scale=sty,
+                                     epi=epi)
+    elif down:
+        if not packed_in or dilation != 1:
+            raise ValueError("packed down-conv: packed input, dilation 1")
+        fn = (pk.blur_down_conv_packed_packed if packed_out
+              else pk.blur_down_conv_packed)
+        out = fn(x, ws, tuple(blur_kernel), in_scale=sty, epi=epi)
+    else:
+        if not (packed_in and packed_out):
+            raise ValueError("packed stride-1 conv: packed input and output")
+        if k == 1:
+            out = pk.conv1x1_packed(x, ws, in_scale=sty, epi=epi)
+        else:
+            out = pk.conv2d_packed(x, ws, dilation=dilation, in_scale=sty,
+                                   epi=epi)
+    if epilogue is not None or dv is None:
+        return out
+    return pk._epi_after(out, dict(out_scale=dv, act=False))
+
+
 def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
                      demodulate: bool = True, up: bool = False,
                      down: bool = False, dilation: int = 1,
                      blur_kernel: tuple | None = None, eps: float = 1e-8,
+                     packed_in: bool = False, packed_out: bool = False,
                      epilogue=None):
     """Style-modulated conv. x (B, H, W, Cin), w (k, k, Cin, Cout), style
     (B, Cin) already affine-mapped; 1/sqrt(fan_in) is applied here.
+    packed_in / packed_out select the space-to-depth layout of the input
+    and the output (the parameters are the same).
 
     epilogue: optional dict(noise=, bias=, act=, post_add=) applied after
     the demodulation (see `apply_epilogue`); the return value is then the
     activated tensor."""
+    if packed_in or packed_out:
+        return _modulated_conv2d_packed(
+            x, w, style, demodulate=demodulate, up=up, down=down,
+            dilation=dilation, blur_kernel=blur_kernel, eps=eps,
+            packed_in=packed_in, packed_out=packed_out, epilogue=epilogue)
     kh, kw, c_in, c_out = w.shape
     if kh != kw:
         raise ValueError("square kernels only")

@@ -10,11 +10,19 @@ in this order: the DDPM initial noise (float32), the decoder's noise maps,
 the mixing draws (z, a Bernoulli(mixing_prob) coin, an inject index in
 [1, n_latent)), then RestoreNet's noise maps. `draws=` hands in the DDPM
 noise and the mixing draws instead (tests give the JAX package's numbers
-this way).
+this way), and optionally the decoder's and RestoreNet's noise maps
+("decoder_noise", "noise": lists in their layers' order, unpacked (B, r, r,
+1) maps at every resolution if wanted, so that two layouts see the same
+noise).
 
 Dtype islands: encode and DDPM run in float32; the decoder and RestoreNet
 run in `compute_dtype` with their parameters cast once (`prepare_params`);
 the output returns in the input's dtype.
+
+`packed_min_res` (0: none) is the one space-to-depth threshold of the
+decoder and RestoreNet: the decoder's features at the packed resolutions
+flow into RestoreNet's skip fusion packed. The JAX package's default is
+512; the port's is 0 (PERF.md has the measured cost of 512 on the H100).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from vspbfr_tpu_torch.models.code_diffuser import CodeDiffuser
 from vspbfr_tpu_torch.models.layers import init_module
 from vspbfr_tpu_torch.models.psp import PSPFacade
 from vspbfr_tpu_torch.models.restorenet import Discriminator, RestorationNet
+from vspbfr_tpu_torch.models.stylegan2 import channel_dict
 
 STAGES = ("encode", "ddpm", "decode", "full")
 
@@ -37,20 +46,23 @@ class RestorationPipeline(nn.Module):
                  timesteps: int = 4, mixing_prob: float = 0.5,
                  compute_dtype: torch.dtype | None = None,
                  encode_size: int = 256, encoder_stages=None,
-                 channel_div: int = 1):
+                 channel_div: int = 1, packed_min_res: int = 0):
         super().__init__()
         self.style_dim, self.mixing_prob = style_dim, mixing_prob
         self.size, self.channel_multiplier = size, channel_multiplier
         self.channel_div = channel_div
         self.compute_dtype = compute_dtype
+        self.packed_min_res = packed_min_res
         self.psp = PSPFacade(out_size=size, size=decoder_size,
                              encode_size=encode_size,
                              encoder_stages=encoder_stages,
-                             channel_div=channel_div)
+                             channel_div=channel_div,
+                             packed_min_res=packed_min_res)
         self.diffuser = CodeDiffuser(timesteps=timesteps)
         self.generator = RestorationNet(
             size=size, style_dim=style_dim, n_mlp=n_mlp,
-            channel_multiplier=channel_multiplier, channel_div=channel_div)
+            channel_multiplier=channel_multiplier, channel_div=channel_div,
+            packed_min_res=packed_min_res)
         self.schedule = DDPMSchedule.linear(timesteps=timesteps,
                                             linear_start=0.1, linear_end=0.99)
 
@@ -58,6 +70,20 @@ class RestorationPipeline(nn.Module):
         """Random weights with the JAX package's init distributions, drawn
         on the CPU from `seed` (move the module afterwards)."""
         return init_module(self, torch.Generator().manual_seed(seed))
+
+    def _dummy_feats(self, b: int, device=None) -> list[torch.Tensor]:
+        """Zero decoder features of the shapes RestoreNet reads, at 4 to the
+        decoder's size, packed at the packed resolutions (`_dummy_feats`,
+        pipeline.py:88)."""
+        ch = channel_dict(self.channel_multiplier, self.channel_div)
+        dec = self.psp.decoder
+        out = []
+        for f in range(dec.log_size - 1):
+            r = 2 ** (f + 2)
+            shape = ((b, r // 2, r // 2, 4 * ch[r]) if dec.packed(r)
+                     else (b, r, r, ch[r]))
+            out.append(torch.zeros(shape, device=device))
+        return out
 
     def prepare_params(self, gen: RestorationNet | None = None):
         """Cast the compute_dtype stages (decoder, RestoreNet and an
@@ -121,16 +147,26 @@ class RestorationPipeline(nn.Module):
         if upto == "ddpm":
             return clean
         clean_c = clean.to(dt) if dt is not None else clean
+        draws = draws or {}
+
+        def maps(key):
+            if draws.get(key) is None:
+                return None
+            return [torch.as_tensor(n, device=clean.device).to(clean_c.dtype)
+                    for n in draws[key]]
+
         sample, feats = self.psp.decode_with_feats(
-            clean_c, generator=rng, return_image=return_sample)
+            clean_c, generator=rng, return_image=return_sample,
+            noise=maps("decoder_noise"))
         feats = feats[: gen.log_size - 1]
         if upto == "decode":
             return feats
         noise_latent = self.sample_mixing_latent(gen, rng,
-                                                 low_imgs.shape[0], draws)
+                                                 low_imgs.shape[0],
+                                                 draws or None)
         low_c = low_imgs.to(dt) if dt is not None else low_imgs
         out = gen(low_c, feats, clean_c, noise_latent, input_is_latent=True,
-                  generator=rng)
+                  generator=rng, noise=maps("noise"))
         if return_sample:
             return out.to(out_dtype), sample.to(out_dtype)
         return out.to(out_dtype)

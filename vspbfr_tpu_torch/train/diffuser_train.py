@@ -47,7 +47,6 @@ from torch.utils.checkpoint import checkpoint
 from vspbfr_tpu_torch.diffusion import LatentDDPM
 from vspbfr_tpu_torch.losses import LPIPS, ResNet101Embedder, id_loss, kd_loss
 from vspbfr_tpu_torch.models.layers import init_module
-from vspbfr_tpu_torch.models.psp import adaptive_avg_pool
 from vspbfr_tpu_torch.parallel import DataParallel
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import TrainState
@@ -146,13 +145,12 @@ class DiffuserTrainer:
 
     def draw(self, batch: int, generator: torch.Generator) -> dict:
         """The random draws of this rank's `batch` rows: the DDPM noise (B,
-        n_latent, 512) and the decoder's noise maps, all f32 N(0, 1), drawn
+        n_latent, 512) and the decoder's noise maps (packed at the packed
+        resolutions, `Generator.noise_shapes`), all f32 N(0, 1), drawn
         for the global batch (batch x world size) and cut to the rank's
         rows."""
         dev = self.device
         n_lat = self.psp.n_latent
-        dec = self.psp.decoder
-        res = [4] + [2 ** (i // 2 + 3) for i in range(dec.num_layers - 1)]
         n = batch * self.dp.world_size
         rows = self.dp.local_rows(n)
 
@@ -161,7 +159,8 @@ class DiffuserTrainer:
                                device=dev)[rows]
 
         return {"init_noise": randn((n, n_lat, 512)),
-                "noise": [randn((n, r, r, 1)) for r in res]}
+                "noise": [randn(s) for s in
+                          self.psp.decoder.noise_shapes(n)]}
 
     def _decode(self, latent: torch.Tensor, *noise) -> torch.Tensor:
         """The pooled decode of the latent, returned in the latent's dtype
@@ -172,9 +171,8 @@ class DiffuserTrainer:
         if dt is not None:
             latent = latent.to(dt)
             noise = [n.to(dt) for n in noise]
-        image, _ = dec(latent, noise=list(noise))
-        out = self.psp.out_size
-        return adaptive_avg_pool(image, (out, out)).to(out_dtype)
+        return self.psp.decode(latent, noise=list(noise),
+                               decoder=dec).to(out_dtype)
 
     def losses(self, low: torch.Tensor, real: torch.Tensor, draws: dict):
         """The forward of one (micro)batch: (loss, metrics), the loss with

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 
 import torch
 from torch.func import functional_call
@@ -212,14 +213,11 @@ class RestoreTrainer:
     # -- draws ---------------------------------------------------------------
 
     def _decoder_noise_shapes(self, batch: int) -> list[tuple]:
-        """The decoder layers the embedding runs (up to the up-conv at
-        out_size): conv1 at 4, then two per level, one at out_size."""
-        res = [4]
-        r = 8
-        while r < self.psp.out_size:
-            res += [r, r]
-            r *= 2
-        return [(batch, q, q, 1) for q in res + [self.psp.out_size]]
+        """The noise shapes of the decoder layers the embedding runs (up to
+        the up-conv at out_size): conv1 at 4, then two per level, one at
+        out_size; packed at the packed resolutions."""
+        n = 2 * int(math.log2(self.psp.out_size)) - 4
+        return self.psp.decoder.noise_shapes(batch)[:n]
 
     def draw(self, batch: int, generator: torch.Generator) -> dict:
         """One step's random draws for this rank's `batch` rows, all f32
