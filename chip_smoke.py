@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # takes no arguments; needs one CUDA card
 
-(`chip_smoke.py --rank ...` is one process of phase 13, which phase 13
-starts itself.)
+(`chip_smoke.py --rank ...` is one process of phase 13 or 16, which
+those phases start themselves.)
 
 Phases, in order (any failed check raises, so the exit status is non-zero):
 
@@ -180,10 +180,32 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              own processes (`NO_CV_TRAIN`): finite losses, the paths'
              kernels and forms launching, step medians beside phases 8's
              and 7's, the backward calls of the kernels' Functions.
+16. mesh2d - the 2-D data x model mesh (`parallel/`): two gloo ranks on
+             the one card (a 1 data x 2 model mesh, `--rank mesh2d`
+             under torchrun) against this process's lone runs, phase 5's
+             full-width pipeline (seeded, noise gains 0.1): (a) the decode
+             stage (1024 px decoder, b2) H-sharded with halo exchanges,
+             f32 and bf16, image and feature taps; (b) RestoreNet's stage
+             on them; (c) `restore` end to end (encode and DDPM
+             replicated), f32 under the serving gate, bf16 held to the
+             f32 output as closely as the lone bf16 run is (phase 15's
+             rule), peak memory per rank beside the lone run's; (d) the decoder with its weights
+             model-sharded (gathered at use): image within 5e-4, the
+             gradients of mean(image^2) within 1e-5 of each one's max
+             (f32, cuDNN deterministic); (e) one stage-2 step at phase 7's
+             config (b8, f32) model-sharded against the lone step: losses
+             in phase 7's gate, the updated diffuser within 2.05 x lr_eff
+             (flips a minority), Adam's bytes per rank beside the lone
+             run's; launch counts of each sub-phase, no plain K6 / K7 on
+             either rank; (f) `conv2d_semipacked` at (4, 512, 256, 128),
+             3x3: K1 at the assembled kernel against its plain version,
+             timed beside the unpacked K1 and cuDNN at 512 px C64 and the
+             2x2-packed K1.
 
-Phases 5, 7, 8, 11, 12, 13, 14 and 15 (b)-(d) also count the calls of K6's
-and K7's plain versions on CUDA tensors (`ops.plain_cuda_calls`), which
-must stay 0: on the card the main paths run the kernels.
+Phases 5, 7, 8, 11, 12, 13, 14, 15 (b)-(d) and 16 (on both ranks too)
+also count the calls of K6's and K7's plain versions on CUDA tensors
+(`ops.plain_cuda_calls`), which must stay 0: on the card the main paths
+run the kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Details also go to
@@ -213,7 +235,7 @@ from vspbfr_tpu_torch.cli.profile import d2s_library, s2d_library
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
           "restore", "smart", "experiments", "convert", "sample", "parallel",
-          "hostdata", "packed")
+          "hostdata", "packed", "mesh2d")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -285,7 +307,10 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                                    "dilated_multi_conv_grouped",
                                    "conv_epilogue_nc4"),
                 "packed_train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
-                                 "fused_leaky_relu", "conv_epilogue_nc4")}
+                                 "fused_leaky_relu", "conv_epilogue_nc4"),
+                # phase 16: restore H-sharded over two gloo ranks (f32)
+                "mesh2d": ("dense_conv", "dilated_multi_conv", "d2s",
+                           "conv_epilogue", "fused_leaky_relu")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 # phase 5's seeded full-width modules and faces, which phases 11 and 12
@@ -2726,6 +2751,8 @@ def rank_main(argv) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mode, out, *flags = argv
+    if mode == "mesh2d":
+        return _mesh_rank(out, *flags)
     events, sums = [], []
     reduce, step = (mesh.DataParallel.all_reduce_grads,
                     restore_train.RestoreTrainer.train_step)
@@ -3889,6 +3916,685 @@ def phase_packed():
     REPORT["packed"] = res
 
 
+# --- phase 16 ---------------------------------------------------------------
+
+MESH_BATCH = 2          # the serving stages' batch, (a)-(d)
+MESH_STAGE2_BATCH = 8   # stage 2's batch, (e): each rank of the 1 x 2
+#                         mesh computes all of it (two f32 steps share
+#                         the card)
+MESH_TIMEOUT = 420      # seconds the phase-16 ranks may take
+# the kernels the sharded paths launch: the serving stages, stage 2
+MESH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
+                          "conv_epilogue", "fused_leaky_relu"),
+                # the decoder alone has no K7 (its mapping MLP is not run)
+                "decode": ("dense_conv", "d2s", "conv_epilogue"),
+                "grads": ("dense_conv", "d2s", "s2d", "conv_epilogue"),
+                "train": ("dense_conv", "d2s", "s2d", "conv_epilogue",
+                          "fused_leaky_relu")}
+SHOWN = ("dense_conv", "dilated_multi_conv", "d2s", "conv_epilogue",
+         "fused_leaky_relu")
+
+
+def _mesh_inputs(pipe, device):
+    """Phase 16's seeded codes (B, 18, 512), degraded faces at 512 px and
+    noise latent (B, 16, 512)."""
+    import torch
+
+    rng = np.random.default_rng(16)
+    codes = rng.standard_normal((MESH_BATCH, pipe.psp.n_latent, 512))
+    lat = rng.standard_normal((MESH_BATCH, pipe.generator.n_latent, 512))
+    low = synthetic_faces(MESH_BATCH, 512, seed=16)
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (codes, low, lat)]
+
+
+@contextlib.contextmanager
+def _counted(name: str, rec: dict):
+    """The block's kernel launches and plain K6 / K7 calls on CUDA tensors
+    (both set to 0 just before) into rec[name]; a plain call raises."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_plain_cuda_calls()
+    yield
+    torch.cuda.synchronize()
+    rec[name] = dict(launches=ops.launch_counts(),
+                     plain=ops.plain_cuda_calls())
+    if any(rec[name]["plain"].values()):
+        raise AssertionError(f"mesh2d {name}: a plain version ran on the "
+                             f"card: {rec[name]['plain']}")
+
+
+def _mesh_pipelines(state):
+    """The seeded full-width pipeline in f32 and bf16 (noise gains 0.1) on
+    the card, from its state_dict."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    pipes = {}
+    for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        p = RestorationPipeline(compute_dtype=dt)
+        p.load_state_dict(state)
+        pipes[mode] = p.cuda().eval().prepare_params()
+    return pipes
+
+
+def _mesh_serving(pipes, sp, counts) -> dict:
+    """(a)-(c) on the pipelines, H-sharded under `sp` (None: the lone
+    run), f32 and bf16: the decode stage (pooled image, feature taps),
+    RestoreNet's stage on the decode's features, `restore` end to end with
+    the sample image; outputs whole, on the host; peak memory a dtype."""
+    import torch
+
+    out = {}
+    for mode, p in pipes.items():
+        dt = p.compute_dtype or torch.float32
+        codes, low, lat = _mesh_inputs(p, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+
+        def gen(seed):
+            return torch.Generator(device="cuda").manual_seed(seed)
+
+        def whole(t):
+            return (sp.gather(t) if sp is not None else t).float().cpu()
+
+        with torch.no_grad():
+            with _counted(f"decode {mode}", counts):
+                img, feats = p.psp.decode_with_feats(
+                    codes.to(dt), generator=gen(3), spatial=sp)
+            with _counted(f"restore stage {mode}", counts):
+                stage = p.generator(low.to(dt), feats, codes.to(dt),
+                                    lat.to(dt), input_is_latent=True,
+                                    generator=gen(6), spatial=sp)
+        with _counted(f"restore {mode}", counts):
+            restored, sample = p.restore(low, gen(7), return_sample=True,
+                                         spatial=sp)
+        out[mode] = dict(image=whole(img), feats=[whole(f) for f in feats],
+                         stage=whole(stage), restored=restored.float().cpu(),
+                         sample=sample.float().cpu(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _decoder_grads(pipe, mesh) -> dict:
+    """(d) The decoder (f32, TF32 off, cuDNN's deterministic algorithms)
+    on phase 16's codes with explicit noise: the image and the gradients of
+    mean(image^2) by parameter name, whole; with `mesh` model-sharded
+    (`shard_module`: the gathers in the forward, each rank's slice of the
+    gradient gathered back here for the comparison)."""
+    import copy
+
+    import torch
+
+    from vspbfr_tpu_torch.parallel.model_axis import (model_axis,
+                                                      parameters_in_order,
+                                                      shard_module,
+                                                      sharded_names)
+
+    dec = copy.deepcopy(pipe.psp.decoder).requires_grad_(True)
+    if mesh is not None:
+        shard_module(dec, mesh)
+    codes = _mesh_inputs(pipe, "cuda")[0]
+    noise = _noise_maps(dec.noise_shapes(MESH_BATCH), 18, "cuda")
+    with cudnn_deterministic():
+        img, _ = dec(codes, noise=noise)
+        img.square().mean().backward()
+    names = (dec._model_axis["names"] if mesh is not None
+             else [n for n, _ in dec.named_parameters()])
+    sharded = set(sharded_names(dec))
+    grads = {}
+    for n, p in zip(names, parameters_in_order(dec)):
+        grads[n] = (model_axis(dec).gather(p.grad) if n in sharded
+                    else p.grad).cpu()
+    return dict(image=img.detach().cpu(), grads=grads,
+                sharded=sorted(sharded))
+
+
+@contextlib.contextmanager
+def _adam_grads(state, names, record):
+    """Record into `record` (name -> tensor) the gradients Adam takes in
+    `state`'s next update (reduced over the data axis, before the step);
+    `names` in the optimizer's parameter order."""
+    def hook(opt, *_):
+        params = opt.param_groups[0]["params"]
+        record.update({n: p.grad.clone() for n, p in zip(names, params)})
+
+    handle = state.opt.register_step_pre_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def _moment_bytes(tr) -> int:
+    return sum(v.numel() * v.element_size()
+               for st in tr.state.opt.state.values()
+               for k, v in st.items() if k != "step")
+
+
+def _mesh_rank(out, state_file):
+    """One rank of phase 16 (`--rank mesh2d OUT STATE`), on the 1 data x 2
+    model mesh: (a)-(c) H-sharded, (d) the model-sharded decoder, (e) one
+    model-sharded stage-2 step; rank 0 writes the whole outputs to
+    OUT.tensors.pt, every rank its launches, plain calls, peak memory and
+    Adam's bytes to OUT.<rank>.json."""
+    import torch
+
+    from vspbfr_tpu_torch.parallel import (Spatial, create_mesh_2d,
+                                           distributed)
+    from vspbfr_tpu_torch.parallel.model_axis import model_axis, sharded_names
+
+    rec = {"counts": {}}
+    with distributed("cuda") as device:
+        mesh = create_mesh_2d(1, 2)
+        sp = Spatial.from_mesh(mesh)
+        rank = torch.distributed.get_rank()
+        state = torch.load(state_file, map_location="cpu", weights_only=True)
+        pipes = _mesh_pipelines(state)
+        del state
+        t0 = time.perf_counter()
+        tensors = {"serve": _mesh_serving(pipes, sp, rec["counts"])}
+        rec["serve_s"] = time.perf_counter() - t0
+        rec["exchanges"] = sp.exchanges
+        rec["peak_gib"] = {k: v.pop("peak_gib")
+                           for k, v in tensors["serve"].items()}
+        torch.cuda.reset_peak_memory_stats()
+        with _counted("decoder grads", rec["counts"]):
+            tensors["decoder"] = _decoder_grads(pipes["f32"], mesh)
+        rec["peak_gib"]["decoder"] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+        del pipes
+        torch.cuda.empty_cache()
+        tr = _stage2_parallel_trainer(MESH_STAGE2_BATCH).to(device)
+        tr.shard_model(mesh)
+        low, real = (x[:MESH_STAGE2_BATCH]
+                     for x in _stage2_parallel_batch(device))
+        torch.cuda.reset_peak_memory_stats()
+        grads = {}
+        with _counted("stage2", rec["counts"]), cudnn_deterministic(), \
+                _adam_grads(tr.state, tr.diffuser._model_axis["names"],
+                            grads):
+            m = tr.train_step(low, real,
+                              torch.Generator(device=device).manual_seed(13))
+        rec["peak_gib"]["stage2"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["metrics"] = {k: float(v) for k, v in m.items()}
+        rec["moment_bytes"] = _moment_bytes(tr)
+        ck = tr.state.state_dict()      # collective: the whole tensors
+        tensors["stage2"] = {k: v.cpu() for k, v in ck["params"].items()}
+        # the gradients Adam took, whole (gathered in name order, on both
+        # ranks)
+        ax, sharded = model_axis(tr.diffuser), set(sharded_names(tr.diffuser))
+        tensors["stage2_grads"] = {
+            n: (ax.gather(g) if n in sharded else g).cpu()
+            for n, g in grads.items()}
+        if rank == 0:
+            torch.save(tensors, f"{out}.tensors.pt")
+    rec["plain_cuda_calls"] = {}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _mesh_stage2_lone(res, ranks, tensors, grads, tr):
+    """(e) The lone stage-2 step (trainer `tr`, made while the ranks run)
+    at the same batch, draws and weights, and at inputs moved by +-1e-6
+    for phase 7's gate (10 x that spread + 1e-5); the gradients Adam took
+    on the ranks (`grads`, whole) against the lone step's, worst tensor,
+    relative to each one's max, in phase 7's form: within 1e-5 + 10 x the
+    lone step's own spread over two repeats (the forward is bit-equal
+    under cuDNN's deterministic algorithms, but the backward is not:
+    3.2e-6 measured, against 4.4e-6 and 5.8e-6 for the ranks, so 1e-5
+    alone would sit within 2x of the noise; a wrong slice or a missing
+    reduction moves a tensor by its own size); the ranks' updated
+    diffuser within 2.05 x
+    lr_eff of the lone one's (`tests/test_sharding2d.py`'s envelope), with
+    at most 5% of any tensor's elements apart by more than lr_eff (a
+    first Adam step moves each by +-lr_eff, so only gradients near zero
+    may change sign: 0.20% measured before this limit was set, 0.02% once
+    both steps took cuDNN's deterministic algorithms)."""
+    import torch
+
+    init = {k: v.clone() for k, v in tr.diffuser.state_dict().items()}
+    low, real = (x[:MESH_STAGE2_BATCH] for x in _stage2_parallel_batch("cuda"))
+    runs = []
+    lone_grads, again = {}, ({}, {})
+    torch.cuda.reset_peak_memory_stats()
+    # the last two runs repeat the first: the lone step's own spread
+    for i, f in enumerate((1.0, 1 + 1e-6, 1 - 1e-6, 1.0, 1.0)):
+        tr.diffuser.load_state_dict(init)
+        tr.state.opt.state.clear()
+        with cudnn_deterministic(), _adam_grads(
+                tr.state, [n for n, _ in tr.diffuser.named_parameters()],
+                {0: lone_grads, 3: again[0], 4: again[1]}.get(i, {})):
+            m = tr.train_step(low * f, real,
+                              torch.Generator(device="cuda").manual_seed(13))
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {k: v.detach().cpu().clone()
+                      for k, v in tr.diffuser.state_dict().items()},
+                     _moment_bytes(tr)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (m1, p1, lone_bytes), *pert = runs[:3]
+    gate = {}
+    for k in m1:
+        scale = max(abs(m1[k]), 1e-12)
+        gate[k] = dict(
+            rel_err=max(abs(r["metrics"][k] - m1[k]) for r in ranks) / scale,
+            spread=max(abs(p[0][k] - m1[k]) for p in pert) / scale)
+    bad = [k for k, v in gate.items()
+           if not v["rel_err"] <= 10 * v["spread"] + 1e-5]
+    lr_eff = tr.cfg.lr * tr.cfg.reg_every / (tr.cfg.reg_every + 1)
+    worst = flips = 0.0
+    for k, want in p1.items():
+        d = (tensors[k] - want).abs()
+        worst = max(worst, float(d.max()) / lr_eff)
+        flips = max(flips, float((d > lr_eff).float().mean()))
+    if set(grads) != set(lone_grads):
+        raise AssertionError("mesh2d stage 2: the ranks' gradients name "
+                             "other parameters than the lone step's")
+
+    def worst_rel(got):
+        """(worst |got - lone| over the lone gradient's max, its name)."""
+        return max((float((got[k].cpu() - v.cpu()).abs().max())
+                    / max(float(v.abs().max()), 1e-6), k)
+                   for k, v in lone_grads.items())
+
+    grad_worst, grad_worst_at = worst_rel(grads)
+    grad_repeat = max(worst_rel(g)[0] for g in again)
+    res["stage2"] = dict(gate=gate, metrics=ranks[0]["metrics"], lone=m1,
+                         grad_worst_rel=grad_worst,
+                         grad_worst_at=grad_worst_at,
+                         lone_grad_repeat_rel=grad_repeat,
+                         max_param_move_over_lr_eff=worst,
+                         flip_share=flips,
+                         moment_bytes=[r["moment_bytes"] for r in ranks],
+                         lone_moment_bytes=lone_bytes,
+                         peak_gib=[r["peak_gib"]["stage2"] for r in ranks],
+                         lone_peak_gib=peak,
+                         launches=ranks[0]["counts"]["stage2"]["launches"])
+    say(f"mesh2d (e) stage 2 (256 px, 1024 px decoder, b{MESH_STAGE2_BATCH}, "
+        f"f32) 1 x 2 model-sharded vs lone, rel err / spread: "
+        + ", ".join(f"{k} {v['rel_err']:.2e}/{v['spread']:.2e}"
+                    for k, v in gate.items())
+        + f"; Adam's gradients worst {grad_worst:.2e} of each one's max "
+        f"({grad_worst_at}; the lone step repeated: {grad_repeat:.2e})"
+        f"; params max |diff| {worst:.3f} x lr_eff, flips {flips:.4f}; "
+        f"Adam moments bytes per rank {res['stage2']['moment_bytes']} vs "
+        f"lone {lone_bytes}; peak GiB per rank "
+        f"{res['stage2']['peak_gib']} vs lone {peak:.3f}")
+    if (bad or grad_worst > 1e-5 + 10 * grad_repeat or worst > 2.05
+            or flips > 0.05):
+        raise AssertionError(f"mesh2d stage 2: out of the gate: {bad}, "
+                             f"gradients {grad_worst:.2e} of max, moves "
+                             f"{worst:.3f} x lr_eff, flips {flips}")
+    if not all(b < lone_bytes for b in res["stage2"]["moment_bytes"]):
+        raise AssertionError("mesh2d stage 2: Adam's moments not sharded")
+    torch.cuda.empty_cache()
+
+
+def _semipacked_rows(rows):
+    """(f) `conv2d_semipacked` at (4, 512, 256, 128) (512 px C64 packed
+    along the width), 3x3, dilation 1: K1 at the assembled kernel against
+    its plain version (phase 3's tolerances), timed beside the unpacked K1
+    and cuDNN at 512 px C64 and the 2x2-packed K1 at (4, 256, 256, 256);
+    the semi-packed result also against the unpacked conv. The plain
+    version is one cuDNN call on the assembled kernel, so it is also the
+    library's time."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.ops import dense_conv, dense_conv_plain
+    from vspbfr_tpu_torch.ops import packed as pk
+    from vspbfr_tpu_torch.ops import semipacked as spk
+    from vspbfr_tpu_torch.ops.dense_conv import conv_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    xu32 = torch.randn((4, 512, 512, 64), generator=gen, device="cuda")
+    w32 = torch.randn((3, 3, 64, 64), generator=gen, device="cuda") / 24.0
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xu, w = xu32.to(dt), w32.to(dt)
+        x = spk.space_to_width(xu).contiguous()
+        wp, padx = spk._assemble_x(w)
+        wp = wp.contiguous()
+        pads = ((1, 1), padx)
+        ops.reset_launch_counts()
+        got = spk.conv2d_semipacked(x, w)
+        torch.cuda.synchronize()
+        if ops.launch_counts()["dense_conv"] != 1:
+            raise AssertionError("mesh2d (f): conv2d_semipacked did not "
+                                 "launch K1")
+        ref = dense_conv_plain(x, wp, pads)
+        unpacked = conv_nhwc(xu, w, 1, ((1, 1), (1, 1)))
+        vs_unpacked = float((spk.width_to_space(got).float()
+                             - unpacked.float()).abs().max()
+                            / unpacked.float().abs().max())
+        xp = pk.space_to_depth(xu)
+        wpk, ppy, ppx = pk.assembled_kernel(w, "s1")
+        wpk = wpk.contiguous()
+        ms = cuda_ms(lambda: dense_conv(x, wp, pads))
+        call_ms = cuda_ms(lambda: spk.conv2d_semipacked(x, w))
+        plain_ms = cuda_ms(lambda: dense_conv_plain(x, wp, pads))
+        k1_ms = cuda_ms(lambda: dense_conv(xu, w, ((1, 1), (1, 1))))
+        cudnn_ms = cuda_ms(lambda: conv_nhwc(xu, w, 1, ((1, 1), (1, 1))))
+        packed_ms = cuda_ms(lambda: dense_conv(xp, wpk, (ppy, ppx)))
+        # the bound: the work the function needs (the unpacked 3x3 conv's
+        # multiply-adds; half the assembled kernel's taps are zeros) and
+        # its own operands (x, w, the output); the assembled kernel's
+        # figure beside it
+        _check("dense_conv", "semi-packed 512px C64, 3x3 128 -> 128",
+               dt_name, got, ref, ms, plain_ms, rows,
+               flops=conv_flops(xu.shape, w.shape, unpacked.shape),
+               moved=nbytes(x, w, got), library_ms=plain_ms,
+               assembled_bound_ms=bound(
+                   conv_flops(x.shape, wp.shape, got.shape),
+                   nbytes(x, wp, got), dt_name)[0],
+               call_ms=call_ms, unpacked_k1_ms=k1_ms,
+               unpacked_cudnn_ms=cudnn_ms, packed_k1_ms=packed_ms,
+               vs_unpacked_rel=vs_unpacked,
+               kernel_shape=list(wp.shape))
+        say(f"mesh2d (f) semi-packed {dt_name}: K1 at {tuple(wp.shape)} "
+            f"{ms:.4f} ms (the call with its assembly {call_ms:.4f}); "
+            f"unpacked K1 {k1_ms:.4f}, cuDNN {cudnn_ms:.4f}, 2x2-packed K1 "
+            f"at {tuple(wpk.shape)} {packed_ms:.4f} ms; vs the unpacked "
+            f"conv {vs_unpacked:.2e} of max")
+        del x, xu, w, wp, got, ref, unpacked, xp, wpk
+    torch.cuda.empty_cache()
+
+
+def _mesh_gates(got, ref) -> dict:
+    """(a)-(c) against the lone run. f32: the serving gate. bf16: the
+    RestoreNet stage leaves the lone run's bits at one cuDNN stride-2
+    conv on a window's shape, by one bf16 ulp from bit-equal inputs
+    (`_first_divergence` shows where on each run), and these random
+    weights grow that to more than the serving gate, as any two bf16
+    roundings of the same sums do (phase 15). So, as there, each bf16
+    output is held to the lone f32 output, and the sharded one must be as
+    close to it as the lone bf16 one is (within 1.5x, mean and max, +
+    1e-6 of the range); bf16 sharded against bf16 lone is reported."""
+    def outputs(run):
+        named = {k: run[k] for k in ("image", "stage", "restored", "sample")}
+        named.update({f"feature {f.shape[1]} px": f for f in run["feats"]})
+        return named
+
+    gates = {}
+    f32 = outputs(ref["f32"])
+    for key, g in outputs(got["f32"]).items():
+        gates[f"{key} f32"] = _serving_gate(f"mesh2d 1x2 vs lone {key} f32",
+                                            g, f32[key])
+    lone16 = outputs(ref["bf16"])
+    for key, g in outputs(got["bf16"]).items():
+        e_sh = _serving_gate(f"mesh2d 1x2 bf16 vs lone f32 {key}", g,
+                             f32[key], gate=False)
+        e_lone = _serving_gate(f"mesh2d lone bf16 vs lone f32 {key}",
+                               lone16[key], f32[key], gate=False)
+        gates[f"{key} bf16"] = dict(
+            vs_f32=e_sh, lone_vs_f32=e_lone,
+            vs_lone_bf16=_serving_gate(f"mesh2d 1x2 vs lone {key} bf16", g,
+                                       lone16[key], gate=False))
+        for m in ("mean_rel", "max_rel"):
+            if e_sh[m] > 1.5 * e_lone[m] + 1e-6:
+                raise AssertionError(f"mesh2d {key} bf16: further from f32 "
+                                     f"than the lone bf16 run ({m})")
+    return gates
+
+
+class _ThreadRows:
+    """A stand-in exchanger for `Spatial`: rank `rank` of `hub.n` threads
+    of this process; `all_gather` meets the others at a barrier."""
+
+    def __init__(self, hub, rank):
+        self.hub, self.rank, self.size = hub, rank, hub.n
+
+    def all_gather(self, t):
+        hub = self.hub
+        hub.slots[self.rank] = t
+        hub.barrier.wait()
+        out = list(hub.slots)
+        hub.barrier.wait()
+        return out
+
+
+def _first_divergence(sd, rank_stage) -> dict:
+    """Where the bf16 RestoreNet stage of the 1 x 2 run leaves the lone
+    run's bits. The lone bf16 stage runs here with a forward hook on every
+    module of the RestoreNet keeping its inputs and outputs; then the same
+    stage runs H-sharded on two threads of this process (`_ThreadRows`:
+    the ranks' shapes and kernels, without gloo), each hook holding its
+    module's inputs and outputs (this rank's rows) against the lone
+    run's. Reports whether the threads reproduce the gloo ranks' output
+    bit for bit, and a rank's first module call (post-order) whose output
+    differs, and its first whose output differs from bit-equal inputs:
+    that module's own arithmetic (its code outside the modules it calls,
+    which all matched) on this rank's shapes, not a halo's rows; with
+    each one's |difference| over its output's range."""
+    import threading
+    import types
+
+    import torch
+
+    from vspbfr_tpu_torch.parallel import Spatial
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    dt = torch.bfloat16
+    p = RestorationPipeline(compute_dtype=dt)
+    p.load_state_dict(sd)
+    p = p.cuda().eval().prepare_params()
+    codes, low, lat = _mesh_inputs(p, "cuda")
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    with torch.no_grad():
+        _, feats = p.psp.decode_with_feats(codes.to(dt), generator=gen(3))
+    net = p.generator
+    names = {m: n or "RestoreNet" for n, m in net.named_modules()}
+    local = threading.local()
+    lone, calls = [], {0: [], 1: []}
+
+    def tensors(v):
+        if torch.is_tensor(v):
+            return [v]
+        if isinstance(v, (list, tuple)):
+            return [t for x in v for t in tensors(x)]
+        return []
+
+    def diff(got, want, sp):
+        """max |got - want| over the pairs (want whole, got in its
+        layout); None where a pair's shapes do not correspond."""
+        worst = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape and g.dim() == 4 and (
+                    g.shape[1] * sp.n == w.shape[1]):
+                w = w[:, sp.own_rows(w.shape[1])]
+            if g.shape != w.shape:
+                return None
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+        return worst
+
+    def hook(mod, args, out):
+        ins, outs = tensors(args), tensors(out)
+        rank = getattr(local, "rank", None)
+        if rank is None:
+            lone.append((names[mod], [t.clone() for t in ins],
+                         [t.clone() for t in outs]))
+            return
+        i = len(calls[rank])
+        name, w_in, w_out = lone[i] if i < len(lone) else (None, [], [])
+        span = max((float(t.float().max() - t.float().min())
+                    for t in w_out), default=0.0)
+        calls[rank].append(dict(
+            name=names[mod], kind=type(mod).__name__,
+            same_module=name == names[mod],
+            in_diff=diff(ins, w_in, local.sp),
+            out_diff=diff(outs, w_out, local.sp), out_range=span))
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()]
+    hub = types.SimpleNamespace(n=2, slots=[None] * 2,
+                                barrier=threading.Barrier(2, timeout=120))
+    outs, errors = [None, None], []
+
+    def rank_thread(r):
+        try:
+            local.rank, local.sp = r, Spatial(_ThreadRows(hub, r))
+            with torch.no_grad():
+                outs[r] = net(low.to(dt), feats, codes.to(dt), lat.to(dt),
+                              input_is_latent=True, generator=gen(6),
+                              spatial=local.sp)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            hub.barrier.abort()
+
+    try:
+        with torch.no_grad():
+            whole = net(low.to(dt), feats, codes.to(dt), lat.to(dt),
+                        input_is_latent=True, generator=gen(6))
+        threads = [threading.Thread(target=rank_thread, args=(r,))
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"mesh2d bf16 witness: the thread ranks "
+                                 f"failed: {errors}")
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    sharded = torch.cat(outs, dim=1).float().cpu()
+    res = dict(threads_equal_ranks=bool(torch.equal(sharded, rank_stage)),
+               calls=len(lone), first=[])
+    span = float(whole.float().max() - whole.float().min())
+    res["stage_max_rel"] = float((sharded - whole.float().cpu()).abs().max()
+                                 ) / span
+    res["first_own"] = []
+    for r in range(2):
+        c = calls[r]
+        n = next((i for i, x in enumerate(c) if not x["same_module"]),
+                 len(c))
+        res.setdefault("same_calls", []).append(n == len(c) == len(lone))
+        found = [None, None]
+        for i, x in enumerate(c[:n]):
+            if x["out_range"]:
+                x["out_diff_rel"] = (x["out_diff"] or 0.0) / x["out_range"]
+            if x["out_diff"] != 0.0 and found[0] is None:
+                found[0] = dict(x, index=i)
+            if (x["out_diff"] != 0.0 and x["in_diff"] == 0.0
+                    and found[1] is None):
+                found[1] = dict(x, index=i)
+        res["first"].append(found[0])
+        res["first_own"].append(found[1])
+    del lone, calls
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mesh2d():
+    """The 2-D mesh (`parallel/`) and the semi-packed layout: (a)-(e) in
+    two gloo ranks on the one card (1 data x 2 model) against this
+    process's lone runs, (f) `conv2d_semipacked` here."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+
+    SEEDED["nets"].clear()
+    SEEDED.pop("pipe", None)
+    torch.cuda.empty_cache()
+    res = {"kernels": []}
+    base = RestorationPipeline().init_from_seed(0)
+    _condition_diffuser(base)     # so that (c)'s DDPM chain is well posed
+    sd = {k: torch.full_like(v, 0.1) if k.endswith("noise.weight") else v
+          for k, v in base.state_dict().items()}
+    del base
+    with tempfile.TemporaryDirectory() as tmp:
+        state_file = os.path.join(tmp, "pipe.pt")
+        torch.save(sd, state_file)
+        out = os.path.join(tmp, "mesh2d")
+        h = _spawn_ranks("mesh2d", out, 2, [state_file])
+        try:
+            lone = {"counts": {}}
+            pipes = _mesh_pipelines(sd)
+            ref = _mesh_serving(pipes, None, lone["counts"])
+            torch.cuda.reset_peak_memory_stats()
+            ref_dec = _decoder_grads(pipes["f32"], None)
+            lone_dec_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            del pipes
+            torch.cuda.empty_cache()
+            lone_tr = _stage2_parallel_trainer(MESH_STAGE2_BATCH).to("cuda")
+            ranks = _collect_ranks(h, MESH_TIMEOUT)
+        except BaseException:
+            _stop_ranks(h)
+            raise
+        got = torch.load(f"{out}.tensors.pt", weights_only=True)
+        res["gates"] = _mesh_gates(got["serve"], ref)
+        # where the bf16 stage leaves the lone run's bits, and why
+        w = _first_divergence(sd, got["serve"]["bf16"]["stage"])
+        res["bf16_witness"] = w
+        def _call(f):
+            return ("none" if f is None else
+                    f"#{f['index']} {f['name']} ({f['kind']}; inputs |diff| "
+                    f"{f['in_diff']}, output |diff| {f['out_diff']} = "
+                    f"{f.get('out_diff_rel', 0.0):.2e} of its range)")
+
+        say(f"mesh2d bf16 witness: the threads reproduce the gloo ranks' "
+            f"stage bit for bit: {w['threads_equal_ranks']}; threads vs "
+            f"lone {w['stage_max_rel']:.2e} of the range; {w['calls']} "
+            f"module calls, the same a rank: {w['same_calls']}")
+        for r in range(2):
+            say(f"mesh2d bf16 witness rank {r}: first differing call "
+                f"{_call(w['first'][r])}; first from bit-equal inputs "
+                f"{_call(w['first_own'][r])}")
+        # (d) the model-sharded decoder
+        d_img = _rel(got["decoder"]["image"], ref_dec["image"])
+        worst = max(float((got["decoder"]["grads"][k] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-6)
+                    for k, v in ref_dec["grads"].items())
+        res["decoder"] = dict(image_rel=d_img, grad_worst_rel=worst,
+                              n_sharded=len(got["decoder"]["sharded"]),
+                              peak_gib=[r["peak_gib"]["decoder"]
+                                        for r in ranks],
+                              lone_peak_gib=lone_dec_peak)
+        say(f"mesh2d (d) model-sharded decoder (1024 px b{MESH_BATCH} f32, "
+            f"{len(got['decoder']['sharded'])} parameters sharded): image "
+            f"{d_img:.2e} of max, gradients worst {worst:.2e} of each "
+            f"one's max; peak GiB per rank {res['decoder']['peak_gib']} vs "
+            f"lone {lone_dec_peak:.3f}")
+        if d_img > 5e-4 or worst > 1e-5:
+            raise AssertionError("mesh2d (d): the model-sharded decoder "
+                                 "out of the gate")
+        _mesh_stage2_lone(res, ranks, got["stage2"], got["stage2_grads"],
+                          lone_tr)
+        del lone_tr
+    for name, c in ranks[0]["counts"].items():
+        path = {"stage2": "train", "decoder grads": "grads"}.get(
+            name, "decode" if name.startswith("decode") else "serve")
+        missing = [k for k in MESH_KERNELS[path] if c["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"mesh2d {name}: kernels never launched "
+                                 f"{missing}")
+    res["launches"] = {name: c["launches"] for name, c in
+                       ranks[0]["counts"].items()}
+    res["lone_launches"] = {name: c["launches"] for name, c in
+                            lone["counts"].items()}
+    res["peak_gib"] = [r["peak_gib"] for r in ranks]
+    res["lone_peak_gib"] = {k: v["peak_gib"] for k, v in ref.items()}
+    res["exchanges"] = [r["exchanges"] for r in ranks]
+    res["serve_s"] = [r["serve_s"] for r in ranks]
+    for name, c in ranks[0]["counts"].items():
+        lone_c = lone["counts"].get(name, {}).get("launches", {})
+        say(f"mesh2d launches {name}: rank 0 "
+            + ", ".join(f"{k} {c['launches'][k]}" for k in SHOWN)
+            + ("; lone " + ", ".join(f"{k} {lone_c[k]}" for k in SHOWN)
+               if lone_c else ""))
+    say(f"mesh2d peak GiB per rank {res['peak_gib']}, lone "
+        f"{res['lone_peak_gib']}; halo exchanges and gathers per rank "
+        f"{res['exchanges']}; the ranks' (a)-(c) took {res['serve_s']} s")
+    _semipacked_rows(res["kernels"])
+    REPORT["mesh2d"] = res
+
+
 # --- main -------------------------------------------------------------------
 
 def main() -> None:
@@ -3900,7 +4606,7 @@ def main() -> None:
         with (no_plain_on_card(name) if name in ("slice", "cli", "train",
                                                  "restore", "convert",
                                                  "sample", "parallel",
-                                                 "hostdata")
+                                                 "hostdata", "mesh2d")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
@@ -3924,10 +4630,12 @@ def main() -> None:
                 "packed_fused":
                     REPORT["packed"]["serve"]["bf16"]["fused_launches"],
                 "packed_restore": REPORT["packed"]["stage3"]["launches"],
-                "packed_train": REPORT["packed"]["stage2"]["launches"]}
+                "packed_train": REPORT["packed"]["stage2"]["launches"],
+                "mesh2d": REPORT["mesh2d"]["launches"]["restore f32"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in (REPORT["kernels"] + REPORT["grads"]
-                            + REPORT["packed"]["kernels"])
+                            + REPORT["packed"]["kernels"]
+                            + REPORT["mesh2d"]["kernels"])
                 if r["kernel"] == name and r["dtype"] == "f32"]
         big = max(rows, key=lambda r: r["plain_ms"])
         path = next(p for p, ks in PATH_KERNELS.items() if name in ks)

@@ -19,6 +19,12 @@ Noise injection draws (B, H, W, 1) float32 normals from an explicit
 `torch.Generator` when no noise tensor is passed; a packed layer draws
 (B, h, w, 4), one value a phase, and takes given (B, 2h, 2w, 1) noise
 through `space_to_depth`.
+
+`spatial` (a `parallel.spatial.Spatial`, default None: today's path) runs
+a layer on this rank's rows of H-sharded maps: its convs on windows of
+their neighbours' rows, its noise the shard's rows of the global draw. A
+map's resolution is its width (the maps are square), which says whether
+it is sharded.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from vspbfr_tpu_torch.ops.modulated_conv import (
     fused_blur_strided_conv,
     modulated_conv2d_d12_packed,
     modulated_conv2d_d48_packed,
+    on_rows,
+    window_rows,
 )
 
 BLUR_KERNEL = (1, 3, 3, 1)  # the FIR taps of every up/down path
@@ -240,11 +248,18 @@ class EqualConv2d(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x, epi=None):
+    def forward(self, x, epi=None, spatial=None):
         """epi: optional epilogue dict (see `apply_epilogue`); a stride-1
         conv without a bias of its own takes it in its store
-        (`conv2d_dense_epilogue`)."""
+        (`conv2d_dense_epilogue`). spatial: a `parallel.spatial.Spatial`
+        when x may be H-sharded (stride 1 or the blurred stride-2 conv)."""
         w = self.weight * self.scale
+        if spatial is not None and not spatial.sharded(x.shape[2]):
+            spatial = None
+        if spatial is not None and (self.packed or (
+                self.stride != 1 and self.pre_blur is None)):
+            raise NotImplementedError("spatial sharding: unpacked stride-1 "
+                                      "or blurred stride-2 EqualConv2d only")
         if self.packed:
             if self.bias is not None and epi is not None:
                 raise ValueError("EqualConv2d: a bias of its own and an "
@@ -259,15 +274,16 @@ class EqualConv2d(nn.Module):
             if self.bias is not None:
                 out = out + pk.pack_vector(self.bias).to(out.dtype)
             return out
+        p = self.padding
         if self.pre_blur is not None:
             out = fused_blur_strided_conv(x, w, BLUR_KERNEL, self.pre_blur,
-                                          stride=self.stride)
-        elif (epi is not None and self.stride == 1 and self.dilation == 1
-              and self.bias is None):
-            p = self.padding
-            return conv2d_dense_epilogue(x, w, ((p, p), (p, p)), **epi)
+                                          stride=self.stride, spatial=spatial)
         else:
-            out = conv2d(x, w, stride=self.stride, padding=self.padding,
+            x, pady = window_rows(x, p, p, spatial)
+            if (epi is not None and self.stride == 1 and self.dilation == 1
+                    and self.bias is None):
+                return conv2d_dense_epilogue(x, w, (pady, (p, p)), **epi)
+            out = conv2d(x, w, stride=self.stride, padding=(pady, (p, p)),
                          dilation=self.dilation)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
@@ -306,14 +322,20 @@ class NoiseInjection(nn.Module):
     def init_from(self, gen):
         self.weight.zero_()
 
-    def scaled(self, shape, like, noise=None, generator=None):
+    def scaled(self, shape, like, noise=None, generator=None, spatial=None):
         """weight * noise for an output of `shape` (B, H, W, C). Unpacked:
         noise (B, H, W, 1), drawn when none is given. Packed: (B, H, W, 4),
         one value a phase, drawn in that layout when none is given (the
         same N(0, 1) draws as unpacked, in another order: cross-layout
         comparisons pass noise); given noise may be (B, 2H, 2W, 1), which
-        goes through `space_to_depth`, or already (B, H, W, 4)."""
+        goes through `space_to_depth`, or already (B, H, W, 4). With
+        `spatial` (unpacked; `shape` the whole map's): the output's rows
+        of the noise (`Spatial.noise`)."""
         b, h, w = shape[:3]
+        if spatial is not None and not self.packed:
+            return self.weight * spatial.noise(
+                (b, h, w, 1), noise,
+                lambda s: draw_noise(s, like, generator))
         nc = 4 if self.packed else 1
         if noise is None:
             noise = draw_noise((b, h, w, nc), like, generator)
@@ -349,14 +371,14 @@ class ModulatedConv2d(nn.Module):
     def init_from(self, gen):
         _normal(self.weight, gen)
 
-    def forward(self, x, style, epilogue=None):
+    def forward(self, x, style, epilogue=None, spatial=None):
         if self.modulation is not None:
             style = self.modulation(style)
         return modulated_conv2d(
             x, self.weight, style, demodulate=self.demodulate,
             up=self.upsample, down=self.downsample, dilation=self.dilation,
             blur_kernel=BLUR_KERNEL, packed_in=self.packed_in,
-            packed_out=self.packed_out, epilogue=epilogue)
+            packed_out=self.packed_out, epilogue=epilogue, spatial=spatial)
 
 
 class StyledConv(nn.Module):
@@ -380,7 +402,7 @@ class StyledConv(nn.Module):
     def out_shape(self, xshape) -> tuple:
         """The output's shape for an input of shape xshape (the layouts'
         static geometry, `_styled_out_shape`, layers.py:286)."""
-        b, h = xshape[0], xshape[1]
+        b, h = xshape[0], xshape[2]     # square maps: W (H may be a shard)
         res = 2 * h if self.packed_in else h
         res = 2 * res if self.upsample else (res // 2 if self.downsample
                                               else res)
@@ -388,13 +410,16 @@ class StyledConv(nn.Module):
             return (b, res // 2, res // 2, 4 * self.features)
         return (b, res, res, self.features)
 
-    def forward(self, x, style, noise=None, post_add=(), generator=None):
+    def forward(self, x, style, noise=None, post_add=(), generator=None,
+                spatial=None):
         """post_add: tensors of the output shape added after the lrelu (the
-        RestoreNet decoder's skip fusion, `models/RestoreNet.py:1029-1035`)."""
-        nz = self.noise.scaled(self.out_shape(x.shape), x, noise, generator)
+        RestoreNet decoder's skip fusion, `models/RestoreNet.py:1029-1035`;
+        with `spatial`, the output's rows)."""
+        nz = self.noise.scaled(self.out_shape(x.shape), x, noise, generator,
+                               spatial)
         return self.conv(x, style, epilogue=dict(
             noise=nz, bias=self.activate.vector(), act=True,
-            post_add=tuple(post_add)))
+            post_add=tuple(post_add)), spatial=spatial)
 
 
 class ToRGB(nn.Module):
@@ -413,11 +438,12 @@ class ToRGB(nn.Module):
     def init_from(self, gen):
         self.bias.zero_()
 
-    def forward(self, x, style, skip=None):
+    def forward(self, x, style, skip=None, spatial=None):
         if not self.packed:
-            out = self.conv(x, style) + self.bias
+            out = self.conv(x, style, spatial=spatial) + self.bias
             if skip is not None:
-                out = out + upsample2d(skip, BLUR_KERNEL)
+                out = out + on_rows(
+                    skip, lambda t: upsample2d(t, BLUR_KERNEL), 1, 2, spatial)
             return out
         out = self.conv(x, style) + pk.pack_vector(self.bias)
         if skip is not None:
@@ -457,16 +483,16 @@ class ConvLayer(nn.Module):
         self.activate = (FusedLeakyReLU(features, packed=packed)
                          if activate and use_bias else None)
 
-    def forward(self, x, epi_extra=None):
+    def forward(self, x, epi_extra=None, spatial=None):
         """epi_extra: extra epilogue pieces (noise2/bias2/act2: the SMART
         tail) applied after the activation."""
         if not self.act:
             if epi_extra:
                 raise ValueError("ConvLayer: epi_extra needs activate=True")
-            return self.conv(x)
+            return self.conv(x, spatial=spatial)
         bias = None if self.activate is None else self.activate.vector()
         return self.conv(x, epi=dict(bias=bias, act=True,
-                                     **(epi_extra or {})))
+                                     **(epi_extra or {})), spatial=spatial)
 
 
 class ResBlock(nn.Module):
@@ -514,23 +540,30 @@ class SMARTLayer(nn.Module):
                             if packed else None))
 
     def forward(self, x, style, noise=None, return_intermediates: bool = False,
-                generator=None):
+                generator=None, spatial=None):
         """return_intermediates=True also returns the per-dilation branch
         outputs and the final tensor (`forward_vis`)."""
         mod = self.modulation(style)
         ws = [m.weight for m in self.dilated]
+        if spatial is not None and self.packed and spatial.sharded(
+                x.shape[2]):
+            raise NotImplementedError("spatial sharding of the "
+                                      "space-to-depth layout")
         if return_intermediates:
-            outs = [m(x, mod) for m in self.dilated]
+            outs = [m(x, mod, spatial=spatial) for m in self.dilated]
         elif self.packed:
             outs = [modulated_conv2d_d12_packed(x, ws[0], ws[1], mod),
                     modulated_conv2d_d48_packed(x, ws[2], ws[3], mod)]
         else:
             # all branches in one K2 launch
-            outs = [modulated_conv2d_multi(x, ws, RATES, mod)]
+            outs = [modulated_conv2d_multi(x, ws, RATES, mod,
+                                           spatial=spatial)]
         out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
-        nz = self.noise.scaled(out.shape, out, noise, generator)
+        b, _, w, c = out.shape          # square maps: W (H may be a shard)
+        nz = self.noise.scaled((b, w, w, c), out, noise, generator, spatial)
         out = self.fusion(out, epi_extra=dict(
-            noise2=nz, bias2=self.activate.vector(), act2=True))
+            noise2=nz, bias2=self.activate.vector(), act2=True),
+            spatial=spatial)
         if return_intermediates:
             return out, outs + [out]
         return out
@@ -558,9 +591,10 @@ class LargeConvLayer(nn.Module):
                             if packed else None))
         self.activate = FusedLeakyReLU(features, packed=packed)
 
-    def forward(self, x):
-        out = torch.cat([m(x) for m in self.dilated], dim=-1)
-        return self.activate(self.fusion(out))
+    def forward(self, x, spatial=None):
+        out = torch.cat([m(x, spatial=spatial) for m in self.dilated],
+                        dim=-1)
+        return self.activate(self.fusion(out, spatial=spatial))
 
 
 class StyleMLP(nn.Module):

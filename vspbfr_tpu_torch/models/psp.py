@@ -80,31 +80,39 @@ class PSPFacade(nn.Module):
         return (self.decoder.packed(self.size)
                 and 2 * self.out_size == self.size)
 
-    def _pooled(self, decoder, codes, **kw):
-        """(image pooled to out_size or None, features or None)."""
+    def _pooled(self, decoder, codes, spatial=None, **kw):
+        """(image pooled to out_size or None, features or None). With
+        `spatial` the image's rows pool to the pooled image's rows (whole
+        where out_size is not sharded)."""
         if kw.get("return_image", True) and self._pooled_from_packed():
-            packed, feats = decoder(codes, return_packed_rgb=True, **kw)
+            packed, feats = decoder(codes, return_packed_rgb=True,
+                                    spatial=spatial, **kw)
             b, h, w, _ = packed.shape
             return packed.reshape(b, h, w, 4, 3).mean(dim=3), feats
-        image, feats = decoder(codes, **kw)
+        image, feats = decoder(codes, spatial=spatial, **kw)
         if image is not None:
-            image = adaptive_avg_pool(image, (self.out_size, self.out_size))
+            rows = image.shape[1] * self.out_size // image.shape[2]
+            image = adaptive_avg_pool(image, (rows, self.out_size))
+            if spatial is not None and not spatial.sharded(self.out_size):
+                image = spatial.gather(image)
         return image, feats
 
     def decode_with_feats(self, codes: torch.Tensor,
                           generator: torch.Generator | None = None,
                           return_image: bool = True, noise=None,
-                          decoder: nn.Module | None = None):
+                          decoder: nn.Module | None = None, spatial=None):
         """W+ code -> (image pooled to out_size or None,
         features[:out_n_latent]). Without the image the decode stops at
         out_size, the last feature RestoreNet reads. noise: optional list of
         the decoder's per-layer maps (else drawn from `generator`); decoder:
-        a stand-in for the own one (a copy in another dtype)."""
+        a stand-in for the own one (a copy in another dtype); spatial: a
+        `parallel.spatial.Spatial` (the codes this rank's batch rows; the
+        image and the features in their resolutions' layouts)."""
         image, feats = self._pooled(
             decoder or self.decoder, codes, noise=noise,
             return_features=True, return_image=return_image,
             max_feature_res=None if return_image else self.out_size,
-            generator=generator)
+            generator=generator, spatial=spatial)
         return image, feats[: self.out_n_latent]
 
     def decode(self, codes: torch.Tensor,

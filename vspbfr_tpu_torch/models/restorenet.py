@@ -26,6 +26,13 @@ the encoder's and the decoder's features at those resolutions are packed
 (so the decoder features handed in must come from a Generator with the
 same threshold), and the output through `depth_to_space`. D stays
 unpacked, as in the JAX package.
+
+`spatial` (a `parallel.spatial.Spatial`) runs the generator on this rank's
+rows of the H-sharded levels (`parallel/spatial.py`): the inputs are this
+rank's batch rows, the low image and the decoder features whole or
+already cut to this rank's rows, the output this rank's rows of the image
+(from `MIN_ROWS` rows a shard up). The 4x4 head and the levels below the
+threshold run whole on every rank.
 """
 
 from __future__ import annotations
@@ -129,20 +136,22 @@ class RestorationNet(nn.Module):
                        device=device)
         return u >= DROPOUT_RATE
 
-    def encoder_forward(self, imgs, latent, noise, generator, dropout_mask):
+    def encoder_forward(self, imgs, latent, noise, generator, dropout_mask,
+                        spatial=None):
         """`models/RestoreNet.py:915-942`. latent: flipped (B, n, 1024)."""
         b = imgs.shape[0]
         if self.packed(self.size):
             imgs = space_to_depth(imgs)
-        out = self.down_from_big(imgs)
+        out = self.down_from_big(imgs, spatial=spatial)
         features = []
         for ii in range(0, len(self.encoder_convs), 2):
             out = self.encoder_convs[ii](out, latent[:, ii], noise=noise[ii],
-                                         generator=generator)
+                                         generator=generator, spatial=spatial)
             features.append(out)
             out = self.encoder_convs[ii + 1](out, latent[:, ii],
                                              noise=noise[ii + 1],
-                                             generator=generator)
+                                             generator=generator,
+                                             spatial=spatial)
         out = self.final_layer(out)
         x_global = self.final_linear(out.reshape(b, -1))
         if dropout_mask is not None:
@@ -163,7 +172,7 @@ class RestorationNet(nn.Module):
     def forward(self, images, de_feats, pre_styles, noise_styles,
                 inject_index=None, input_is_latent: bool = False,
                 generator: torch.Generator | None = None, noise=None,
-                dropout_mask: torch.Tensor | None = None):
+                dropout_mask: torch.Tensor | None = None, spatial=None):
         """Restore `images` (B, size, size, 3) in [-1, 1].
 
         de_feats: decoder features (index 1.. used at 8..size); pre_styles:
@@ -171,7 +180,13 @@ class RestorationNet(nn.Module):
         or with input_is_latent a (B, n_latent, 512) latent. noise: the
         maps of `noise_shapes`, or None to draw each from `generator` (the
         reference's randomize_noise). dropout_mask: the encoder head's keep
-        mask in training, None in eval."""
+        mask in training, None in eval. spatial: see the module's doc."""
+        if spatial is not None:
+            if self.packed_min_res:
+                raise NotImplementedError("spatial sharding of the "
+                                          "space-to-depth layout")
+            images = spatial.own(images)
+            de_feats = [spatial.own(f) for f in de_feats]
         if input_is_latent:
             noise_latent = noise_styles
         else:
@@ -183,24 +198,26 @@ class RestorationNet(nn.Module):
                            dim=-1)
         x_global, features = self.encoder_forward(
             images, torch.flip(latent, dims=(1,)), noise[:n_enc], generator,
-            dropout_mask)
+            dropout_mask, spatial)
         noise = noise[n_enc:]
 
         def sty(i):
             return torch.cat([latent[:, i], x_global], dim=-1)
 
         out = self.conv1(features[0], sty(0), noise=noise[0],
-                         generator=generator)
-        skip = self.to_rgb1(out, sty(1))
+                         generator=generator, spatial=spatial)
+        skip = self.to_rgb1(out, sty(1), spatial=spatial)
         i = 1
         for k in range(0, len(self.convs), 2):
             fi = (i + 1) // 2
             out = self.convs[k](out, sty(i),
                                 post_add=(features[fi], de_feats[fi]),
-                                noise=noise[k + 1], generator=generator)
+                                noise=noise[k + 1], generator=generator,
+                                spatial=spatial)
             out = self.convs[k + 1](out, sty(i + 1), noise=noise[k + 2],
-                                    generator=generator)
-            skip = self.to_rgbs[k // 2](out, sty(i + 2), skip)
+                                    generator=generator, spatial=spatial)
+            skip = self.to_rgbs[k // 2](out, sty(i + 2), skip,
+                                        spatial=spatial)
             i += 2
         if self.packed(self.size):
             skip = depth_to_space(skip)

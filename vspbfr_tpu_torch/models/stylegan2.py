@@ -12,6 +12,11 @@ space-to-depth layout (`ops/packed.py`), with the same parameters; their
 feature taps come back packed, (B, r/2, r/2, 4C), so RestoreNet must use
 the same threshold. The JAX package's default is 512, the port's 0 (the
 CLIs' `--packed_min_res` sets it).
+
+`spatial` (a `parallel.spatial.Spatial`) decodes this rank's rows of the
+H-sharded levels (`parallel/spatial.py`): the codes are this rank's batch
+rows; the image and the feature taps come back in their resolutions'
+layouts (local rows from `MIN_ROWS` rows a shard up, whole below).
 """
 
 from __future__ import annotations
@@ -104,7 +109,7 @@ class Generator(nn.Module):
                 return_features: bool = False, return_image: bool = True,
                 max_feature_res: int | None = None,
                 generator: torch.Generator | None = None,
-                return_packed_rgb: bool = False):
+                return_packed_rgb: bool = False, spatial=None):
         """Decode a (B, n_latent, style_dim) W+ code.
 
         noise: optional list of num_layers (B, r, r, 1) maps (or, at a
@@ -117,26 +122,30 @@ class Generator(nn.Module):
         resolution is packed, return the (B, size/2, size/2, 12) packed RGB
         (phase groups (gy, gx, rgb)) without the final depth-to-space."""
         b = latent.shape[0]
+        if spatial is not None and self.packed_min_res:
+            raise NotImplementedError("spatial sharding of the "
+                                      "space-to-depth layout")
         if noise is None:
             noise = [None] * self.num_layers
+        sp = dict(generator=generator, spatial=spatial)
         out = self.const_input.expand(b, -1, -1, -1).contiguous()
-        out = self.conv1(out, latent[:, 0], noise=noise[0],
-                         generator=generator)
-        skip = self.to_rgb1(out, latent[:, 1]) if return_image else None
+        out = self.conv1(out, latent[:, 0], noise=noise[0], **sp)
+        skip = (self.to_rgb1(out, latent[:, 1], spatial=spatial)
+                if return_image else None)
         features = [out] if return_features else None
         i = 1
         for k in range(0, len(self.convs), 2):
-            out = self.convs[k](out, latent[:, i], noise=noise[k + 1],
-                                generator=generator)
+            out = self.convs[k](out, latent[:, i], noise=noise[k + 1], **sp)
             if return_features:
                 features.append(out)
             if (not return_image and max_feature_res is not None
                     and 2 ** (k // 2 + 3) >= max_feature_res):
                 break
             out = self.convs[k + 1](out, latent[:, i + 1], noise=noise[k + 2],
-                                    generator=generator)
+                                    **sp)
             if return_image:
-                skip = self.to_rgbs[k // 2](out, latent[:, i + 2], skip)
+                skip = self.to_rgbs[k // 2](out, latent[:, i + 2], skip,
+                                            spatial=spatial)
             i += 2
         if skip is not None and self.packed(self.size) and not (
                 return_packed_rgb):

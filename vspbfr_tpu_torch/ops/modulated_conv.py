@@ -23,6 +23,15 @@ routes each form to its packed op, and SMART's four branches become two
 launches, `modulated_conv2d_d12_packed` (dilations 1 and 2: one K1 on the
 (3, 3, 4C, 8Cb) assembled kernel, the demod as the epilogue's out_scale)
 and `modulated_conv2d_d48_packed` (dilations 4 and 8: one grouped K2).
+
+With `spatial` (a `parallel.spatial.Spatial`) the unpacked conv runs on
+this rank's rows of an H-sharded map, by the same route: a conv that pads
+H by (top, bottom) takes the window of those rows around this rank's
+(`window_rows`) and pads H by nothing (K1, K1e, the subpixel up-conv's
+K1 + K3, the blurred stride-2 down-conv, the dilated convs); the
+transposed up-conv + blur and SMART's K2 run on a wider window and keep
+the middle rows. Where neither the input's nor the output's resolution is
+sharded the context is dropped, and the call is the unsharded one.
 """
 
 from __future__ import annotations
@@ -50,6 +59,23 @@ def _pads(padding):
     if isinstance(padding, int):
         return ((padding, padding), (padding, padding))
     return padding
+
+
+def window_rows(x: torch.Tensor, top: int, bottom: int, spatial):
+    """(x, H pads) for a conv that pads H by (top, bottom): x and (top,
+    bottom) without `spatial`; with it, this rank's rows of x with the
+    `top` / `bottom` rows around them (`Spatial.window`) and no H pads."""
+    if spatial is None:
+        return x, (top, bottom)
+    return spatial.window(x, top, bottom), (0, 0)
+
+
+def on_rows(x: torch.Tensor, fn, reach: int, up: int, spatial):
+    """fn(x), or with `spatial` fn on this rank's rows (`Spatial.rows_op`:
+    the window of `reach` rows each side, the middle rows kept)."""
+    if spatial is None:
+        return fn(x)
+    return spatial.rows_op(x, fn, reach, up=up)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding=0,
@@ -88,21 +114,39 @@ def compose_blur_kernel(w: torch.Tensor, taps: tuple,
 
 
 def fused_blur_strided_conv(x: torch.Tensor, w: torch.Tensor, taps: tuple,
-                            pad: tuple, stride: int = 2) -> torch.Tensor:
+                            pad: tuple, stride: int = 2,
+                            spatial=None) -> torch.Tensor:
     """blur(x, taps, pad) then conv(w, stride) as ONE strided conv with the
-    composed kernel."""
+    composed kernel. With `spatial`: on this rank's rows, the output
+    gathered where its resolution is not sharded."""
     e = compose_blur_kernel(w, taps)
-    return conv_nhwc(x, e, stride, ((pad[0], pad[1]), (pad[0], pad[1])))
+    xw, pady = window_rows(x, pad[0], pad[1], spatial)
+    out = conv_nhwc(xw, e, stride, (pady, (pad[0], pad[1])))
+    return out if spatial is None else spatial.settle(out)
 
 
 def up_conv_blur_unpacked(x: torch.Tensor, w: torch.Tensor,
-                          taps: tuple) -> torch.Tensor:
+                          taps: tuple, spatial=None) -> torch.Tensor:
     """StyleGAN2 up path (stride-2 transposed conv + FIR blur) as the
     subpixel composed conv on K1, emitting the 4 output phases as channel
-    groups, then the phase interleave K3. x (B, h, w, Ci) -> (B, 2h, 2w, Co)."""
+    groups, then the phase interleave K3. x (B, h, w, Ci) -> (B, 2h, 2w, Co).
+    With `spatial`: this rank's 2h/n output rows."""
     wp, pady, padx = pk.assembled_kernel(w, "up", taps)
+    x, pady = window_rows(x, *pady, spatial)
     out4 = dense_conv(x.contiguous(), wp.to(x.dtype).contiguous(), (pady, padx))
     return d2s(out4, w.shape[3])
+
+
+def _transpose_blur(xs, ws, blur_kernel, dilation: int = 1):
+    """The up path as the stride-2 transposed conv, then the FIR blur (the
+    c_out >= 128 form, as the JAX package leaves it to XLA)."""
+    out = conv_transpose2d(xs, ws, stride=2, padding=0, dilation=dilation)
+    if blur_kernel is None:
+        return out
+    factor, k = 2, ws.shape[0]
+    p = (len(blur_kernel) - factor) - (k - 1) * dilation
+    return _blur(out, blur_kernel, pad=((p + 1) // 2 + factor - 1, p // 2 + 1),
+                 upsample_factor=factor)
 
 
 def demod_coeffs(w: torch.Tensor, style: torch.Tensor, scale: float,
@@ -114,16 +158,20 @@ def demod_coeffs(w: torch.Tensor, style: torch.Tensor, scale: float,
 
 
 def modulated_conv2d_multi(x: torch.Tensor, ws, rates, style: torch.Tensor,
-                           eps: float = 1e-8) -> torch.Tensor:
+                           eps: float = 1e-8, spatial=None) -> torch.Tensor:
     """All of SMART's stride-1 3x3 dilated branches in one K2 launch,
-    outputs concatenated, demodulation applied at the store."""
+    outputs concatenated, demodulation applied at the store. With
+    `spatial` at a sharded resolution: K2 on the window of the largest
+    dilation's rows each side, the middle rows kept."""
     c_in, k = ws[0].shape[2], ws[0].shape[0]
     scale = 1.0 / ((c_in * k * k) ** 0.5)
     dv = torch.cat([demod_coeffs(w, style, scale, eps) for w in ws], -1)
     dv = dv.to(x.dtype).contiguous()
-    return dilated_multi_conv(
-        x.contiguous(), [(scale * w).to(x.dtype).contiguous() for w in ws],
-        tuple(rates), in_scale=style.to(x.dtype).contiguous(), out_scale=dv)
+    wsc = [(scale * w).to(x.dtype).contiguous() for w in ws]
+    sty = style.to(x.dtype).contiguous()
+    return on_rows(x, lambda t: dilated_multi_conv(
+        t.contiguous(), wsc, tuple(rates), in_scale=sty, out_scale=dv),
+        max(rates) * (k // 2), 1, spatial)
 
 
 def d12_kernel(w1: torch.Tensor, w2: torch.Tensor):
@@ -224,15 +272,28 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
                      down: bool = False, dilation: int = 1,
                      blur_kernel: tuple | None = None, eps: float = 1e-8,
                      packed_in: bool = False, packed_out: bool = False,
-                     epilogue=None):
+                     epilogue=None, spatial=None):
     """Style-modulated conv. x (B, H, W, Cin), w (k, k, Cin, Cout), style
     (B, Cin) already affine-mapped; 1/sqrt(fan_in) is applied here.
     packed_in / packed_out select the space-to-depth layout of the input
-    and the output (the parameters are the same).
+    and the output (the parameters are the same). spatial: a
+    `parallel.spatial.Spatial` when the map may be H-sharded.
 
     epilogue: optional dict(noise=, bias=, act=, post_add=) applied after
     the demodulation (see `apply_epilogue`); the return value is then the
     activated tensor."""
+    fir = isinstance(blur_kernel, (tuple, list))
+    if spatial is not None:
+        res = x.shape[2]
+        res_out = 2 * res if up else (res // 2 if down else res)
+        if not (spatial.sharded(res) or spatial.sharded(res_out)):
+            spatial = None
+        elif packed_in or packed_out:
+            raise NotImplementedError("spatial sharding of the "
+                                      "space-to-depth layout")
+        elif (up or down) and (dilation != 1 or not fir):
+            raise NotImplementedError("spatial sharding: up / down convs at "
+                                      "dilation 1 with FIR taps only")
     if packed_in or packed_out:
         return _modulated_conv2d_packed(
             x, w, style, demodulate=demodulate, up=up, down=down,
@@ -249,26 +310,23 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
 
     if up:
         xs = x * sty[:, None, None, :]
-        if (dilation == 1 and isinstance(blur_kernel, (tuple, list))
-                and c_out < 128):
-            out = up_conv_blur_unpacked(xs, ws, tuple(blur_kernel))
+        if dilation == 1 and fir and c_out < 128:
+            out = up_conv_blur_unpacked(xs, ws, tuple(blur_kernel), spatial)
         else:
-            out = conv_transpose2d(xs, ws, stride=2, padding=0,
-                                   dilation=dilation)
-            if blur_kernel is not None:
-                factor = 2
-                p = (len(blur_kernel) - factor) - (k - 1) * dilation
-                out = _blur(out, blur_kernel,
-                            pad=((p + 1) // 2 + factor - 1, p // 2 + 1),
-                            upsample_factor=factor)
+            # sharded: a window of 2 rows each side (output row y reads
+            # input rows (y - 3) / 2 .. (y + 2) / 2), the middle rows kept
+            out = on_rows(xs, lambda t: _transpose_blur(t, ws, blur_kernel,
+                                                        dilation),
+                          2, 2, spatial)
     elif down:
         xs = x * sty[:, None, None, :]
         factor = 2
         p = (len(blur_kernel) - factor) + (k - 1)
         pad0, pad1 = (p + 1) // 2, p // 2
-        if dilation == 1 and isinstance(blur_kernel, (tuple, list)):
+        if dilation == 1 and fir:
             out = fused_blur_strided_conv(xs, ws, tuple(blur_kernel),
-                                          (pad0, pad1), stride=2)
+                                          (pad0, pad1), stride=2,
+                                          spatial=spatial)
         else:
             xs = _blur(xs, blur_kernel, pad=(pad0, pad1))
             out = conv2d(xs, ws, stride=2, padding=0, dilation=dilation)
@@ -279,14 +337,18 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
             wb = sty[:, :, None] * ws[0, 0]
             out = torch.einsum("bhwc,bco->bhwo", x, wb)
         elif dilation == 1:
+            x, pady = window_rows(x, padding, padding, spatial)
+            pads = (pady, (padding, padding))
             if epilogue is not None:
                 return conv2d_dense_epilogue(
-                    x, ws, _pads(padding), in_scale=sty.contiguous(),
-                    out_scale=d, **epilogue)
-            out = dense_conv(x.contiguous(), ws.contiguous(),
-                             _pads(padding), in_scale=sty.contiguous())
+                    x, ws, pads, in_scale=sty.contiguous(), out_scale=d,
+                    **epilogue)
+            out = dense_conv(x.contiguous(), ws.contiguous(), pads,
+                             in_scale=sty.contiguous())
         else:
-            out = conv2d(x * sty[:, None, None, :], ws, padding=padding,
+            xs, pady = window_rows(x * sty[:, None, None, :], padding,
+                                   padding, spatial)
+            out = conv2d(xs, ws, padding=(pady, (padding, padding)),
                          dilation=dilation)
 
     if epilogue is not None:

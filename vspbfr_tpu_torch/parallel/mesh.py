@@ -20,7 +20,17 @@ The reference's `distributed.py` surface maps to:
   reduce_loss_dict           -> DataParallel.mean_metrics
   DistributedSampler         -> local_batch_slice, the loaders' shard_index
 
-The 2-D, spatial and model sharding of the JAX module are not carried over.
+The 2-D part of the JAX module (`create_mesh_2d`, `replicated`,
+`batch_sharded`, `spatial_sharded`, `model_param_specs`) is here too, over
+`torch.distributed.device_mesh`: the mesh's sub-groups are the "data" and
+"model" process groups, and the placements are `torch.distributed.tensor`'s
+`Replicate()` / `Shard(dim)`, one per mesh axis, as `PartitionSpec`s are.
+XLA inserts the collectives those annotations imply; here two modules run
+them by hand: `parallel/spatial.py` (H-sharded activations with halo
+exchanges, what GSPMD lowers `spatial_sharded` convs to) and
+`parallel/model_axis.py` (weights sharded at rest on their last axis and
+gathered at use, `model_param_specs`). On a 2-D mesh `DataParallel` reduces
+over the data axis only: the ranks of one model group hold the same rows.
 """
 
 from __future__ import annotations
@@ -119,6 +129,112 @@ def local_batch_slice(global_batch: int, index: int | None = None,
     return slice(index * per, (index + 1) * per)
 
 
+def create_mesh_2d(n_data: int, n_model: int,
+                   axes: tuple[str, str] = ("data", "model")):
+    """The 2-D (data x model) `DeviceMesh` over the process group that
+    `maybe_initialize_distributed` joined (`create_mesh_2d`, mesh.py:85):
+    rank = data index * n_model + model index, so a model group is
+    n_model consecutive ranks (the JAX mesh's row-major reshape). Its
+    sub-groups take the group's backend (gloo when ranks share a card);
+    a rendezvous that fails raises within `DEFAULT_TIMEOUT`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh_2d needs the process group "
+                           "(maybe_initialize_distributed)")
+    if n_data * n_model != dist.get_world_size():
+        raise ValueError(f"mesh {n_data} x {n_model} for "
+                         f"{dist.get_world_size()} ranks")
+    device_type = "cuda" if _backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=tuple(axes))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The number of ranks along a named mesh axis (1 if the mesh has no
+    such axis)."""
+    names = tuple(mesh.mesh_dim_names)
+    return int(mesh.shape[names.index(axis)]) if axis in names else 1
+
+
+def _placements(mesh, dims: dict) -> tuple:
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(dims[n]) if n in dims else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
+def replicated(mesh) -> tuple:
+    """`Replicate()` on every mesh axis (`P()`)."""
+    return _placements(mesh, {})
+
+
+def batch_sharded(mesh, axis: str = "data") -> tuple:
+    """The leading (batch) dim sharded over `axis` (`P(axis)`)."""
+    return _placements(mesh, {axis: 0})
+
+
+def spatial_sharded(mesh, axis: str = "model",
+                    batch_axis: str | None = "data") -> tuple:
+    """NHWC activations sharded over H along `axis` and, where the mesh has
+    it, over the batch along `batch_axis` (`P(batch_axis, axis)`). The
+    per-shard convs and their halo exchanges are `parallel/spatial.py`."""
+    dims = {axis: 1}
+    if batch_axis is not None and batch_axis in mesh.mesh_dim_names:
+        dims[batch_axis] = 0
+    return _placements(mesh, dims)
+
+
+def model_param_specs(module_or_state_dict, mesh, axis: str = "model",
+                      min_size: int = 256) -> dict:
+    """Megatron-style weight sharding (`model_param_specs`, mesh.py:118):
+    name -> placements. A tensor of at least 2 dims whose last axis is at
+    least `min_size` and divides over `axis` is sharded on that last axis
+    (conv Co, linear out-features: the port's layouts are flax's, HWIO and
+    (in, out), so it is the same axis of the same parameters); everything
+    else (biases, styles, small heads) is replicated. A module's
+    parameters, or every entry of a state_dict (optimizer moments mirror
+    their parameters' shapes)."""
+    n = axis_size(mesh, axis)
+    items = (module_or_state_dict.named_parameters()
+             if isinstance(module_or_state_dict, torch.nn.Module)
+             else module_or_state_dict.items())
+    out = {}
+    for name, t in items:
+        shape = tuple(t.shape)
+        if len(shape) >= 2 and shape[-1] >= min_size and shape[-1] % n == 0:
+            out[name] = _placements(mesh, {axis: len(shape) - 1})
+        else:
+            out[name] = replicated(mesh)
+    return out
+
+
+class AxisGroup:
+    """One rank's place on a mesh axis: the axis' process group, the
+    rank's index on it and the axis' size, and the all-gather that
+    `parallel/spatial.py` and `parallel/model_axis.py` exchange through
+    (under gloo a CUDA tensor goes through a host copy, as `DataParallel`
+    reduces; a gather that fails raises within the group's timeout)."""
+
+    def __init__(self, group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
+
+    @classmethod
+    def of(cls, mesh, axis: str):
+        return cls(mesh.get_group(axis), mesh.get_local_rank(axis),
+                   axis_size(mesh, axis))
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's t (equal shapes), in rank order, on t's device."""
+        src = t.detach().contiguous()
+        if src.device.type == "cuda" and dist.get_backend(
+                self.group) == "gloo":
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        return [p.to(t.device) for p in parts]
+
+
 def _buckets(tensors: Iterable[torch.Tensor]) -> dict:
     """The tensors grouped by dtype, in order."""
     out: dict = {}
@@ -128,43 +244,60 @@ def _buckets(tensors: Iterable[torch.Tensor]) -> dict:
 
 
 class DataParallel:
-    """One replica per rank of the default process group: rank, world
-    size, the lead rank (rank 0 writes logs, samples and checkpoints) and
-    the collectives of a data-parallel step. Without a group every method
-    is the identity and the world size is 1."""
+    """One replica per rank of the default process group, or with a 2-D
+    `mesh` per rank of its data axis: rank and world size along that axis,
+    the lead rank (global rank 0 writes logs, samples and checkpoints) and
+    the collectives of a data-parallel step, over the data sub-group only
+    (the ranks of one model group hold the same rows, so their replicated
+    parameters' gradients are already equal). Without a group every
+    method is the identity and the world size is 1."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         self.backend = _backend()
+        self.group = None
         self.rank = dist.get_rank() if self.backend else 0
         self.world_size = dist.get_world_size() if self.backend else 1
         self.is_lead = self.rank == 0
+        if mesh is not None and self.backend:
+            data = AxisGroup.of(mesh, "data")
+            self.group, self.rank, self.world_size = (data.group, data.rank,
+                                                      data.size)
 
     def local_rows(self, global_batch: int) -> slice:
         return local_batch_slice(global_batch, self.rank, self.world_size)
 
-    def _all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
-        """In place; gloo reduces CUDA tensors through a host copy."""
+    def _all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
+                    group=None) -> None:
+        """In place, over the data group (or `group`); gloo reduces CUDA
+        tensors through a host copy."""
+        group = group or self.group
         if self.backend == "gloo" and t.is_cuda:
             host = t.cpu()
-            dist.all_reduce(host, op)
+            dist.all_reduce(host, op, group=group)
             t.copy_(host)
         else:
-            dist.all_reduce(t, op)
+            dist.all_reduce(t, op, group=group)
 
     def _broadcast(self, t: torch.Tensor) -> None:
+        src = 0 if self.group is None else dist.get_global_rank(self.group,
+                                                                0)
         if self.backend == "gloo" and t.is_cuda:
             host = t.cpu()
-            dist.broadcast(host, 0)
+            dist.broadcast(host, src, group=self.group)
             t.copy_(host)
         else:
-            dist.broadcast(t, 0)
+            dist.broadcast(t, src, group=self.group)
 
     @torch.no_grad()
     def replicate(self, module: torch.nn.Module) -> torch.nn.Module:
-        """Give every rank rank 0's parameters and buffers (DDP's start;
-        the JAX package requires equal values on every process)."""
+        """Give every rank its data group's first rank's parameters and
+        buffers (DDP's start; the JAX package requires equal values on
+        every process). The tensors themselves, so a model-sharded
+        parameter's slice is what goes (its data group holds the same
+        slice)."""
         if self.backend:
-            for group in _buckets(module.state_dict().values()).values():
+            held = list(module.parameters()) + list(module.buffers())
+            for group in _buckets(held).values():
                 flat = torch.cat([t.reshape(-1) for t in group])
                 self._broadcast(flat)
                 for t, v in zip(group, flat.split([t.numel()
@@ -206,10 +339,11 @@ class DataParallel:
         return t
 
     def any_(self, flag: bool, device) -> bool:
-        """True if any rank passed True (a stop request: every rank stops
-        at the same iteration, none waits in a collective alone)."""
+        """True if any rank of the world passed True (a stop request: every
+        rank stops at the same iteration, none waits in a collective
+        alone)."""
         if not self.backend:
             return bool(flag)
         t = torch.tensor([int(flag)], device=device)
-        self._all_reduce(t, dist.ReduceOp.MAX)
+        self._all_reduce(t, dist.ReduceOp.MAX, group=dist.group.WORLD)
         return bool(t.item())

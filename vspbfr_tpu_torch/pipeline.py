@@ -23,6 +23,12 @@ the output returns in the input's dtype.
 decoder and RestoreNet: the decoder's features at the packed resolutions
 flow into RestoreNet's skip fusion packed. The JAX package's default is
 512; the port's is 0 (PERF.md has the measured cost of 512 on the H100).
+
+`restore(..., spatial=)` runs on a 2-D mesh (`parallel/spatial.py`): the
+encode and the DDPM replicated over the model axis (256 px and the 18x512
+code), the decode and RestoreNet H-sharded over it, each data-axis rank on
+its share of the batch; the output is gathered, so every rank returns the
+whole batch. The draws are the unsharded run's, cut to the rank's rows.
 """
 
 from __future__ import annotations
@@ -120,28 +126,41 @@ class RestorationPipeline(nn.Module):
     @torch.no_grad()
     def restore(self, low_imgs: torch.Tensor, rng: torch.Generator | None,
                 gen: RestorationNet | None = None,
-                return_sample: bool = False, upto: str = "full", draws=None):
+                return_sample: bool = False, upto: str = "full", draws=None,
+                spatial=None):
         """Full inference path; `gen` overrides RestoreNet (e.g. its EMA).
 
         upto cuts the path after "encode" | "ddpm" | "decode" (returning
         the latent, the clean latent, or the decoder features) or runs it
         "full". return_sample also returns the decoder's image of the
-        clean latent (the reference's *_sample.png)."""
+        clean latent (the reference's *_sample.png). spatial: a
+        `parallel.spatial.Spatial` (see the module's doc); `upto` then
+        returns this rank's share (features in their layouts), "full" the
+        gathered batch."""
         if upto not in STAGES:
             raise ValueError(f"upto must be one of {STAGES}, got {upto!r}")
         gen = self.generator if gen is None else gen
         self.prepare_params(gen)
         dt = self.compute_dtype
         out_dtype = low_imgs.dtype
+        rows = slice(None)
+        if spatial is not None:
+            if self.packed_min_res:
+                raise NotImplementedError("spatial sharding of the "
+                                          "space-to-depth layout")
+            rows = spatial.batch_rows(low_imgs.shape[0])
+        n_all = low_imgs.shape[0]
+        low_imgs = low_imgs[rows]
         low_latent = self.psp.get_w_plus(low_imgs)
         if upto == "encode":
             return low_latent
         if draws is not None:
             init_noise = torch.as_tensor(draws["init_noise"],
-                                         device=low_latent.device)
+                                         device=low_latent.device)[rows]
         else:
-            init_noise = torch.randn(low_latent.shape, generator=rng,
-                                     device=low_latent.device)
+            init_noise = torch.randn((n_all,) + low_latent.shape[1:],
+                                     generator=rng,
+                                     device=low_latent.device)[rows]
         clean = self.diffuse_latent(low_latent,
                                     init_noise.to(low_latent.dtype))
         if upto == "ddpm":
@@ -152,21 +171,24 @@ class RestorationPipeline(nn.Module):
         def maps(key):
             if draws.get(key) is None:
                 return None
-            return [torch.as_tensor(n, device=clean.device).to(clean_c.dtype)
-                    for n in draws[key]]
+            return [torch.as_tensor(n, device=clean.device)[rows]
+                    .to(clean_c.dtype) for n in draws[key]]
 
         sample, feats = self.psp.decode_with_feats(
             clean_c, generator=rng, return_image=return_sample,
-            noise=maps("decoder_noise"))
+            noise=maps("decoder_noise"), spatial=spatial)
         feats = feats[: gen.log_size - 1]
         if upto == "decode":
             return feats
-        noise_latent = self.sample_mixing_latent(gen, rng,
-                                                 low_imgs.shape[0],
-                                                 draws or None)
+        noise_latent = self.sample_mixing_latent(gen, rng, n_all,
+                                                 draws or None)[rows]
         low_c = low_imgs.to(dt) if dt is not None else low_imgs
         out = gen(low_c, feats, clean_c, noise_latent, input_is_latent=True,
-                  generator=rng, noise=maps("noise"))
+                  generator=rng, noise=maps("noise"), spatial=spatial)
+        if spatial is not None:
+            out = spatial.gather_batch(spatial.gather(out))
+            if return_sample:
+                sample = spatial.gather_batch(spatial.gather(sample))
         if return_sample:
             return out.to(out_dtype), sample.to(out_dtype)
         return out.to(out_dtype)

@@ -34,6 +34,14 @@ identically seeded generator, keeping its own rows; the gradients are
 averaged over the ranks once per step, after the `grad_accum`
 microbatches, and the metrics come back as global means. So a world-2
 step at `batch` rows a rank computes the world-1 step at the global batch.
+
+On a 2-D data x model mesh (`shard_model`): the data axis as above, over
+its sub-group; on the model axis every module's weights that
+`model_param_specs` names (the diffuser's and the frozen psp's, LPIPS's and
+ID's) are sharded at rest and gathered at use (`parallel/model_axis.py`),
+so Adam keeps the diffuser's moments at 1/n_model of those parameters'
+size. The ranks of one model group take the same rows and compute the
+same step.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from vspbfr_tpu_torch.diffusion import LatentDDPM
 from vspbfr_tpu_torch.losses import LPIPS, ResNet101Embedder, id_loss, kd_loss
 from vspbfr_tpu_torch.models.layers import init_module
 from vspbfr_tpu_torch.parallel import DataParallel
+from vspbfr_tpu_torch.parallel.model_axis import shard_module
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import TrainState
 
@@ -125,6 +134,21 @@ class DiffuserTrainer:
     def to(self, device) -> "DiffuserTrainer":
         for m in self.modules.values():
             m.to(device)
+        self._decoder_c = None
+        return self
+
+    def shard_model(self, mesh) -> "DiffuserTrainer":
+        """Place the trainer on a 2-D mesh (`parallel.create_mesh_2d`): the
+        data axis reduces the gradients and metrics (`DataParallel(mesh)`),
+        the model axis shards every module's weights by
+        `model_param_specs`, and the diffuser's `TrainState` is made anew
+        over the slices. After the weights are set (init or load) and the
+        modules moved, before the first step."""
+        self.dp = DataParallel(mesh)
+        for m in self.modules.values():
+            shard_module(m, mesh)
+        self.state = TrainState(self.diffuser, self.cfg.lr,
+                                self.cfg.reg_every, self.dp)
         self._decoder_c = None
         return self
 

@@ -8,6 +8,12 @@ Counterpart of `vspbfr_tpu/train/state.py`. The reference's conventions:
   `torch.optim.Adam` with eps 1e-8 computes optax.adam's update:
   m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps);
 - EMA of parameters with decay 0.5^(32/10000) ~= 0.99779.
+
+On a 2-D mesh the module may be model-sharded (`parallel.model_axis`):
+Adam then runs over the stored slices, so its moments are 1/n_model of a
+sharded parameter's size, and `state_dict` gathers them (and the
+parameters) to the full tensors of the unsharded state, in its order;
+`load_state_dict` takes that state and keeps each rank's slice.
 """
 
 from __future__ import annotations
@@ -16,6 +22,12 @@ from typing import Iterable
 
 import torch
 from torch import nn
+
+from vspbfr_tpu_torch.parallel.model_axis import (
+    model_axis,
+    parameters_in_order,
+    sharded_names,
+)
 
 EMA_DECAY_DEFAULT = 0.5 ** (32.0 / 10_000.0)
 
@@ -36,7 +48,7 @@ class TrainState:
     def __init__(self, module: nn.Module, lr: float,
                  reg_every: int | None = None, dp=None):
         self.module = module
-        self.opt = make_adam(module.parameters(), lr, reg_every)
+        self.opt = make_adam(parameters_in_order(module), lr, reg_every)
         self.step = 0
         self.dp = dp
 
@@ -56,13 +68,35 @@ class TrainState:
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
 
+    def _moments(self, opt_sd: dict, fn) -> dict:
+        """opt_sd with fn applied to the moments of each model-sharded
+        parameter (gather or slice); unchanged without a model axis."""
+        axis = model_axis(self.module)
+        if axis is None:
+            return opt_sd
+        names = self.module._model_axis["names"]
+        sharded = set(sharded_names(self.module))
+        state = {}
+        for i, st in opt_sd["state"].items():
+            if names[i] in sharded:
+                st = {k: fn(axis, v) if torch.is_tensor(v) and v.dim() else v
+                      for k, v in st.items()}
+            state[i] = st
+        return {**opt_sd, "state": state}
+
     def state_dict(self) -> dict:
+        """The module's state_dict, Adam's and the step: the full tensors
+        also when the module is model-sharded (collective over the model
+        group then)."""
         return {"params": self.module.state_dict(),
-                "opt": self.opt.state_dict(), "step": self.step}
+                "opt": self._moments(self.opt.state_dict(),
+                                     lambda ax, v: ax.gather(v)),
+                "step": self.step}
 
     def load_state_dict(self, sd: dict) -> None:
         self.module.load_state_dict(sd["params"])
-        self.opt.load_state_dict(sd["opt"])
+        self.opt.load_state_dict(self._moments(
+            sd["opt"], lambda ax, v: ax.local(v).contiguous()))
         self.step = int(sd["step"])
 
 

@@ -5,7 +5,9 @@ checkpoint is one file holding a nested dict of tensors and plain Python
 values (state_dicts, optimizer state, counters, RNG state). A save writes
 a temporary file beside the target and renames it over the target, so a
 reader never sees half a checkpoint; like the reference, a fixed name is
-overwritten.
+overwritten. A model-sharded module's `state_dict()` (`parallel/
+model_axis.py`) and `TrainState.state_dict()` already hold the full
+tensors, so a checkpoint is the same file sharded or not.
 """
 
 from __future__ import annotations
