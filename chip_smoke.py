@@ -89,14 +89,16 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              0.5 (each of its 13 transforms must apply to some sample);
              the launches of its forward, backward() and R1's double
              backward; then the train_restore CLI at full width (512 px,
-             1024 px decoder, IR-SE-50 at 256, b4, 4 steps, R1 at step 0)
+             1024 px decoder, IR-SE-50 at 256, b4, 3 steps, R1 at step 0)
              in f32 and bf16 with the epilogue switch off, the same with
              ADA (f32 `--augment`, bf16 `--augment --augment_p 0.5`; the
              six kernels of `PATH_KERNELS["restore_ada"]` must launch) and
              in bf16 with the switch on: step ms, imgs/s, peak memory,
              launch counts; the bf16 step with the switch off and on in
              turns on one trainer, and without and with ADA (p 0.5) in
-             turns on two trainers, each with and without R1.
+             turns on two trainers, each with and without R1 (medians of
+             2; the CLI runs were cut from 4 steps and the turns from 3
+             steps, for phase 17's time).
 9. smart   - K5's entry, `python -m vspbfr_tpu_torch.cli.profile --smart`,
              in process, f32 and bf16: K5 against the K2 + K1 composition
              at every RestoreNet SMART shape, b4, in turns, per call and
@@ -193,16 +195,41 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              model-sharded (gathered at use): image within 5e-4, the
              gradients of mean(image^2) within 1e-5 of each one's max
              (f32, cuDNN deterministic); (e) one stage-2 step at phase 7's
-             config (b8, f32) model-sharded against the lone step: losses
-             in phase 7's gate, the updated diffuser within 2.05 x lr_eff
-             (flips a minority), Adam's bytes per rank beside the lone
-             run's; launch counts of each sub-phase, no plain K6 / K7 on
+             config (b8, f32) placed by `shard_model` (weights
+             model-sharded, the decode H-sharded) against the lone step:
+             losses in phase 7's gate, Adam's gradients within 1e-5 + 10x
+             the lone step's own spread of the lone step that took the
+             ranks' decoded image (`_whole_images`), the updated diffuser
+             within 2.05 x lr_eff (flips a minority), Adam's bytes per rank
+             beside the lone run's; launch counts of each sub-phase, no
+             plain K6 / K7 on
              either rank; (f) `conv2d_semipacked` at (4, 512, 256, 128),
              3x3: K1 at the assembled kernel against its plain version,
              timed beside the unpacked K1 and cuDNN at 512 px C64 and the
              2x2-packed K1.
+17. meshtrain - training on the 2-D mesh: two gloo ranks on the card (1
+             data x 2 model, `--rank meshtrain`; one such mesh a dtype, the
+             two at once) against this process's
+             lone steps, full width, seeded, each trainer placed by its
+             `shard_model(mesh)` (weights model-sharded, maps H-sharded
+             forward and backward): (a) one stage-2 step at phase 7's
+             config (b8, LPIPS and ID on) and (b) one stage-3 step at 512
+             px b4 with ADA at p 0.5 and R1, each in f32 and bf16 and
+             held to the lone step: f32 losses within phases 7 / 8's
+             gate, gradients within 1e-5 + 10x the lone step's own spread
+             of the lone step that took the ranks' whole images (the
+             whole-image nets grow the sharded decode's rounding), flips
+             <= 5%, and the f32 ranks' step without each model-axis sum
+             (the codes' sum in stage 2; the replicated parameters' sum
+             and the reduce-scatter in stage 3) must fail that gate;
+             bf16 as close to the lone f32 step as the lone bf16, loss by
+             loss (`_mt_gates`); (c) peak GiB and Adam's bytes per rank,
+             halo exchanges and model-axis sums of the first step,
+             launches of K1, K1 dx, K2, K2 bwd, K3, K4, K6 and K7 per rank
+             and the step medians of two steps, each beside the lone
+             run's.
 
-Phases 5, 7, 8, 11, 12, 13, 14, 15 (b)-(d) and 16 (on both ranks too)
+Phases 5, 7, 8, 11, 12, 13, 14, 15 (b)-(d), 16 and 17 (on both ranks too)
 also count the calls of K6's and K7's plain versions on CUDA tensors
 (`ops.plain_cuda_calls`), which must stay 0: on the card the main paths
 run the kernels.
@@ -235,7 +262,7 @@ from vspbfr_tpu_torch.cli.profile import d2s_library, s2d_library
 
 PHASES = ("device", "build", "kernels", "slice", "cli", "grads", "train",
           "restore", "smart", "experiments", "convert", "sample", "parallel",
-          "hostdata", "packed", "mesh2d")
+          "hostdata", "packed", "mesh2d", "meshtrain")
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_INFO = {
     "dense_conv": ("vspbfr_tpu_torch/csrc/dense_conv.cu",
@@ -310,17 +337,21 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                                  "fused_leaky_relu", "conv_epilogue_nc4"),
                 # phase 16: restore H-sharded over two gloo ranks (f32)
                 "mesh2d": ("dense_conv", "dilated_multi_conv", "d2s",
-                           "conv_epilogue", "fused_leaky_relu")}
+                           "conv_epilogue", "fused_leaky_relu"),
+                # phase 17: the stage-3 step on two gloo ranks (f32)
+                "meshtrain": ("dense_conv", "dilated_multi_conv", "d2s",
+                              "s2d", "conv_epilogue", "fused_leaky_relu")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 # phase 5's seeded full-width modules and faces, which phases 11 and 12
 # reuse
 SEEDED: dict = {"nets": {}}
 CARD = ""
+T0 = time.perf_counter()    # the seconds each `say` line shows
 
 
 def say(*parts) -> None:
-    print(f"[{CARD}]", *parts, flush=True)
+    print(f"[{CARD} +{time.perf_counter() - T0:.0f}s]", *parts, flush=True)
 
 
 @contextlib.contextmanager
@@ -1953,7 +1984,7 @@ def _restore_step_card_vs_cpu(res, augment_p: float = 0.0):
     del cpu, card
 
 
-def _restore_cli(res, faces_dir, mode, fused, iters=4, ada=()):
+def _restore_cli(res, faces_dir, mode, fused, iters=3, ada=()):
     """The stage-3 CLI at full width, the reference's per-GPU batch 4;
     `ada`: extra ADA flags (`--augment`, `--augment_p`)."""
     import torch
@@ -2008,23 +2039,25 @@ def _restore_cli(res, faces_dir, mode, fused, iters=4, ada=()):
                     wall_s=wall, losses=steps)
 
 
-def _restore_ada_ab(res):
+def _restore_ada_ab(res, off):
     """The stage-3 bf16 step at full width, b4, without ADA and with ADA at
-    the fixed p 0.5, on two trainers from one seed and one batch: CUDA-event
-    medians of 3 steps each, in turns off, on, on, off, after one warm-up
-    step each; the steps without R1 (the G step count set to 1) and, the
-    same way, with R1 (set to 0)."""
+    the fixed p 0.5, on two trainers with one seed's weights (`off`, the
+    trainer `_restore_fused_ab` made, and one with ADA loaded from it) and
+    one batch: CUDA-event medians of 2 steps each, in turns off, on, on,
+    off, after one warm-up step each; the steps without R1 (the G step
+    count set to 1) and, the same way, with R1 (set to 0)."""
     import torch
 
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
     from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
                                                       RestoreTrainer)
 
-    trs = {}
-    for key, kw in (("off", {}), ("on", dict(augment=True, augment_p=0.5))):
-        trs[key] = RestoreTrainer(
-            RestoreTrainConfig(compute_dtype="bfloat16", **kw),
-            RestorationPipeline()).init_from_seed(4).to("cuda")
+    on = RestoreTrainer(RestoreTrainConfig(compute_dtype="bfloat16",
+                                           augment=True, augment_p=0.5),
+                        RestorationPipeline())
+    for name, m in off.modules.items():
+        on.modules[name].load_state_dict(m.state_dict())
+    trs = {"off": off, "on": on.to("cuda")}
     gen = torch.Generator(device="cuda").manual_seed(6)
     low, real = (torch.tensor(synthetic_faces(4, 512, seed=s),
                               device="cuda") for s in (31, 32))
@@ -2038,18 +2071,18 @@ def _restore_ada_ab(res):
                 tr.g_state.step = g_step
                 return tr.train_step(low, real, gen)
 
-            ab[key].append(cuda_ms(step, iters=3, warmup=1))
+            ab[key].append(cuda_ms(step, iters=2, warmup=1))
         out[r1] = ab
         say(f"restore step bf16 b4 ({r1.replace('_', ' ')}), ADA off / on "
-            f"at p 0.5 (ms, medians of 3 in turns off, on, on, off): "
+            f"at p 0.5 (ms, medians of 2 in turns off, on, on, off): "
             f"{ab['off']} / {ab['on']}")
     res["bf16_ada_ab_ms"] = out
-    del trs
+    del trs, on
 
 
 def _restore_fused_ab(res):
     """The stage-3 bf16 step at full width, b4, with the epilogue switch
-    off and on, on one trainer and one batch: CUDA-event medians of 3
+    off and on, on one trainer and one batch: CUDA-event medians of 2
     steps each, in turns off, on, on, off, after one warm-up step each.
     The steps are the 15 in 16 without R1 (the G step count is set to 1
     before each)."""
@@ -2071,11 +2104,11 @@ def _restore_fused_ab(res):
     ab = {"0": [], "1": []}
     for flag in ("0", "1", "1", "0"):
         with fused_epi(flag):
-            ab[flag].append(cuda_ms(step, iters=3, warmup=1))
+            ab[flag].append(cuda_ms(step, iters=2, warmup=1))
     say(f"restore step bf16 b4 (no R1), VSPBFR_FUSED_EPI off / on (ms, "
-        f"medians of 3 in turns off, on, on, off): {ab['0']} / {ab['1']}")
+        f"medians of 2 in turns off, on, on, off): {ab['0']} / {ab['1']}")
     res["bf16_fused_ab_ms"] = {"off": ab["0"], "on": ab["1"]}
-    del tr
+    return tr
 
 
 def phase_restore():
@@ -2104,9 +2137,12 @@ def phase_restore():
         f"{res['f32_augment']['median_step_ms']:.1f} (--augment), bf16 "
         f"{res['bf16']['median_step_ms']:.1f} / "
         f"{res['bf16_augment_p']['median_step_ms']:.1f} (--augment_p 0.5)")
-    _restore_fused_ab(res)
+    # the ADA A/B's trainer without ADA is the fused A/B's (one seed's
+    # weights; its steps only moved them)
+    tr = _restore_fused_ab(res)
     torch.cuda.empty_cache()
-    _restore_ada_ab(res)
+    _restore_ada_ab(res, tr)
+    del tr
     torch.cuda.empty_cache()
     REPORT["restore"] = res
 
@@ -2753,6 +2789,8 @@ def rank_main(argv) -> None:
     mode, out, *flags = argv
     if mode == "mesh2d":
         return _mesh_rank(out, *flags)
+    if mode == "meshtrain":
+        return _meshtrain_rank(out, *flags)
     events, sums = [], []
     reduce, step = (mesh.DataParallel.all_reduce_grads,
                     restore_train.RestoreTrainer.train_step)
@@ -3016,6 +3054,49 @@ def phase_parallel():
 
 HOSTDATA_TIMEOUT = 300  # seconds one phase-14 training process may take
 
+# backward_counts' specs: name -> (module of `vspbfr_tpu_torch.ops`, its
+# autograd Function, the kernel wrapper whose launches inside the Function's
+# backward are counted, or None to count the backward's calls)
+CLI_BACKWARDS = {
+    "dense_conv_epilogue": ("dense_conv", "_DenseConvEpi", None),
+    "dilated_multi_conv": ("dilated_conv", "_DilatedMulti", None),
+    "smart_core": ("smart", "_SmartCore", None),
+    "conv_epilogue": ("epilogue", "_ConvEpilogue", None)}
+
+
+@contextlib.contextmanager
+def backward_counts(specs: dict):
+    """Count, while the block runs, the backward calls of the kernels'
+    autograd Functions that `specs` names (or, where a spec names a kernel
+    wrapper, that wrapper's launches inside the backward): yields the
+    counts, name -> n (a dict, which `.clear()` resets)."""
+    import importlib
+
+    counts: dict = {}
+    saved = []
+    for name, (mod_name, cls_name, kernel) in specs.items():
+        mod = importlib.import_module(f"vspbfr_tpu_torch.ops.{mod_name}")
+        cls = getattr(mod, cls_name)
+        backward = cls.__dict__["backward"]
+        wrapper = getattr(mod, kernel) if kernel else None
+
+        def count(ctx, *g, name=name, backward=backward.__func__,
+                  wrapper=wrapper):
+            before = wrapper.launches if wrapper else 0
+            out = backward(ctx, *g)
+            counts[name] = counts.get(name, 0) + (
+                wrapper.launches - before if wrapper else 1)
+            return out
+
+        saved.append((cls, backward))
+        cls.backward = staticmethod(count)
+    try:
+        yield counts
+    finally:
+        for cls, backward in reversed(saved):
+            cls.backward = backward
+
+
 # runs a trainer CLI (argv: CLI module, output JSON, its flags) where any
 # import of cv2, PIL, JAX or the JAX package fails, timing each wait on its
 # loader (the host clock from asking for a batch to receiving it) and
@@ -3029,21 +3110,7 @@ NO_CV_TRAIN = (
     "torch.backends.cudnn.allow_tf32 = False\n"
     "torch.backends.cuda.matmul.allow_tf32 = False\n"
     "from vspbfr_tpu_torch import ops\n"
-    "dense_conv, dilated_conv, epilogue, smart = (\n"
-    "    importlib.import_module('vspbfr_tpu_torch.ops.' + m) for m in\n"
-    "    ('dense_conv', 'dilated_conv', 'epilogue', 'smart'))\n"
-    "backwards = {}\n"
-    "def counted(cls, name):\n"
-    "    backward = cls.backward\n"
-    "    def count(ctx, *g):\n"
-    "        backwards[name] = backwards.get(name, 0) + 1\n"
-    "        return backward(ctx, *g)\n"
-    "    cls.backward = staticmethod(count)\n"
-    "for cls, name in ((dense_conv._DenseConvEpi, 'dense_conv_epilogue'),\n"
-    "                  (dilated_conv._DilatedMulti, 'dilated_multi_conv'),\n"
-    "                  (smart._SmartCore, 'smart_core'),\n"
-    "                  (epilogue._ConvEpilogue, 'conv_epilogue')):\n"
-    "    counted(cls, name)\n"
+    "from chip_smoke import CLI_BACKWARDS, backward_counts\n"
     "cli = importlib.import_module('vspbfr_tpu_torch.cli.' + sys.argv[1])\n"
     "waits, build = [], cli.build_loader\n"
     "def timed_loader(*a, **kw):\n"
@@ -3061,7 +3128,8 @@ NO_CV_TRAIN = (
     "cli.build_loader = timed_loader\n"
     "ops.reset_launch_counts()\n"
     "ops.reset_plain_cuda_calls()\n"
-    "report = cli.main(sys.argv[3:])\n"
+    "with backward_counts(CLI_BACKWARDS) as backwards:\n"
+    "    report = cli.main(sys.argv[3:])\n"
     "torch.cuda.synchronize()\n"
     "with open(sys.argv[2], 'w') as f:\n"
     "    json.dump(dict(report=report, launches=ops.launch_counts(),\n"
@@ -4070,6 +4138,51 @@ def _adam_grads(state, names, record):
         handle.remove()
 
 
+@contextlib.contextmanager
+def _whole_images(tr, record: list | None = None, keep: int = 1,
+                  subs: list | None = None):
+    """The whole images a training step of `tr` hands its whole-image nets
+    (a stage-2 trainer: `_decode`'s, to LPIPS and ID; a stage-3 one:
+    `generate`'s, to D, ADA, LPIPS and ID), while the block runs: the
+    first `keep` appended to `record` (one a call: stage 3 makes two a
+    step, D's and G's, and a stage-2 step one, whose rematerialised
+    recompute is its second call), or, with `subs`, replaced in call order
+    by those images: the value the substitute's, the gradient passed
+    unchanged into tr's own decode. On a mesh the images are gathered
+    whole, so the lone step can take the ranks' and run the whole-image
+    nets on the same values."""
+    import torch
+
+    class Substitute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, out, sub):
+            return sub.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    name = "_decode" if hasattr(tr, "_decode") else "generate"
+    method = getattr(tr, name)
+    calls = [0]
+
+    def wrapped(*args, **kw):
+        out = method(*args, **kw)
+        i = calls[0]
+        calls[0] += 1
+        if record is not None and len(record) < keep:
+            record.append(out.detach().clone())
+        if subs is not None:
+            out = Substitute.apply(out, subs[i % len(subs)])
+        return out
+
+    setattr(tr, name, wrapped)
+    try:
+        yield
+    finally:
+        delattr(tr, name)
+
+
 def _moment_bytes(tr) -> int:
     return sum(v.numel() * v.element_size()
                for st in tr.state.opt.state.values()
@@ -4114,12 +4227,13 @@ def _mesh_rank(out, state_file):
         low, real = (x[:MESH_STAGE2_BATCH]
                      for x in _stage2_parallel_batch(device))
         torch.cuda.reset_peak_memory_stats()
-        grads = {}
+        grads, images = {}, []
         with _counted("stage2", rec["counts"]), cudnn_deterministic(), \
                 _adam_grads(tr.state, tr.diffuser._model_axis["names"],
-                            grads):
+                            grads), _whole_images(tr, images):
             m = tr.train_step(low, real,
                               torch.Generator(device=device).manual_seed(13))
+        tensors["stage2_image"] = images[0].cpu()
         rec["peak_gib"]["stage2"] = torch.cuda.max_memory_allocated() / 2 ** 30
         rec["metrics"] = {k: float(v) for k, v in m.items()}
         rec["moment_bytes"] = _moment_bytes(tr)
@@ -4138,44 +4252,52 @@ def _mesh_rank(out, state_file):
         json.dump(rec, f)
 
 
-def _mesh_stage2_lone(res, ranks, tensors, grads, tr):
+def _mesh_stage2_lone(res, ranks, tensors, grads, image, tr):
     """(e) The lone stage-2 step (trainer `tr`, made while the ranks run)
-    at the same batch, draws and weights, and at inputs moved by +-1e-6
-    for phase 7's gate (10 x that spread + 1e-5); the gradients Adam took
-    on the ranks (`grads`, whole) against the lone step's, worst tensor,
-    relative to each one's max, in phase 7's form: within 1e-5 + 10 x the
-    lone step's own spread over two repeats (the forward is bit-equal
-    under cuDNN's deterministic algorithms, but the backward is not:
-    3.2e-6 measured, against 4.4e-6 and 5.8e-6 for the ranks, so 1e-5
-    alone would sit within 2x of the noise; a wrong slice or a missing
-    reduction moves a tensor by its own size); the ranks' updated
-    diffuser within 2.05 x
-    lr_eff of the lone one's (`tests/test_sharding2d.py`'s envelope), with
-    at most 5% of any tensor's elements apart by more than lr_eff (a
-    first Adam step moves each by +-lr_eff, so only gradients near zero
-    may change sign: 0.20% measured before this limit was set, 0.02% once
-    both steps took cuDNN's deterministic algorithms)."""
+    at the same batch, draws and weights; at inputs moved by +-1e-6 for
+    phase 7's loss gate (10 x that spread + 1e-5); twice more as it was
+    (the step's own spread: the forward is bit-equal under cuDNN's
+    deterministic algorithms, the backward is not); and once with the
+    ranks' decoded image (`image`, whole) handed to LPIPS and ID in place
+    of its own (`_whole_images`). The ranks decode on their rows, which
+    rounds the image otherwise (up to 6e-7 of its range on an H100, phase
+    16 (a)), and the whole-image nets grow that in the gradients they send
+    back (there 1.2e-4 of a tensor's max against the plain lone step,
+    whose repeat moves 4.6e-6), as they grow a +-1e-6 input change: so
+    the gradients Adam took on the ranks (`grads`, whole) are held to that
+    last lone step's, worst tensor relative to each one's max, within
+    1e-5 + 10 x the larger of the repeats' spread and the distance the
+    ranks' image alone moves the lone step (phase 17's gate, which its
+    steps without a model-axis sum fail: such a sum moves a tensor by its
+    own size); the plain lone step's distance is reported. The ranks'
+    updated diffuser within 2.05 x lr_eff of the plain lone one's
+    (`tests/test_sharding2d.py`'s envelope), with at most 5% of any
+    tensor's elements apart by more than lr_eff (a first Adam step moves
+    each by +-lr_eff, so only gradients near zero may change sign)."""
     import torch
 
     init = {k: v.clone() for k, v in tr.diffuser.state_dict().items()}
     low, real = (x[:MESH_STAGE2_BATCH] for x in _stage2_parallel_batch("cuda"))
+    sub = [image.to("cuda")]
     runs = []
-    lone_grads, again = {}, ({}, {})
+    lone_grads, again, at_image = {}, ({}, {}), {}
     torch.cuda.reset_peak_memory_stats()
-    # the last two runs repeat the first: the lone step's own spread
-    for i, f in enumerate((1.0, 1 + 1e-6, 1 - 1e-6, 1.0, 1.0)):
+    for i, f in enumerate((1.0, 1 + 1e-6, 1 - 1e-6, 1.0, 1.0, 1.0)):
         tr.diffuser.load_state_dict(init)
         tr.state.opt.state.clear()
         with cudnn_deterministic(), _adam_grads(
                 tr.state, [n for n, _ in tr.diffuser.named_parameters()],
-                {0: lone_grads, 3: again[0], 4: again[1]}.get(i, {})):
+                {0: lone_grads, 3: again[0], 4: again[1],
+                 5: at_image}.get(i, {})), \
+                _whole_images(tr, subs=sub if i == 5 else None):
             m = tr.train_step(low * f, real,
                               torch.Generator(device="cuda").manual_seed(13))
         runs.append(({k: float(v) for k, v in m.items()},
                      {k: v.detach().cpu().clone()
                       for k, v in tr.diffuser.state_dict().items()},
                      _moment_bytes(tr)))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
     (m1, p1, lone_bytes), *pert = runs[:3]
     gate = {}
     for k in m1:
@@ -4195,18 +4317,24 @@ def _mesh_stage2_lone(res, ranks, tensors, grads, tr):
         raise AssertionError("mesh2d stage 2: the ranks' gradients name "
                              "other parameters than the lone step's")
 
-    def worst_rel(got):
-        """(worst |got - lone| over the lone gradient's max, its name)."""
+    def worst_rel(got, want):
+        """(worst |got - want| over want's max, its name)."""
         return max((float((got[k].cpu() - v.cpu()).abs().max())
                     / max(float(v.abs().max()), 1e-6), k)
-                   for k, v in lone_grads.items())
+                   for k, v in want.items())
 
-    grad_worst, grad_worst_at = worst_rel(grads)
-    grad_repeat = max(worst_rel(g)[0] for g in again)
+    grad_worst, grad_worst_at = worst_rel(grads, at_image)
+    grad_plain = worst_rel(grads, lone_grads)[0]
+    image_moves = worst_rel(at_image, lone_grads)[0]
+    grad_repeat = max(worst_rel(g, lone_grads)[0] for g in again)
+    grad_limit = 1e-5 + 10 * max(grad_repeat, image_moves)
     res["stage2"] = dict(gate=gate, metrics=ranks[0]["metrics"], lone=m1,
                          grad_worst_rel=grad_worst,
                          grad_worst_at=grad_worst_at,
+                         grad_vs_plain_lone_rel=grad_plain,
+                         lone_at_ranks_image_vs_lone_rel=image_moves,
                          lone_grad_repeat_rel=grad_repeat,
+                         grad_limit=grad_limit,
                          max_param_move_over_lr_eff=worst,
                          flip_share=flips,
                          moment_bytes=[r["moment_bytes"] for r in ranks],
@@ -4215,17 +4343,20 @@ def _mesh_stage2_lone(res, ranks, tensors, grads, tr):
                          lone_peak_gib=peak,
                          launches=ranks[0]["counts"]["stage2"]["launches"])
     say(f"mesh2d (e) stage 2 (256 px, 1024 px decoder, b{MESH_STAGE2_BATCH}, "
-        f"f32) 1 x 2 model-sharded vs lone, rel err / spread: "
+        f"f32) 1 x 2 `shard_model` (decode H-sharded) vs lone, rel err / "
+        f"spread: "
         + ", ".join(f"{k} {v['rel_err']:.2e}/{v['spread']:.2e}"
                     for k, v in gate.items())
         + f"; Adam's gradients worst {grad_worst:.2e} of each one's max "
-        f"({grad_worst_at}; the lone step repeated: {grad_repeat:.2e})"
-        f"; params max |diff| {worst:.3f} x lr_eff, flips {flips:.4f}; "
-        f"Adam moments bytes per rank {res['stage2']['moment_bytes']} vs "
-        f"lone {lone_bytes}; peak GiB per rank "
-        f"{res['stage2']['peak_gib']} vs lone {peak:.3f}")
-    if (bad or grad_worst > 1e-5 + 10 * grad_repeat or worst > 2.05
-            or flips > 0.05):
+        f"against the lone step on the ranks' image ({grad_worst_at}), "
+        f"gate {grad_limit:.2e} (the lone step repeated: "
+        f"{grad_repeat:.2e}; the ranks' image alone moves it "
+        f"{image_moves:.2e}); against the plain lone step "
+        f"{grad_plain:.2e}; params max |diff| {worst:.3f} x lr_eff, "
+        f"flips {flips:.4f}; Adam moments bytes per rank "
+        f"{res['stage2']['moment_bytes']} vs lone {lone_bytes}; peak GiB "
+        f"per rank {res['stage2']['peak_gib']} vs lone {peak:.3f}")
+    if (bad or grad_worst > grad_limit or worst > 2.05 or flips > 0.05):
         raise AssertionError(f"mesh2d stage 2: out of the gate: {bad}, "
                              f"gradients {grad_worst:.2e} of max, moves "
                              f"{worst:.3f} x lr_eff, flips {flips}")
@@ -4356,10 +4487,11 @@ class _ThreadRows:
         return out
 
 
-def _first_divergence(sd, rank_stage) -> dict:
-    """Where the bf16 RestoreNet stage of the 1 x 2 run leaves the lone
-    run's bits. The lone bf16 stage runs here with a forward hook on every
-    module of the RestoreNet keeping its inputs and outputs; then the same
+def _first_divergence(sd, rank_stage, mode: str = "bf16") -> dict:
+    """Where the RestoreNet stage of the 1 x 2 run (`mode` f32 or bf16)
+    leaves the lone run's bits. The lone stage runs here with a forward
+    hook on every module of the RestoreNet keeping its inputs and
+    outputs; then the same
     stage runs H-sharded on two threads of this process (`_ThreadRows`:
     the ranks' shapes and kernels, without gloo), each hook holding its
     module's inputs and outputs (this rank's rows) against the lone
@@ -4377,8 +4509,8 @@ def _first_divergence(sd, rank_stage) -> dict:
     from vspbfr_tpu_torch.parallel import Spatial
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
 
-    dt = torch.bfloat16
-    p = RestorationPipeline(compute_dtype=dt)
+    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    p = RestorationPipeline(compute_dtype=dt if mode == "bf16" else None)
     p.load_state_dict(sd)
     p = p.cuda().eval().prepare_params()
     codes, low, lat = _mesh_inputs(p, "cuda")
@@ -4457,7 +4589,7 @@ def _first_divergence(sd, rank_stage) -> dict:
         for t in threads:
             t.join(timeout=300)
         if errors or any(t.is_alive() for t in threads):
-            raise AssertionError(f"mesh2d bf16 witness: the thread ranks "
+            raise AssertionError(f"mesh2d {mode} witness: the thread ranks "
                                  f"failed: {errors}")
     finally:
         for h in handles:
@@ -4529,23 +4661,25 @@ def phase_mesh2d():
             raise
         got = torch.load(f"{out}.tensors.pt", weights_only=True)
         res["gates"] = _mesh_gates(got["serve"], ref)
-        # where the bf16 stage leaves the lone run's bits, and why
-        w = _first_divergence(sd, got["serve"]["bf16"]["stage"])
-        res["bf16_witness"] = w
         def _call(f):
             return ("none" if f is None else
                     f"#{f['index']} {f['name']} ({f['kind']}; inputs |diff| "
                     f"{f['in_diff']}, output |diff| {f['out_diff']} = "
                     f"{f.get('out_diff_rel', 0.0):.2e} of its range)")
 
-        say(f"mesh2d bf16 witness: the threads reproduce the gloo ranks' "
-            f"stage bit for bit: {w['threads_equal_ranks']}; threads vs "
-            f"lone {w['stage_max_rel']:.2e} of the range; {w['calls']} "
-            f"module calls, the same a rank: {w['same_calls']}")
-        for r in range(2):
-            say(f"mesh2d bf16 witness rank {r}: first differing call "
-                f"{_call(w['first'][r])}; first from bit-equal inputs "
-                f"{_call(w['first_own'][r])}")
+        # where each dtype's stage leaves the lone run's bits, and why
+        for mode in ("f32", "bf16"):
+            w = _first_divergence(sd, got["serve"][mode]["stage"], mode)
+            res[f"{mode}_witness"] = w
+            say(f"mesh2d {mode} witness: the threads reproduce the gloo "
+                f"ranks' stage bit for bit: {w['threads_equal_ranks']}; "
+                f"threads vs lone {w['stage_max_rel']:.2e} of the range; "
+                f"{w['calls']} module calls, the same a rank: "
+                f"{w['same_calls']}")
+            for r in range(2):
+                say(f"mesh2d {mode} witness rank {r}: first differing call "
+                    f"{_call(w['first'][r])}; first from bit-equal inputs "
+                    f"{_call(w['first_own'][r])}")
         # (d) the model-sharded decoder
         d_img = _rel(got["decoder"]["image"], ref_dec["image"])
         worst = max(float((got["decoder"]["grads"][k] - v).abs().max())
@@ -4565,7 +4699,7 @@ def phase_mesh2d():
             raise AssertionError("mesh2d (d): the model-sharded decoder "
                                  "out of the gate")
         _mesh_stage2_lone(res, ranks, got["stage2"], got["stage2_grads"],
-                          lone_tr)
+                          got["stage2_image"], lone_tr)
         del lone_tr
     for name, c in ranks[0]["counts"].items():
         path = {"stage2": "train", "decoder grads": "grads"}.get(
@@ -4595,21 +4729,618 @@ def phase_mesh2d():
     REPORT["mesh2d"] = res
 
 
+# --- phase 17 ---------------------------------------------------------------
+
+MESHTRAIN_TIMEOUT = 480     # seconds the phase-17 ranks may take
+MT_STAGE2 = dict(size=256, batch=8)     # phase 7's config, (a)
+MT_STAGE3 = dict(size=512, batch=4)     # phase 8's, (b); ADA at p 0.5
+MT_PIPE: dict = {}          # full width (a CPU rehearsal cuts it)
+MT_STEPS = 2                # steps a run: the first checked, both timed
+# the kernels each sharded step must launch on each rank (the first step)
+MT_KERNELS = {"stage2": ("dense_conv", "d2s", "s2d", "conv_epilogue",
+                         "fused_leaky_relu"),
+              "stage3": ("dense_conv", "dilated_multi_conv", "d2s", "s2d",
+                         "conv_epilogue", "fused_leaky_relu")}
+
+
+# the backward counts of phase 17: K1's launches inside its Function's
+# backward (K1 dx) and the backward calls of K2's Function (K2 bwd)
+MT_BACKWARDS = {"k1_dx": ("dense_conv", "_DenseConv", "dense_conv"),
+                "k2_bwd": ("dilated_conv", "_DilatedMulti", None)}
+
+
+MT_FROZEN = ("psp", "diffuser", "lpips", "id")     # both stages' nets
+# whole images a step hands its whole-image nets (`_whole_images`)
+MT_IMAGES = {"stage2": 1, "stage3": 2}
+# the model-axis sums taken out, one at a time, in the f32 mesh's extra
+# steps (`_mt_trap`): each must fail the gradient gate. Stage 2 sums its
+# codes' row parts only; stage 3 also its replicated and model-sharded
+# parameters' parts
+MT_TRAPS = {"stage2": ("codes' sum",),
+            "stage3": ("parameters' sum", "reduce-scatter")}
+
+
+def _mt_trainer(stage: str, mode: str, weights: dict | None = None):
+    """Phase 17's trainer: stage 2 at phase 7's config, stage 3 at phase
+    8's with ADA at p 0.5, f32 or bf16; from `weights` (module ->
+    state_dict: the frozen nets, which both stages share, G and D; g_ema
+    starts as G) or, without, stage 2 seeded (the diffuser conditioned,
+    noise gains 0.1)."""
+    import torch
+
+    from vspbfr_tpu_torch.pipeline import RestorationPipeline
+    from vspbfr_tpu_torch.train.diffuser_train import (DiffuserTrainConfig,
+                                                       DiffuserTrainer)
+    from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
+                                                      RestoreTrainer)
+
+    dt = "bfloat16" if mode == "bf16" else None
+    if stage == "stage2":
+        tr = DiffuserTrainer(DiffuserTrainConfig(compute_dtype=dt,
+                                                 **MT_STAGE2),
+                             RestorationPipeline(size=MT_STAGE2["size"],
+                                                 **MT_PIPE))
+    else:
+        tr = RestoreTrainer(RestoreTrainConfig(
+            augment=True, augment_p=0.5, compute_dtype=dt, **MT_STAGE3),
+            RestorationPipeline(size=MT_STAGE3["size"], **MT_PIPE))
+    if weights is None:
+        tr.init_from_seed(3)
+        _condition_diffuser(tr.pipe)
+        with torch.no_grad():
+            for k, v in tr.pipe.named_parameters():
+                if k.endswith("noise.weight"):
+                    v.fill_(0.1)
+        return tr
+    for k in MT_FROZEN:
+        tr.modules[k].load_state_dict(weights[k])
+    if stage == "stage3":
+        tr.gen.load_state_dict(weights["generator"])
+        tr.disc.load_state_dict(weights["disc"])
+        tr.sync_ema()
+    return tr
+
+
+def _mt_weights() -> dict:
+    """Phase 17's seeded weights on the host (module -> state_dict): the
+    frozen nets of the seeded stage-2 trainer, and G (noise gains 0.1) and
+    D from seed 1."""
+    import torch
+
+    from vspbfr_tpu_torch.models import Discriminator, RestorationNet
+    from vspbfr_tpu_torch.models.layers import init_module
+
+    tr = _mt_trainer("stage2", "f32")
+    weights = {k: tr.modules[k].state_dict() for k in MT_FROZEN}
+    del tr
+    gen = torch.Generator().manual_seed(1)
+    width = {k: v for k, v in MT_PIPE.items() if k == "channel_div"}
+    g = init_module(RestorationNet(size=MT_STAGE3["size"], **width), gen)
+    with torch.no_grad():
+        for k, v in g.named_parameters():
+            if k.endswith("noise.weight"):
+                v.fill_(0.1)
+    d = init_module(Discriminator(size=MT_STAGE3["size"], **width), gen)
+    weights.update(generator=g.state_dict(), disc=d.state_dict())
+    return weights
+
+
+def _mt_states(tr) -> dict:
+    if hasattr(tr, "d_state"):
+        return {"d": tr.d_state, "g": tr.g_state}
+    return {"diffuser": tr.state}
+
+
+def _mt_held(tr) -> dict:
+    """The trained modules' state_dicts, whole, on the host (collective on
+    a mesh; off the card, so no peak counts them), for `_mt_reset`."""
+    return {k: {n: v.to("cpu", copy=True)
+                for n, v in st.module.state_dict().items()}
+            for k, st in _mt_states(tr).items()}
+
+
+def _mt_reset(tr, held: dict) -> None:
+    """The trainer back to `held` (`_mt_held`), its Adams new and its
+    step counts 0 (so stage 3 runs R1 again), g_ema = G."""
+    for k, st in _mt_states(tr).items():
+        st.module.load_state_dict(held[k])
+        st.opt.state.clear()
+        st.step = 0
+    if hasattr(tr, "g_state"):
+        tr.sync_ema()
+
+
+@contextlib.contextmanager
+def _mt_trap(name: str):
+    """For the block, the model-axis sum `name` taken out of the package,
+    as a copy without it would run: "codes' sum" the style codes' row
+    parts' (`Spatial.summed` the identity), "parameters' sum" the
+    replicated parameters' (`Spatial.sum_partial_grads` does nothing),
+    "reduce-scatter" the model-sharded parameters' (each rank keeps its
+    slice of its own part)."""
+    from vspbfr_tpu_torch.parallel.model_axis import ModelAxis
+    from vspbfr_tpu_torch.parallel.spatial import Spatial
+
+    cls, attr, stub = {
+        "codes' sum": (Spatial, "summed", lambda self, t: t),
+        "parameters' sum": (Spatial, "sum_partial_grads",
+                            lambda self, module: None),
+        "reduce-scatter": (ModelAxis, "reduce_scatter_last",
+                           lambda self, t: self.local(t).contiguous()),
+    }[name]
+    own = cls.__dict__.get(attr)
+    setattr(cls, attr, stub)
+    try:
+        yield
+    finally:
+        if own is None:
+            delattr(cls, attr)
+        else:
+            setattr(cls, attr, own)
+
+
+def _mt_batch(stage: str, device):
+    """The stage's low and real faces (seeded)."""
+    import torch
+
+    cfg, seeds = ((MT_STAGE2, (41, 42)) if stage == "stage2"
+                  else (MT_STAGE3, (171, 172)))
+    return [torch.tensor(synthetic_faces(cfg["batch"], cfg["size"], seed=s),
+                         device=device) for s in seeds]
+
+
+def _mt_run(tr, stage: str, device, bwd: dict, f: float = 1.0,
+            steps: int = MT_STEPS) -> dict:
+    """`steps` steps of `tr` (under cuDNN's deterministic algorithms) on
+    phase 17's batch, its low images scaled by f, and the draws of one
+    seeded generator on the device: the first step's metrics, the
+    gradients each of its Adam updates took (by name, in the modules'
+    unsharded order; the rank's slice of a model-sharded one), its
+    launches, K1 dx and K2 bwd counts and plain K6 / K7 calls; every
+    step's seconds (host clock, synchronised); peak memory; Adam's bytes;
+    with a mesh the first step's halo exchanges and model-axis sums."""
+    import torch
+
+    from vspbfr_tpu_torch import ops
+    from vspbfr_tpu_torch.parallel.model_axis import model_axis
+
+    def reduce_scatters():
+        axes = {id(a): a for a in map(model_axis, tr.modules.values()) if a}
+        return sum(a.reduce_scatters for a in axes.values())
+
+    low, real = _mt_batch(stage, device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    grads: dict = {k: [] for k in _mt_states(tr)}
+    hooks = []
+    for key, state in _mt_states(tr).items():
+        mod = state.module
+        names = (mod._model_axis["names"]
+                 if getattr(mod, "_model_axis", None)
+                 else [n for n, _ in mod.named_parameters()])
+
+        def hook(opt, *_, names=names, out=grads[key]):
+            params = opt.param_groups[0]["params"]
+            out.append({n: p.grad.detach().clone()
+                        for n, p in zip(names, params)})
+
+        hooks.append(state.opt.register_step_pre_hook(hook))
+    sp = getattr(tr, "spatial", None)
+    rs0 = reduce_scatters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"seconds": []}
+    for s in range(steps):
+        if s == 0:
+            ops.reset_launch_counts()
+            ops.reset_plain_cuda_calls()
+            bwd.clear()
+        t0 = time.perf_counter()
+        with cudnn_deterministic():
+            m = tr.train_step(low * f, real, gen)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        if s == 0:
+            out["metrics"] = {k: float(v) for k, v in m.items()}
+            out["launches"] = ops.launch_counts()
+            out["plain"] = ops.plain_cuda_calls()
+            out["backward"] = dict(bwd)
+            for h in hooks:
+                h.remove()
+            if sp is not None:
+                out.update(exchanges=sp.exchanges, grad_sums=sp.grad_sums,
+                           reduce_scatters=reduce_scatters() - rs0)
+    out["grads"] = grads
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["adam_bytes"] = sum(v.numel() * v.element_size()
+                            for st in _mt_states(tr).values()
+                            for p_st in st.opt.state.values()
+                            for k, v in p_st.items() if k != "step")
+    if any(out["plain"].values()):
+        raise AssertionError(f"meshtrain {stage}: a plain version ran on the "
+                             f"card: {out['plain']}")
+    return out
+
+
+def _mt_whole(tr, grads: dict) -> dict:
+    """The recorded gradients with each model-sharded slice gathered whole
+    (collective over the model group), on the host."""
+    from vspbfr_tpu_torch.parallel.model_axis import (model_axis,
+                                                      sharded_names)
+
+    out = {}
+    for key, state in _mt_states(tr).items():
+        mod = state.module
+        ax, sharded = model_axis(mod), set(sharded_names(mod))
+        out[key] = [{n: (ax.gather(v) if n in sharded else v).cpu()
+                     for n, v in g.items()} for g in grads[key]]
+    return out
+
+
+def _meshtrain_rank(out, mode):
+    """One rank of phase 17 (`--rank meshtrain OUT MODE`) on a 1 data x 2
+    model mesh: per stage a trainer in MODE (f32 or bf16) on
+    `_mt_weights`, `shard_model`, `MT_STEPS` steps; in f32 the first
+    step's whole images recorded, then per `MT_TRAPS` entry the first step
+    again with that sum taken out. Rank 0 writes the first steps'
+    gradients, whole, and the images to OUT.tensors.pt, every rank its
+    record to OUT.<rank>.json."""
+    import torch
+
+    from vspbfr_tpu_torch.parallel import create_mesh_2d, distributed
+
+    rec = {"runs": {}}
+    tensors = {}
+    with distributed("cuda") as device, \
+            backward_counts(MT_BACKWARDS) as bwd:
+        mesh = create_mesh_2d(1, 2)
+        rank = torch.distributed.get_rank()
+        weights = _mt_weights()
+        for stage in ("stage2", "stage3"):
+            name = f"{stage} {mode}"
+            tr = _mt_trainer(stage, mode, weights).to(device)
+            tr.shard_model(mesh)
+            held = _mt_held(tr) if mode == "f32" else None
+            images: list = []
+            with _whole_images(tr, images, MT_IMAGES[stage]):
+                run = _mt_run(tr, stage, device, bwd)
+            tensors[name] = _mt_whole(tr, run.pop("grads"))
+            rec["runs"][name] = run
+            if mode == "f32":
+                tensors[f"{name} images"] = [t.cpu() for t in images]
+                for trap in MT_TRAPS[stage]:
+                    _mt_reset(tr, held)
+                    with _mt_trap(trap):
+                        t_run = _mt_run(tr, stage, device, bwd, steps=1)
+                    tensors[f"{name} without {trap}"] = _mt_whole(
+                        tr, t_run["grads"])
+            del tr, held
+            torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(tensors, f"{out}.tensors.pt")
+    rec["plain_cuda_calls"] = {}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _mt_compare(got: list, want: list) -> dict:
+    """A gradient set (a list of updates, each name -> tensor) against
+    another: the worst tensor's max |diff| over its max |want| (and its
+    name), the whole set's relative L2 error, and the share of elements
+    whose sign differs (of those where want is not 0)."""
+    worst, at = 0.0, ""
+    diff2 = ref2 = 0.0
+    flips = counted = 0
+    for g_upd, w_upd in zip(got, want):
+        if set(g_upd) != set(w_upd):
+            raise AssertionError("meshtrain: the gradient sets name other "
+                                 "parameters")
+        for k, w in w_upd.items():
+            g = g_upd[k].float()
+            w = w.float()
+            d = (g - w).abs()
+            rel = float(d.max()) / max(float(w.abs().max()), 1e-6)
+            if rel > worst:
+                worst, at = rel, k
+            diff2 += float(d.square().sum())
+            ref2 += float(w.square().sum())
+            nz = w != 0
+            flips += int((g.sign() != w.sign())[nz].sum())
+            counted += int(nz.sum())
+    return dict(worst_rel=worst, worst_at=at,
+                rel_l2=(diff2 / max(ref2, 1e-30)) ** 0.5,
+                flips=flips / max(counted, 1))
+
+
+def _mt_lone(weights: dict, bwd: dict) -> tuple[dict, dict]:
+    """The lone runs, in this process: per stage the f32 trainer at the
+    phase's inputs (`MT_STEPS` steps), at inputs scaled by 1 +- 1e-6 and
+    once more at 1 (one step each: the losses' spread and the gradients'
+    own spread from run to run), and the bf16 trainer once; the
+    gradients on the host. Also returns the f32 trainers and their
+    weights (stage -> (trainer, `_mt_held`)) for `_mt_at_images`."""
+    import torch
+
+    out, kept = {}, {}
+    for stage in ("stage2", "stage3"):
+        for mode in ("f32", "bf16"):
+            tr = _mt_trainer(stage, mode, weights).to("cuda")
+            held = _mt_held(tr)
+            runs = []
+            fs = (1.0, 1 + 1e-6, 1 - 1e-6, 1.0) if mode == "f32" else (1.0,)
+            for i, f in enumerate(fs):
+                if i:
+                    _mt_reset(tr, held)     # the step again
+                runs.append(_mt_host(_mt_run(tr, stage, "cuda", bwd, f,
+                                             MT_STEPS if i == 0 else 1)))
+            out[f"{stage} {mode}"] = runs
+            if mode == "f32":
+                # on the host while the other runs take their peaks
+                for st in _mt_states(tr).values():
+                    st.opt.state.clear()
+                kept[stage] = (tr.to("cpu"), held)
+            del tr, held
+            torch.cuda.empty_cache()
+    return out, kept
+
+
+def _mt_host(run: dict) -> dict:
+    run["grads"] = {k: [{n: v.cpu() for n, v in g.items()} for g in gs]
+                    for k, gs in run["grads"].items()}
+    return run
+
+
+def _mt_at_images(kept: dict, got: dict, bwd: dict) -> dict:
+    """Each lone f32 step once more (`kept`, from `_mt_lone`) with the
+    ranks' whole images (`got["<stage> f32 images"]`) handed to its
+    whole-image nets in place of its own (`_whole_images`): stage ->
+    the run."""
+    out = {}
+    for stage, (tr, held) in kept.items():
+        tr.to("cuda")
+        _mt_reset(tr, held)
+        subs = [t.to("cuda") for t in got[f"{stage} f32 images"]]
+        with _whole_images(tr, subs=subs):
+            out[stage] = _mt_host(_mt_run(tr, stage, "cuda", bwd, steps=1))
+    return out
+
+
+def _mt_gates(res, name, ranks, got, lone, at_images) -> None:
+    """One stage's f32 or bf16 run on the ranks against the lone runs.
+    f32: each loss within phase 7 / 8's gate (10 x the lone step's spread
+    under +-1e-6 input changes + 1e-5). The ranks decode (stage 3: the
+    embedding and RestoreNet) on their rows, whose windows some ops round
+    otherwise (phase 16's witness names the first), and the backward (the
+    whole-image nets: LPIPS, ID; in stage 3 D, R1 and Adam's first steps
+    before G's) grows a rounding, as it grows a +-1e-6 input change. So
+    the gradients are held to the lone step that took the ranks' whole
+    images (`at_images`, `_mt_at_images`), which takes the images' share
+    out: each gradient set's worst tensor, relative to its max, within
+    1e-5 + 10 x the larger of the lone step's own spread (a second run at
+    the same inputs: the backward is not deterministic) and the distance
+    the ranks' images alone move it (one rounding of the forward, as
+    these gradients feel it; what is left, the decode's own rounding
+    inside, is of that kind); flips <= 5%; and each `MT_TRAPS` run of the
+    ranks (a model-axis sum taken out) must fail that gate. The distances
+    to the plain lone step and the +-1e-6 runs' are reported. bf16: held
+    to the lone f32 step as closely as the lone
+    bf16 step is: each loss's relative error within 1.5 x the lone
+    bf16's + 2e-2 (bf16's kernel tolerance); each gradient set's relative
+    L2 error within 1.5 x the lone bf16's + 1e-6; flips within max(5%,
+    1.5 x the lone bf16's)."""
+    stage, mode = name.split()
+    ref = lone[f"{stage} f32"]
+    m1 = ref[0]["metrics"]
+    gate = {"metrics": {}, "grads": {}}
+    bad = []
+    if mode == "f32":
+        for k, v in m1.items():
+            scale = max(abs(v), 1e-12)
+            err = max(abs(r["runs"][name]["metrics"][k] - v)
+                      for r in ranks) / scale
+            spread = max(abs(p["metrics"][k] - v) for p in ref[1:3]) / scale
+            gate["metrics"][k] = dict(rel_err=err, spread=spread)
+            if not err <= 10 * spread + 1e-5:
+                bad.append(k)
+        traps = {t: got[f"{name} without {t}"] for t in MT_TRAPS[stage]}
+        caught = dict.fromkeys(traps, False)
+        for key, want in at_images["grads"].items():
+            plain = ref[0]["grads"][key]
+            c = _mt_compare(got[name][key], want)
+            c["repeat"] = _mt_compare(ref[3]["grads"][key], plain)
+            c["vs_plain"] = _mt_compare(got[name][key], plain)
+            c["images_move"] = _mt_compare(want, plain)
+            c["limit"] = 1e-5 + 10 * max(c["repeat"]["worst_rel"],
+                                         c["images_move"]["worst_rel"])
+            c["inputs_move"] = max((_mt_compare(r["grads"][key], plain)
+                                    for r in ref[1:3]),
+                                   key=lambda o: o["worst_rel"])
+            c["traps"] = {t: _mt_compare(g[key], want)
+                          for t, g in traps.items()}
+            gate["grads"][key] = c
+            if c["worst_rel"] > c["limit"] or c["flips"] > 0.05:
+                bad.append(f"grads {key}")
+            for t, o in c["traps"].items():
+                caught[t] |= o["worst_rel"] > c["limit"] or o["flips"] > 0.05
+        gate["traps_caught"] = caught
+        bad += [f"a copy without the {t} passes" for t, ok in caught.items()
+                if not ok]
+    else:
+        lone16 = lone[name][0]
+        for k, v in m1.items():
+            scale = max(abs(v), 1e-12)
+            err = max(abs(r["runs"][name]["metrics"][k] - v)
+                      for r in ranks) / scale
+            e16 = abs(lone16["metrics"][k] - v) / scale
+            gate["metrics"][k] = dict(rel_err_vs_f32=err,
+                                      lone_bf16_vs_f32=e16)
+            if not err <= 1.5 * e16 + TOL["bf16"]:
+                bad.append(k)
+        for key, want in ref[0]["grads"].items():
+            c = _mt_compare(got[name][key], want)
+            c["lone_bf16"] = _mt_compare(lone16["grads"][key], want)
+            gate["grads"][key] = c
+            if (c["rel_l2"] > 1.5 * c["lone_bf16"]["rel_l2"] + 1e-6
+                    or c["flips"] > max(0.05,
+                                        1.5 * c["lone_bf16"]["flips"])):
+                bad.append(f"grads {key}")
+    res["gates"][name] = gate
+    say(f"meshtrain {name}, 1 x 2 vs lone: losses (rel err / "
+        + ("lone spread" if mode == "f32" else "lone bf16's") + ") "
+        + ", ".join(f"{k} " + "/".join(f"{x:.2e}" for x in v.values())
+                    for k, v in gate["metrics"].items()))
+
+    def shown(o):
+        return f"{o['worst_rel']:.2e} ({o['worst_at']}) / {o['rel_l2']:.2e}"
+
+    for key, c in gate["grads"].items():
+        if mode == "f32":
+            say(f"meshtrain {name} gradients {key}, worst tensor of its max "
+                f"(where) / rel L2: against the lone step on the ranks' "
+                f"images {shown(c)}, flips {c['flips']:.4f}, gate "
+                f"{c['limit']:.2e} (the lone step repeated "
+                f"{shown(c['repeat'])}; the ranks' images alone move it "
+                f"{shown(c['images_move'])}); against the plain lone step "
+                f"{shown(c['vs_plain'])}; +-1e-6 inputs move it "
+                f"{shown(c['inputs_move'])}; "
+                + "; ".join(f"without the {t} {shown(o)}"
+                            for t, o in c["traps"].items()))
+        else:
+            say(f"meshtrain {name} gradients {key}: worst {shown(c)}, flips "
+                f"{c['flips']:.4f}; lone bf16 {shown(c['lone_bf16'])}, "
+                f"flips {c['lone_bf16']['flips']:.4f}")
+    if bad:
+        raise AssertionError(f"meshtrain {name}: out of the gate: {bad}")
+
+
+def phase_meshtrain():
+    """Training on the 2-D mesh: two gloo ranks on the one card (1 data x
+    2 model; an f32 and a bf16 mesh at once, four processes) against this
+    process's lone steps, phase 7's stage-2 config
+    (b8) and phase 8's stage 3 (512 px b4, ADA at p 0.5, R1 at the first
+    step), full width, seeded: (a) / (b) the sharded steps' losses and
+    gradients held to the lone steps (`_mt_gates`: in f32 the gradients
+    to the lone step on the ranks' images, and the ranks' steps without
+    each model-axis sum must fail that gate), f32 and bf16; (c)
+    peak memory, Adam's bytes, halo exchanges, model-axis sums, launches
+    and step medians a rank beside the lone run's."""
+    import torch
+
+    SEEDED["nets"].clear()
+    SEEDED.pop("pipe", None)
+    torch.cuda.empty_cache()
+    res = {"runs": {}, "gates": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp, \
+            backward_counts(MT_BACKWARDS) as bwd:
+        # two meshes at once, one a dtype (each rank's peak is its own;
+        # the card holds both and the lone steps); every process draws
+        # the seeded weights itself, at once
+        outs = {m: os.path.join(tmp, f"meshtrain_{m}") for m in ("f32",
+                                                                "bf16")}
+        hs = [_spawn_ranks("meshtrain", o, 2, [m]) for m, o in outs.items()]
+        try:
+            t0 = time.perf_counter()
+            lone, kept = _mt_lone(_mt_weights(), bwd)
+            lone_s = time.perf_counter() - t0
+            per_mode = [_collect_ranks(h, MESHTRAIN_TIMEOUT) for h in hs]
+        except BaseException:
+            for h in hs:
+                _stop_ranks(h)
+            raise
+        ranks = [{"runs": {k: v for r in recs for k, v in r["runs"].items()}}
+                 for recs in zip(*per_mode)]
+        got = {}
+        for o in outs.values():
+            got.update(torch.load(f"{o}.tensors.pt", weights_only=True))
+        t0 = time.perf_counter()
+        at_images = _mt_at_images(kept, got, bwd)
+        del kept
+    say(f"meshtrain: the lone runs took {lone_s:.1f} s beside the ranks, "
+        f"the lone steps on the ranks' images "
+        f"{time.perf_counter() - t0:.1f} s after them")
+    for name in ("stage2 f32", "stage2 bf16", "stage3 f32", "stage3 bf16"):
+        stage = name.split()[0]
+        _mt_gates(res, name, ranks, got, lone, at_images[stage])
+        runs = [r["runs"][name] for r in ranks]
+        lone_run = lone[name][0]
+        for i, r in enumerate(runs):
+            missing = [k for k in MT_KERNELS[stage] if r["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"meshtrain {name} rank {i}: kernels "
+                                     f"never launched {missing}")
+        res["launches"][name] = runs[0]["launches"]
+        res["runs"][name] = dict(
+            ranks=[{k: r[k] for k in ("seconds", "peak_gib", "adam_bytes",
+                                      "exchanges", "grad_sums",
+                                      "reduce_scatters", "launches",
+                                      "backward", "metrics")}
+                   for r in runs],
+            lone={k: lone_run[k] for k in ("seconds", "peak_gib",
+                                           "adam_bytes", "launches",
+                                           "backward", "metrics")})
+        r0 = runs[0]
+        shown, lone_shown = ({**{k: r["launches"][k]
+                                 for k in MT_KERNELS["stage3"]},
+                              **r["backward"]} for r in (r0, lone_run))
+        say(f"meshtrain {name} (c): peak GiB per rank "
+            f"{[round(r['peak_gib'], 3) for r in runs]} vs lone "
+            f"{lone_run['peak_gib']:.3f}; Adam's bytes per rank "
+            f"{[r['adam_bytes'] for r in runs]} vs lone "
+            f"{lone_run['adam_bytes']} "
+            f"({runs[0]['adam_bytes'] / lone_run['adam_bytes']:.3f}x); "
+            f"first step: halo exchanges and gathers {r0['exchanges']}, "
+            f"model-axis sums {r0['grad_sums']} + reduce-scatters "
+            f"{r0['reduce_scatters']}; launches rank 0 {shown}, lone "
+            f"{lone_shown}; step s (host clock, gloo through the host: not "
+            f"speeds) ranks "
+            f"{[[round(t, 3) for t in r['seconds']] for r in runs]} median "
+            f"{statistics.median(runs[0]['seconds']):.3f}, lone "
+            f"{[round(t, 3) for t in lone_run['seconds']]} median "
+            f"{statistics.median(lone_run['seconds']):.3f}; plain K6 / K7 "
+            f"on CUDA tensors 0")
+        if stage == "stage3" and not runs[0]["reduce_scatters"]:
+            raise AssertionError("meshtrain stage 3: no model-sharded "
+                                 "weight of a layer on rows was "
+                                 "reduce-scattered")
+        if not all(r["adam_bytes"] < lone_run["adam_bytes"] for r in runs):
+            raise AssertionError(f"meshtrain {name}: Adam's moments not "
+                                 "sharded")
+    REPORT["meshtrain"] = res
+
+
 # --- main -------------------------------------------------------------------
 
+def _held() -> str:
+    """This process' resident host memory and the card's memory its
+    allocator holds, GiB (what one phase leaves to the next)."""
+    import torch
+
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return (f"host {rss / 2 ** 30:.1f} GiB, card "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB held")
+
+
 def main() -> None:
+    import gc
+
     import torch
 
     for name in PHASES:
+        # what the last phase left goes before the next one's processes
+        # share the card and the host
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         # the path phases: no plain K6 / K7 on the card
         with (no_plain_on_card(name) if name in ("slice", "cli", "train",
                                                  "restore", "convert",
                                                  "sample", "parallel",
-                                                 "hostdata", "mesh2d")
+                                                 "hostdata", "mesh2d",
+                                                 "meshtrain")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
-        say(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
+        say(f"phase {name} done in {time.perf_counter() - t0:.1f} s; "
+            f"{_held()}")
 
     kernels = []
     launches = {"serve": REPORT["cli"]["f32"]["launches"],
@@ -4631,7 +5362,8 @@ def main() -> None:
                     REPORT["packed"]["serve"]["bf16"]["fused_launches"],
                 "packed_restore": REPORT["packed"]["stage3"]["launches"],
                 "packed_train": REPORT["packed"]["stage2"]["launches"],
-                "mesh2d": REPORT["mesh2d"]["launches"]["restore f32"]}
+                "mesh2d": REPORT["mesh2d"]["launches"]["restore f32"],
+                "meshtrain": REPORT["meshtrain"]["launches"]["stage3 f32"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in (REPORT["kernels"] + REPORT["grads"]
                             + REPORT["packed"]["kernels"]

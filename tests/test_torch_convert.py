@@ -17,6 +17,7 @@ cost no compute here.
 """
 
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -271,6 +272,9 @@ def test_psp_checkpoint_matches_jax_and_tiles_latent_avg(tmp_path):
     del wrapped["latent_avg"]
     with pytest.raises(KeyError, match="latent_avg"):
         pti.convert_psp_checkpoint(psp, wrapped)
+    # pytest keeps every test's directory to the end of the session
+    # (and three sessions): its outputs go once checked
+    shutil.rmtree(tmp_path)
 
 
 def test_square_linear_is_transposed():
@@ -383,3 +387,6 @@ def test_chip_smoke_writer_round_trips_psp(tmp_path):
     assert_same(state_dict_from_jax(jax.tree.map(
         np.asarray, jti.convert_psp_checkpoint(jpsp, shapes, path)), psp),
         want)
+    # pytest keeps every test's directory to the end of the session
+    # (and three sessions): its outputs go once checked
+    shutil.rmtree(tmp_path)

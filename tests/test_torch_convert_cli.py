@@ -9,9 +9,15 @@ psp, diffuser and g_ema assembled as a pipeline, into `cli/infer.py
 tree saved with `vspbfr_tpu.utils.save_checkpoint` in the JAX trainer's
 `pipeline_export()` layout, and the parameters of a full training
 checkpoint, to what `state_dict_from_jax` makes of the same trees.
+
+The outputs are deleted once checked (the module's converted files, 1.3
+GB, when its last test is done): pytest keeps every test's directory to
+the end of the session and the last three sessions, and kept they filled
+a small disk under the whole suite.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -76,7 +82,8 @@ def converted(tmp_path_factory):
     for kind, args in jobs.items():
         out[kind] = str(tmp / f"{kind}.pt")
         convert_ckpt.main([kind, *args, "--out", out[kind], *SIZES])
-    return mods, out, tmp
+    yield mods, out, tmp
+    shutil.rmtree(tmp)
 
 
 def test_every_kind_converts_exactly(converted):
@@ -114,6 +121,7 @@ def test_psp_mapping_mlp_is_read_only_when_the_module_has_one(tmp_path):
     assert_same(load_checkpoint(str(tmp_path / "plain.pt")),
                 {k: v for k, v in psp.state_dict().items()
                  if not k.startswith("decoder.style.")})
+    shutil.rmtree(tmp_path)
 
 
 def _faces(d, n, size):
@@ -219,6 +227,7 @@ def test_orbax_pipeline_export_converts(tmp_path, jax_trees):
     orbax_to_torch.main([src, "--out", out, *SIZES])
     assert_same(load_checkpoint(out), {k[4:]: v for k, v in want.items()
                                        if k.startswith("psp.")})
+    shutil.rmtree(tmp_path)
 
 
 def test_orbax_training_checkpoint_drops_the_training_state(tmp_path,
@@ -254,3 +263,4 @@ def test_orbax_training_checkpoint_drops_the_training_state(tmp_path,
                           "iter": np.int32(4)})
     with pytest.raises(ValueError, match="nothing to convert"):
         orbax_to_torch.main([src, "--out", out, *SIZES])
+    shutil.rmtree(tmp_path)

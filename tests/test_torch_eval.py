@@ -20,6 +20,8 @@
   finite lpips and fid beside psnr / ssim, the scoring timed per batch.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 
@@ -209,3 +211,6 @@ def test_infer_cli_scores_lpips_and_fid(tmp_path, lpips):
     assert set(logged) == {"psnr", "ssim", "lpips", "fid", "t"}
     for k in ("psnr", "ssim", "lpips", "fid"):
         assert float(logged[k]) == float(f"{entry[k]:.6g}"), k
+    # pytest keeps every test's directory to the end of the session
+    # (and three sessions): its outputs go once checked
+    shutil.rmtree(tmp_path)

@@ -22,6 +22,7 @@ selective and the chain well conditioned (the same change then moves it by
 
 import functools
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -194,6 +195,9 @@ def test_infer_cli_on_npy(tmp_path, monkeypatch, pipes, low, with_ckpt):
     # restore, low, sample, gt for each input, and the score log
     assert len(written) == 9 and "data0.log" in written
     assert any(n.startswith("face0_restore") for n in written)
+    # pytest keeps every test's directory to the end of the session
+    # (and three sessions): its outputs go once checked
+    shutil.rmtree(tmp_path)
 
 
 def test_port_imports_no_jax():

@@ -35,6 +35,7 @@ import hashlib
 import importlib
 import io
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -442,7 +443,10 @@ def gloo_run(tmp_path_factory):
                 p.communicate()
     for (p, _), log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
-    return [torch.load(out, weights_only=False) for _, out in procs], world1
+    ranks = [torch.load(out, weights_only=False) for _, out in procs]
+    # ~380 MB, which pytest would keep to the end of the session
+    shutil.rmtree(out_dir)
+    return ranks, world1
 
 
 def _stage2_trainer(batch, pipe):

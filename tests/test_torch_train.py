@@ -22,6 +22,8 @@ the port's error is 0.1-2x that spread. Adam vs optax
 the chain's amplification leaves ~1e-9: <= 1e-7.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 
@@ -313,3 +315,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
                                 "3"])
     assert straight["steps"][-1]["loss"] == pytest.approx(
         rep["steps"][-1]["loss"], rel=1e-6)
+    # ~0.7 GB of checkpoints at the tiny config; pytest keeps every test's
+    # directory to the end of the session (and three sessions), so they go
+    # once checked (as tests/test_torch_restore_cli.py's)
+    shutil.rmtree(tmp_path)

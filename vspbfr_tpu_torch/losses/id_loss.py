@@ -84,7 +84,9 @@ class ResNet101Embedder(nn.Module):
         for s in range(len(RESNET101_STAGES)):
             for unit in getattr(self, f"layer{s + 1}"):
                 h = unit(h)
-        return self.fc(torch.mean(h.float(), dim=(1, 2)))
+        # the head in f32 (a bf16 trunk's pooled features), or wider
+        acc = torch.promote_types(h.dtype, torch.float32)
+        return self.fc(torch.mean(h.to(acc), dim=(1, 2)))
 
 
 def embed_l2(net: nn.Module, img: torch.Tensor) -> torch.Tensor:

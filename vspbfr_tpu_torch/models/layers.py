@@ -90,18 +90,20 @@ def init_module(root: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def _normal(p: torch.Tensor, gen: torch.Generator, std: float = 1.0) -> None:
-    p.copy_(torch.randn(p.shape, generator=gen) * std)
+    p.copy_(torch.randn(p.shape, generator=gen).mul_(std))
 
 
 def _lecun_normal(p: torch.Tensor, gen: torch.Generator, fan_in: int) -> None:
     """flax lecun_normal: N(0, 1/fan_in) truncated at +-2 std, rescaled to
-    unit variance after truncation."""
+    unit variance after truncation. In place on the float64 draw (the same
+    operations in the same order: the same values, without a temporary a
+    step)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    u = torch.rand(p.shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
-    p.copy_((torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0) * std).clamp(
-        -2 * std, 2 * std))
+    u = torch.rand(p.shape, generator=gen, dtype=torch.float64)
+    u.mul_(hi - lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_()
+    p.copy_(u.mul_(math.sqrt(2.0)).mul_(std).clamp_(-2 * std, 2 * std))
 
 
 def draw_noise(shape, like: torch.Tensor,
@@ -287,7 +289,11 @@ class EqualConv2d(nn.Module):
                          dilation=self.dilation)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
-        return out if epi is None else apply_epilogue(out, **epi)
+        if epi is not None:
+            out = apply_epilogue(out, **epi)
+        # the bias and the epilogue on this rank's rows, then the rows'
+        # layout (a down-conv below the threshold gathers)
+        return out if spatial is None else spatial.settle(out)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -322,7 +328,8 @@ class NoiseInjection(nn.Module):
     def init_from(self, gen):
         self.weight.zero_()
 
-    def scaled(self, shape, like, noise=None, generator=None, spatial=None):
+    def scaled(self, shape, like, noise=None, generator=None, spatial=None,
+               rows=None):
         """weight * noise for an output of `shape` (B, H, W, C). Unpacked:
         noise (B, H, W, 1), drawn when none is given. Packed: (B, H, W, 4),
         one value a phase, drawn in that layout when none is given (the
@@ -330,12 +337,13 @@ class NoiseInjection(nn.Module):
         comparisons pass noise); given noise may be (B, 2H, 2W, 1), which
         goes through `space_to_depth`, or already (B, H, W, 4). With
         `spatial` (unpacked; `shape` the whole map's): the output's rows
-        of the noise (`Spatial.noise`)."""
+        of the noise, or this rank's block of `rows` rows
+        (`Spatial.noise`)."""
         b, h, w = shape[:3]
         if spatial is not None and not self.packed:
             return self.weight * spatial.noise(
                 (b, h, w, 1), noise,
-                lambda s: draw_noise(s, like, generator))
+                lambda s: draw_noise(s, like, generator), rows)
         nc = 4 if self.packed else 1
         if noise is None:
             noise = draw_noise((b, h, w, nc), like, generator)
@@ -415,8 +423,12 @@ class StyledConv(nn.Module):
         """post_add: tensors of the output shape added after the lrelu (the
         RestoreNet decoder's skip fusion, `models/RestoreNet.py:1029-1035`;
         with `spatial`, the output's rows)."""
+        rows = None
+        if (spatial is not None and self.downsample
+                and spatial.sharded(x.shape[2])):
+            rows = x.shape[1] // 2      # the conv's rows before they settle
         nz = self.noise.scaled(self.out_shape(x.shape), x, noise, generator,
-                               spatial)
+                               spatial, rows)
         return self.conv(x, style, epilogue=dict(
             noise=nz, bias=self.activate.vector(), act=True,
             post_add=tuple(post_add)), spatial=spatial)
@@ -615,6 +627,27 @@ class StyleMLP(nn.Module):
         for i in range(self.n_mlp):
             x = getattr(self, f"fc{i}")(x)
         return x
+
+
+def styled_runner(spatial, style, styles):
+    """run(layer, x, i, ...) = layer(x, style(i), ...), a styled layer
+    reading style code i. With `spatial` the layer runs in
+    `Spatial.layer`'s context (its input's resolution, x's width, and its
+    output's say whether it is on this rank's rows), and one on rows reads
+    row i of `styles` (every code, (B, n, D)) through one
+    `Spatial.summed`: the model axis sums the codes' row parts once a
+    forward, not once a layer."""
+    if spatial is None:
+        return lambda layer, x, i, *a, **kw: layer(x, style(i), *a, **kw)
+    rows_styles = spatial.summed(styles)
+
+    def run(layer, x, i, *args, **kw):
+        res_out = (layer.out_shape(x.shape)[2]
+                   if isinstance(layer, StyledConv) else x.shape[2])
+        with spatial.layer(layer, x.shape[2], res_out) as rows:
+            return layer(x, rows_styles[:, i] if rows else style(i), *args,
+                         spatial=spatial, **kw)
+    return run
 
 
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4,

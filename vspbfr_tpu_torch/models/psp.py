@@ -117,12 +117,14 @@ class PSPFacade(nn.Module):
 
     def decode(self, codes: torch.Tensor,
                generator: torch.Generator | None = None,
-               noise=None, decoder: nn.Module | None = None) -> torch.Tensor:
+               noise=None, decoder: nn.Module | None = None,
+               spatial=None) -> torch.Tensor:
         """W+ code -> image pooled to out_size. noise: optional list of the
         decoder's per-layer noise maps (else drawn from `generator`);
-        decoder: a stand-in for the own one."""
+        decoder: a stand-in for the own one; spatial: as
+        `decode_with_feats` (the image in out_size's layout)."""
         return self._pooled(decoder or self.decoder, codes, noise=noise,
-                            generator=generator)[0]
+                            generator=generator, spatial=spatial)[0]
 
     def mean_latent(self, n_samples: int = 4096,
                     generator: torch.Generator | None = None,

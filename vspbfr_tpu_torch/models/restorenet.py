@@ -28,11 +28,14 @@ same threshold), and the output through `depth_to_space`. D stays
 unpacked, as in the JAX package.
 
 `spatial` (a `parallel.spatial.Spatial`) runs the generator on this rank's
-rows of the H-sharded levels (`parallel/spatial.py`): the inputs are this
-rank's batch rows, the low image and the decoder features whole or
-already cut to this rank's rows, the output this rank's rows of the image
-(from `MIN_ROWS` rows a shard up). The 4x4 head and the levels below the
-threshold run whole on every rank.
+rows of the H-sharded levels (`parallel/spatial.py`), forward and
+backward: the inputs are this rank's batch rows, the low image and the
+decoder features whole or already cut to this rank's rows, the output
+this rank's rows of the image (from `MIN_ROWS` rows a shard up). The 4x4
+head and the levels below the threshold run whole on every rank. Each
+layer runs in `Spatial.layer`'s context; those on rows read their style
+codes through one `Spatial.summed` for the encoder and one for the
+decoder.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from vspbfr_tpu_torch.models.layers import (
     StyleMLP,
     ToRGB,
     minibatch_stddev,
+    styled_runner,
     styles_to_latent,
 )
 from vspbfr_tpu_torch.models.stylegan2 import channel_dict
@@ -142,16 +146,19 @@ class RestorationNet(nn.Module):
         b = imgs.shape[0]
         if self.packed(self.size):
             imgs = space_to_depth(imgs)
-        out = self.down_from_big(imgs, spatial=spatial)
+        if spatial is None:
+            out = self.down_from_big(imgs)
+        else:
+            with spatial.layer(self.down_from_big, self.size):
+                out = self.down_from_big(imgs, spatial=spatial)
+        run = styled_runner(spatial, lambda i: latent[:, i], latent)
         features = []
         for ii in range(0, len(self.encoder_convs), 2):
-            out = self.encoder_convs[ii](out, latent[:, ii], noise=noise[ii],
-                                         generator=generator, spatial=spatial)
+            out = run(self.encoder_convs[ii], out, ii, noise=noise[ii],
+                      generator=generator)
             features.append(out)
-            out = self.encoder_convs[ii + 1](out, latent[:, ii],
-                                             noise=noise[ii + 1],
-                                             generator=generator,
-                                             spatial=spatial)
+            out = run(self.encoder_convs[ii + 1], out, ii,
+                      noise=noise[ii + 1], generator=generator)
         out = self.final_layer(out)
         x_global = self.final_linear(out.reshape(b, -1))
         if dropout_mask is not None:
@@ -204,20 +211,24 @@ class RestorationNet(nn.Module):
         def sty(i):
             return torch.cat([latent[:, i], x_global], dim=-1)
 
-        out = self.conv1(features[0], sty(0), noise=noise[0],
-                         generator=generator, spatial=spatial)
-        skip = self.to_rgb1(out, sty(1), spatial=spatial)
+        styles = None
+        if spatial is not None:
+            # every sty(i) at once, for the layers on rows
+            styles = torch.cat([latent, x_global[:, None].expand(
+                -1, latent.shape[1], -1)], dim=-1)
+        run = styled_runner(spatial, sty, styles)
+        out = run(self.conv1, features[0], 0, noise=noise[0],
+                  generator=generator)
+        skip = run(self.to_rgb1, out, 1)
         i = 1
         for k in range(0, len(self.convs), 2):
             fi = (i + 1) // 2
-            out = self.convs[k](out, sty(i),
-                                post_add=(features[fi], de_feats[fi]),
-                                noise=noise[k + 1], generator=generator,
-                                spatial=spatial)
-            out = self.convs[k + 1](out, sty(i + 1), noise=noise[k + 2],
-                                    generator=generator, spatial=spatial)
-            skip = self.to_rgbs[k // 2](out, sty(i + 2), skip,
-                                        spatial=spatial)
+            out = run(self.convs[k], out, i,
+                      post_add=(features[fi], de_feats[fi]),
+                      noise=noise[k + 1], generator=generator)
+            out = run(self.convs[k + 1], out, i + 1, noise=noise[k + 2],
+                      generator=generator)
+            skip = run(self.to_rgbs[k // 2], out, i + 2, skip)
             i += 2
         if self.packed(self.size):
             skip = depth_to_space(skip)

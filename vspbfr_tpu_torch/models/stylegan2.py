@@ -16,7 +16,10 @@ CLIs' `--packed_min_res` sets it).
 `spatial` (a `parallel.spatial.Spatial`) decodes this rank's rows of the
 H-sharded levels (`parallel/spatial.py`): the codes are this rank's batch
 rows; the image and the feature taps come back in their resolutions'
-layouts (local rows from `MIN_ROWS` rows a shard up, whole below).
+layouts (local rows from `MIN_ROWS` rows a shard up, whole below). Each
+layer runs in `Spatial.layer`'s context, and the layers on rows read the
+codes through `Spatial.summed`, so a backward (stage 2's LPIPS and ID
+terms into the codes) sums their row parts over the model axis once.
 """
 
 from __future__ import annotations
@@ -25,7 +28,13 @@ import math
 import torch
 from torch import nn
 
-from vspbfr_tpu_torch.models.layers import StyledConv, StyleMLP, ToRGB, _normal
+from vspbfr_tpu_torch.models.layers import (
+    StyledConv,
+    StyleMLP,
+    ToRGB,
+    _normal,
+    styled_runner,
+)
 from vspbfr_tpu_torch.ops.packed import depth_to_space
 
 
@@ -127,25 +136,24 @@ class Generator(nn.Module):
                                       "space-to-depth layout")
         if noise is None:
             noise = [None] * self.num_layers
-        sp = dict(generator=generator, spatial=spatial)
+        run = styled_runner(spatial, lambda i: latent[:, i], latent)
         out = self.const_input.expand(b, -1, -1, -1).contiguous()
-        out = self.conv1(out, latent[:, 0], noise=noise[0], **sp)
-        skip = (self.to_rgb1(out, latent[:, 1], spatial=spatial)
-                if return_image else None)
+        out = run(self.conv1, out, 0, noise=noise[0], generator=generator)
+        skip = run(self.to_rgb1, out, 1) if return_image else None
         features = [out] if return_features else None
         i = 1
         for k in range(0, len(self.convs), 2):
-            out = self.convs[k](out, latent[:, i], noise=noise[k + 1], **sp)
+            out = run(self.convs[k], out, i, noise=noise[k + 1],
+                      generator=generator)
             if return_features:
                 features.append(out)
             if (not return_image and max_feature_res is not None
                     and 2 ** (k // 2 + 3) >= max_feature_res):
                 break
-            out = self.convs[k + 1](out, latent[:, i + 1], noise=noise[k + 2],
-                                    **sp)
+            out = run(self.convs[k + 1], out, i + 1, noise=noise[k + 2],
+                      generator=generator)
             if return_image:
-                skip = self.to_rgbs[k // 2](out, latent[:, i + 2], skip,
-                                            spatial=spatial)
+                skip = run(self.to_rgbs[k // 2], out, i + 2, skip)
             i += 2
         if skip is not None and self.packed(self.size) and not (
                 return_packed_rgb):

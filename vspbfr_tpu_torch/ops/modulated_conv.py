@@ -31,7 +31,12 @@ H by (top, bottom) takes the window of those rows around this rank's
 K1 + K3, the blurred stride-2 down-conv, the dilated convs); the
 transposed up-conv + blur and SMART's K2 run on a wider window and keep
 the middle rows. Where neither the input's nor the output's resolution is
-sharded the context is dropped, and the call is the unsharded one.
+sharded the context is dropped, and the call is the unsharded one. Every
+use of the style, the weight and the epilogue is on this rank's rows (an
+up-conv scales its window of a whole input; a down-conv to a whole output
+runs its epilogue on its rows before `Spatial.settle` gathers them), so
+their gradients are this rank's parts, which the model axis sums
+(`parallel/spatial.py`).
 """
 
 from __future__ import annotations
@@ -117,22 +122,25 @@ def fused_blur_strided_conv(x: torch.Tensor, w: torch.Tensor, taps: tuple,
                             pad: tuple, stride: int = 2,
                             spatial=None) -> torch.Tensor:
     """blur(x, taps, pad) then conv(w, stride) as ONE strided conv with the
-    composed kernel. With `spatial`: on this rank's rows, the output
-    gathered where its resolution is not sharded."""
+    composed kernel. With `spatial`: this rank's rows of the output (the
+    caller settles them after its epilogue)."""
     e = compose_blur_kernel(w, taps)
     xw, pady = window_rows(x, pad[0], pad[1], spatial)
-    out = conv_nhwc(xw, e, stride, (pady, (pad[0], pad[1])))
-    return out if spatial is None else spatial.settle(out)
+    return conv_nhwc(xw, e, stride, (pady, (pad[0], pad[1])))
 
 
 def up_conv_blur_unpacked(x: torch.Tensor, w: torch.Tensor,
-                          taps: tuple, spatial=None) -> torch.Tensor:
+                          taps: tuple, spatial=None,
+                          style=None) -> torch.Tensor:
     """StyleGAN2 up path (stride-2 transposed conv + FIR blur) as the
     subpixel composed conv on K1, emitting the 4 output phases as channel
-    groups, then the phase interleave K3. x (B, h, w, Ci) -> (B, 2h, 2w, Co).
-    With `spatial`: this rank's 2h/n output rows."""
+    groups, then the phase interleave K3. x (B, h, w, Ci) -> (B, 2h, 2w, Co),
+    scaled by `style` (B, Ci) first. With `spatial`: this rank's 2h/n
+    output rows (the style scales the window)."""
     wp, pady, padx = pk.assembled_kernel(w, "up", taps)
     x, pady = window_rows(x, *pady, spatial)
+    if style is not None:
+        x = x * style[:, None, None, :]
     out4 = dense_conv(x.contiguous(), wp.to(x.dtype).contiguous(), (pady, padx))
     return d2s(out4, w.shape[3])
 
@@ -309,15 +317,15 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
     sty = style.to(x.dtype)
 
     if up:
-        xs = x * sty[:, None, None, :]
         if dilation == 1 and fir and c_out < 128:
-            out = up_conv_blur_unpacked(xs, ws, tuple(blur_kernel), spatial)
+            out = up_conv_blur_unpacked(x, ws, tuple(blur_kernel), spatial,
+                                        style=sty)
         else:
             # sharded: a window of 2 rows each side (output row y reads
             # input rows (y - 3) / 2 .. (y + 2) / 2), the middle rows kept
-            out = on_rows(xs, lambda t: _transpose_blur(t, ws, blur_kernel,
-                                                        dilation),
-                          2, 2, spatial)
+            out = on_rows(x, lambda t: _transpose_blur(
+                t * sty[:, None, None, :], ws, blur_kernel, dilation),
+                2, 2, spatial)
     elif down:
         xs = x * sty[:, None, None, :]
         factor = 2
@@ -352,7 +360,9 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
                          dilation=dilation)
 
     if epilogue is not None:
-        return apply_epilogue(out, out_scale=d, **epilogue)
-    if demodulate:
+        out = apply_epilogue(out, out_scale=d, **epilogue)
+    elif demodulate:
         out = out * d[:, None, None, :]
+    if down and spatial is not None:
+        out = spatial.settle(out)
     return out

@@ -30,7 +30,12 @@ them by hand: `parallel/spatial.py` (H-sharded activations with halo
 exchanges, what GSPMD lowers `spatial_sharded` convs to) and
 `parallel/model_axis.py` (weights sharded at rest on their last axis and
 gathered at use, `model_param_specs`). On a 2-D mesh `DataParallel` reduces
-over the data axis only: the ranks of one model group hold the same rows.
+over the data axis only: the ranks of one model group take the same batch
+rows, and their gradients are whole and equal before it runs. Where the
+model axis also shards the maps' rows (`spatial.py`) a rank's gradient of
+a replicated tensor is only its rows' part; the model axis sums those
+parts first (`Spatial.summed`, `Spatial.sum_partial_grads`, the
+reduce-scatter of `model_axis.partial_gradients`), as GSPMD does.
 """
 
 from __future__ import annotations
@@ -209,12 +214,23 @@ def model_param_specs(module_or_state_dict, mesh, axis: str = "model",
     return out
 
 
+def _staged(t: torch.Tensor, group=None) -> torch.Tensor:
+    """t where `group`'s collectives take it: under gloo a CUDA tensor goes
+    through a host copy (which the caller copies back where the collective
+    works in place), otherwise t itself."""
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        return t.cpu()
+    return t
+
+
 class AxisGroup:
     """One rank's place on a mesh axis: the axis' process group, the
-    rank's index on it and the axis' size, and the all-gather that
-    `parallel/spatial.py` and `parallel/model_axis.py` exchange through
-    (under gloo a CUDA tensor goes through a host copy, as `DataParallel`
-    reduces; a gather that fails raises within the group's timeout)."""
+    rank's index on it and the axis' size, and the collectives that
+    `parallel/spatial.py` and `parallel/model_axis.py` exchange through:
+    the all-gather of activations and weights, and the gradients' sum
+    and reduce-scatter (under gloo a CUDA tensor goes through a host copy,
+    as `DataParallel` reduces; a collective that fails raises within the
+    group's timeout)."""
 
     def __init__(self, group, rank: int, size: int):
         self.group, self.rank, self.size = group, rank, size
@@ -224,15 +240,39 @@ class AxisGroup:
         return cls(mesh.get_group(axis), mesh.get_local_rank(axis),
                    axis_size(mesh, axis))
 
+    def _wire(self, t: torch.Tensor, sums: bool = False) -> torch.Tensor:
+        """t as it goes over the group (`_staged`); summed tensors in f32
+        (a bf16 gradient's parts add without rounding)."""
+        src = t.detach()
+        if sums and src.dtype in (torch.bfloat16, torch.float16):
+            src = src.float()
+        return _staged(src, self.group).contiguous()
+
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's t (equal shapes), in rank order, on t's device."""
-        src = t.detach().contiguous()
-        if src.device.type == "cuda" and dist.get_backend(
-                self.group) == "gloo":
-            src = src.cpu()
+        src = self._wire(t)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return [p.to(t.device) for p in parts]
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's t, a new tensor like t."""
+        src = self._wire(t, sums=True)
+        if src.data_ptr() == t.data_ptr():
+            src = src.clone()       # t's own storage stays untouched
+        dist.all_reduce(src, group=self.group)
+        return src.to(t.device, t.dtype)
+
+    def reduce_scatter_last(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the last axis (columns [r k, (r + 1) k)) of
+        the sum of every rank's t."""
+        src = self._wire(t, sums=True)
+        k = src.shape[-1] // self.size
+        parts = [src.narrow(-1, r * k, k).contiguous()
+                 for r in range(self.size)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out.to(t.device, t.dtype)
 
 
 def _buckets(tensors: Iterable[torch.Tensor]) -> dict:
@@ -243,13 +283,27 @@ def _buckets(tensors: Iterable[torch.Tensor]) -> dict:
     return out
 
 
+@torch.no_grad()
+def flat_collective(tensors: Iterable[torch.Tensor], fn) -> None:
+    """One collective a dtype over many tensors: each dtype's tensors
+    flattened into one (`_buckets`), `fn(flat)` (the collective: it
+    returns the result, or flat changed in place), and each tensor set to
+    its part of the result."""
+    for group in _buckets(tensors).values():
+        flat = fn(torch.cat([t.reshape(-1) for t in group]))
+        for t, v in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(v.view_as(t))
+
+
 class DataParallel:
     """One replica per rank of the default process group, or with a 2-D
     `mesh` per rank of its data axis: rank and world size along that axis,
     the lead rank (global rank 0 writes logs, samples and checkpoints) and
-    the collectives of a data-parallel step, over the data sub-group only
-    (the ranks of one model group hold the same rows, so their replicated
-    parameters' gradients are already equal). Without a group every
+    the collectives of a data-parallel step, over the data sub-group only:
+    the ranks of one model group take the same batch rows, and by the time
+    `all_reduce_grads` runs their gradients are whole and equal (a step
+    that H-shards the maps sums each replicated tensor's row parts over
+    the model axis first, `parallel/spatial.py`). Without a group every
     method is the identity and the world size is 1."""
 
     def __init__(self, mesh=None):
@@ -271,22 +325,20 @@ class DataParallel:
         """In place, over the data group (or `group`); gloo reduces CUDA
         tensors through a host copy."""
         group = group or self.group
-        if self.backend == "gloo" and t.is_cuda:
-            host = t.cpu()
-            dist.all_reduce(host, op, group=group)
-            t.copy_(host)
-        else:
-            dist.all_reduce(t, op, group=group)
+        wire = _staged(t, group)
+        dist.all_reduce(wire, op, group=group)
+        if wire is not t:
+            t.copy_(wire)
 
-    def _broadcast(self, t: torch.Tensor) -> None:
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """t <- the data group's first rank's t, in place; returns t."""
         src = 0 if self.group is None else dist.get_global_rank(self.group,
                                                                 0)
-        if self.backend == "gloo" and t.is_cuda:
-            host = t.cpu()
-            dist.broadcast(host, src, group=self.group)
-            t.copy_(host)
-        else:
-            dist.broadcast(t, src, group=self.group)
+        wire = _staged(t, self.group)
+        dist.broadcast(wire, src, group=self.group)
+        if wire is not t:
+            t.copy_(wire)
+        return t
 
     @torch.no_grad()
     def replicate(self, module: torch.nn.Module) -> torch.nn.Module:
@@ -296,13 +348,8 @@ class DataParallel:
         parameter's slice is what goes (its data group holds the same
         slice)."""
         if self.backend:
-            held = list(module.parameters()) + list(module.buffers())
-            for group in _buckets(held).values():
-                flat = torch.cat([t.reshape(-1) for t in group])
-                self._broadcast(flat)
-                for t, v in zip(group, flat.split([t.numel()
-                                                   for t in group])):
-                    t.copy_(v.view_as(t))
+            flat_collective(list(module.parameters())
+                            + list(module.buffers()), self._broadcast)
         return module
 
     @torch.no_grad()
@@ -311,13 +358,12 @@ class DataParallel:
         dtype. Every parameter must have a gradient."""
         if not self.backend:
             return
-        grads = [p.grad for p in params]
-        for group in _buckets(grads).values():
-            flat = torch.cat([g.reshape(-1) for g in group])
+
+        def mean(flat):
             self._all_reduce(flat)
-            flat /= self.world_size
-            for g, v in zip(group, flat.split([g.numel() for g in group])):
-                g.copy_(v.view_as(g))
+            return flat.div_(self.world_size)
+
+        flat_collective([p.grad for p in params], mean)
 
     def mean_metrics(self, metrics: Mapping[str, torch.Tensor]) -> dict:
         """The 0-d metrics averaged over the ranks in one all-reduce (the

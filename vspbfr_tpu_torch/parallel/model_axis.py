@@ -10,10 +10,15 @@ each parameter it shards keeps only its 1/n_model slice of the last axis
 `torch.nn.utils.parametrize` parametrization gathers the full tensor
 within the model group wherever the module reads it. The gather is a
 `torch.autograd.Function` whose backward returns the local slice of the
-full gradient: every rank of a model group computes the same full gradient
-(they see the same rows), so no model-axis reduction is needed, and the
-data axis reduces it as any other (`DataParallel`). The backward is a
-`narrow`, so a double backward runs through it.
+full gradient. Where the module runs on whole maps every rank of a model
+group computes the same full gradient, so the slice is all it needs, and
+the data axis reduces it as any other (`DataParallel`); that backward is a
+`narrow`, so a double backward (R1 through D) runs through it. Where a
+layer runs on this rank's rows of H-sharded maps (`parallel/spatial.py`,
+`Spatial.layer`, inside `partial_gradients`) each rank's gradient is only
+its rows' part: the gather's backward then reduce-scatters the parts, so
+each rank gets its slice of their sum (once differentiable: no double
+backward crosses a sharded map).
 
 So an optimizer over the module's parameters (`train.state.TrainState`)
 keeps Adam's moments at the slice's size: the memory `model_param_specs`
@@ -29,8 +34,11 @@ copy under gloo; a failed gather raises within the group's timeout).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 from torch.nn.utils import parametrize
 
 from vspbfr_tpu_torch.parallel.mesh import AxisGroup, model_param_specs
@@ -39,6 +47,10 @@ from vspbfr_tpu_torch.parallel.mesh import AxisGroup, model_param_specs
 class ModelAxis(AxisGroup):
     """The model axis of a mesh: its slice of a last axis and the gather
     of the slices."""
+
+    def __init__(self, group, rank: int, size: int):
+        super().__init__(group, rank, size)
+        self.reduce_scatters = 0    # row parts of a gradient summed
 
     def __deepcopy__(self, memo):
         return self     # a copy of a sharded module gathers on the same axis
@@ -50,7 +62,7 @@ class ModelAxis(AxisGroup):
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's slice, concatenated on the
-        last axis (not differentiable: `gather_last` is)."""
+        last axis (not differentiable: `GatheredAtUse`'s gather is)."""
         return torch.cat(self.all_gather(local), dim=-1)
 
 
@@ -65,26 +77,55 @@ class _GatherLast(torch.autograd.Function):
         return ctx.axis.local(g), None
 
 
-def gather_last(local: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
-    """The full tensor of a last-axis shard; its gradient is the local
-    slice of the full tensor's gradient."""
-    return _GatherLast.apply(local, axis)
+class _GatherLastPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, axis):
+        ctx.axis = axis
+        return axis.gather(local)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        ctx.axis.reduce_scatters += 1
+        return ctx.axis.reduce_scatter_last(g), None
 
 
 class GatheredAtUse(nn.Module):
     """The parametrization of a model-sharded parameter: the stored tensor
     is the rank's slice (`right_inverse` slices a full tensor assigned to
-    it), what the module reads is the gathered full tensor."""
+    it), what the module reads is the gathered full tensor. Its gradient
+    is the slice of the full tensor's gradient; while `partial` (set by
+    `partial_gradients`), of the sum of the ranks' parts."""
 
     def __init__(self, axis: ModelAxis):
         super().__init__()
         self.axis = axis
+        self.partial = False
 
     def forward(self, local):
-        return gather_last(local, self.axis)
+        gather = _GatherLastPartial if self.partial else _GatherLast
+        return gather.apply(local, self.axis)
 
     def right_inverse(self, full):
         return self.axis.local(full).contiguous()
+
+
+@contextlib.contextmanager
+def partial_gradients(layer: nn.Module):
+    """Within the block, each model-sharded parameter that `layer` reads
+    gets only this rank's part of its gradient (a layer on H-sharded rows,
+    `Spatial.layer`): its gather's backward reduce-scatters the parts over
+    the model axis. The gathers made in the block keep that backward, and
+    a checkpoint's recompute runs the block again."""
+    gathers = [m for m in layer.modules() if isinstance(m, GatheredAtUse)]
+    before = [g.partial for g in gathers]
+    for g in gathers:
+        g.partial = True
+    try:
+        yield
+    finally:
+        for g, b in zip(gathers, before):
+            g.partial = b
 
 
 def _owner(root: nn.Module, name: str) -> tuple[nn.Module, str]:

@@ -1,5 +1,6 @@
 """H-sharded execution of the conv stages with halo exchanges: what GSPMD
-inserts for `spatial_sharded` (`vspbfr_tpu/parallel/mesh.py:106`).
+inserts for `spatial_sharded` (`vspbfr_tpu/parallel/mesh.py:106`), in the
+forward and in the backward.
 
 Rank r of the n ranks of the model axis holds rows [r H/n, (r + 1) H/n)
 of every NHWC map whose resolution H is sharded (`Spatial.sharded`: at
@@ -23,10 +24,11 @@ below. Where the ops meet the context (`spatial=`):
   composed conv on K1 and K3's interleave (`up_conv_blur_unpacked`) on
   the window of the composed kernel's reach, its 2H/n output rows; from
   128 the transposed conv + blur (`rows_op`, 2 rows each side), as
-  unsharded;
+  unsharded. The style scales the window, so from a whole input every
+  use of the layer's style is on this rank's rows;
 - the blurred stride-2 down-conv: the window of the composed kernel's
-  reach, its H/(2n) output rows (gathered where the output is below the
-  threshold);
+  reach, its H/(2n) output rows, its epilogue on those rows, then
+  gathered where the output is below the threshold;
 - the FIR 2x upsample of the ToRGB skip (`upsample2d`, `rows_op`): a
   window of 1 row, the middle 2H/n output rows kept.
 
@@ -35,20 +37,47 @@ shard's rows of the global draw (`Spatial.noise`). Below the threshold a
 map is whole on every rank and computed replicated (the 4-16 px decoder
 levels at n = 4; GSPMD may do the same).
 
+Gradients keep GSPMD's invariant: a sharded map's gradient holds its own
+rows; a replicated tensor's gradient is whole and equal on every rank of
+the model axis. So each exchange has its reverse in the backward:
+`window` sends each halo strip's gradient back to the rank that owns
+those rows, which adds it into its first or last rows (the zero rows
+outside the image drop out); `gather` keeps this rank's rows; `own` and
+`window` on a whole map (slices of a replicated tensor) all-gather the
+rows' gradients and add them up. A replicated tensor that enters an op on
+this rank's rows gets only this rank's part of its gradient, which the
+model axis sums (Megatron's identity forward / all-reduce backward):
+
+- a layer that runs on sharded rows (`Spatial.layer`) does all its work
+  on rows, so every parameter gradient it produces is a part: a
+  model-sharded parameter's part is reduce-scattered in its gather's
+  backward (`model_axis.partial_gradients`), the replicated parameters'
+  parts are summed after the backward in one flattened all-reduce a
+  dtype (`sum_partial_grads`, from `TrainState.apply_gradients`);
+- the style codes those layers read pass `summed` once a forward, so
+  their parts are summed in one all-reduce, not one a layer.
+
+The backward exchanges are once differentiable: R1's double backward
+runs through D on whole images, never through a halo, and a double
+backward through an exchange raises.
+
 Every tensor a sharded stage takes holds the rank's batch rows (the data
 axis of a 2-D mesh); the noise a layer draws is the global batch's draw
 cut to them, so the ranks reproduce the unsharded run's draws. Explicit
-noise maps are this batch's whole maps. Only forward runs sharded (the
-decode and restore stages of serving); an exchange on a tensor that needs
-a gradient raises. Under gloo CUDA strips go through the host; a failed
-exchange raises within the process group's timeout.
+noise maps are this batch's whole maps. Under gloo CUDA strips go through
+the host; a failed exchange raises within the process group's timeout.
 """
 
 from __future__ import annotations
 
-import torch
+import contextlib
+import weakref
 
-from vspbfr_tpu_torch.parallel.mesh import AxisGroup
+import torch
+from torch.autograd.function import once_differentiable
+
+from vspbfr_tpu_torch.parallel.mesh import AxisGroup, flat_collective
+from vspbfr_tpu_torch.parallel.model_axis import partial_gradients
 
 # a map is H-sharded when each shard holds at least this many rows: the
 # largest halo (K2's dilation 8), so a window reaches one neighbour only
@@ -64,17 +93,95 @@ class _One:
         return [t]
 
 
+class _Window(torch.autograd.Function):
+    """Rows [r h - top, (r + 1) h + bottom) of a sharded map from the
+    neighbours' edge strips; the backward sends the strips' gradients
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, sp, top, bottom):
+        ctx.sp, ctx.top, ctx.bottom = sp, top, bottom
+        return sp._halo(x, top, bottom)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return ctx.sp._halo_back(g, ctx.top, ctx.bottom), None, None, None
+
+
+class _WholeRows(torch.autograd.Function):
+    """Rows [r step - top, r step + step + bottom) of a replicated map,
+    zeros outside it; the backward adds every rank's rows' gradient into
+    the whole map's."""
+
+    @staticmethod
+    def forward(ctx, x, sp, step, top, bottom):
+        ctx.sp, ctx.step, ctx.top, ctx.res = sp, step, top, x.shape[1]
+        lo = sp.rank * step - top
+        hi = lo + step + top + bottom
+        part = x[:, max(lo, 0):min(hi, x.shape[1])]
+        return sp._pad_rows(part, max(-lo, 0), max(hi - x.shape[1], 0))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        sp, step, top = ctx.sp, ctx.step, ctx.top
+        sp.exchanges += 1
+        parts = sp.rows_group.all_gather(g)
+        rows = g.shape[1]
+        full = g.new_zeros((g.shape[0], max(top + ctx.res,
+                                            (sp.n - 1) * step + rows))
+                           + g.shape[2:])
+        for r, p in enumerate(parts):
+            full[:, r * step:r * step + rows] += p
+        return full[:, top:top + ctx.res], None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The whole map from the ranks' row blocks; the backward keeps this
+    rank's rows of the (whole, equal) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp, ctx.h = sp, x.shape[1]
+        return torch.cat(sp.rows_group.all_gather(x), dim=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        r, h = ctx.sp.rank, ctx.h
+        return g[:, r * h:(r + 1) * h].contiguous(), None
+
+
+class _Summed(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the model
+    axis."""
+
+    @staticmethod
+    def forward(ctx, t, sp):
+        ctx.sp = sp
+        return t.clone()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        ctx.sp.grad_sums += 1
+        return ctx.sp.rows_group.all_reduce(g), None
+
+
 class Spatial:
     """One rank's view of the H-sharded stages: `rows` exchanges along the
-    model axis (rank, size, all_gather: an `AxisGroup`, or a stand-in),
-    `batch` along the data axis (the rank's batch rows are its index's
-    share of the global batch)."""
+    model axis (rank, size, all_gather and, for gradients, all_reduce: an
+    `AxisGroup`, or a stand-in), `batch` along the data axis (the rank's
+    batch rows are its index's share of the global batch)."""
 
     def __init__(self, rows, batch=None):
         self.rows_group = rows
         self.batch_group = batch or _One()
         self.rank, self.n = rows.rank, rows.size
-        self.exchanges = 0      # halo exchanges and gathers run
+        self.exchanges = 0      # halo exchanges and gathers, both passes
+        self.grad_sums = 0      # model-axis sums of replicated gradients
+        self._partial = weakref.WeakSet()   # the layers that ran on rows
 
     @classmethod
     def from_mesh(cls, mesh) -> "Spatial":
@@ -102,8 +209,6 @@ class Spatial:
         if x.shape[1] != want:
             raise ValueError(f"spatial: a map of width {res} holds "
                              f"{x.shape[1]} rows, its layout {want}")
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError("spatial sharding runs forward only")
         return res
 
     def own(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,7 +216,7 @@ class Spatial:
         own rows where its resolution is sharded."""
         res = x.shape[2]
         if self.sharded(res) and x.shape[1] == res:
-            return x[:, self.own_rows(res)]
+            return _WholeRows.apply(x, self, res // self.n, 0, 0)
         return x
 
     def batch_rows(self, global_batch: int) -> slice:
@@ -127,19 +232,21 @@ class Spatial:
         is sharded, by slicing where it is whole."""
         res = self._check(x)
         h = res // self.n
-        lo, hi = self.rank * h - top, (self.rank + 1) * h + bottom
         if not self.sharded(res):
-            part = x[:, max(lo, 0):min(hi, res)]
-            return self._pad_rows(part, max(-lo, 0), max(hi - res, 0))
+            return _WholeRows.apply(x, self, h, top, bottom)
         if top == 0 and bottom == 0:
             return x
         if top > h or bottom > h:
             raise ValueError(f"spatial: a halo of {top} / {bottom} rows on "
                              f"shards of {h}")
+        return _Window.apply(x, self, top, bottom)
+
+    def _halo(self, x, top, bottom):
+        """The forward exchange: each rank sends the rows its neighbours
+        need, its first `bottom` (the bottom halo of rank - 1) and its last
+        `top` (the top halo of rank + 1)."""
+        h = x.shape[1]
         self.exchanges += 1
-        # each rank sends the rows its neighbours need: its first `bottom`
-        # (the bottom halo of rank - 1) and its last `top` (the top halo
-        # of rank + 1)
         parts = self.rows_group.all_gather(
             torch.cat([x[:, :bottom], x[:, h - top:]], dim=1))
         above = (parts[self.rank - 1][:, bottom:] if self.rank > 0
@@ -147,6 +254,21 @@ class Spatial:
         below = (parts[self.rank + 1][:, :bottom] if self.rank < self.n - 1
                  else x.new_zeros((x.shape[0], bottom) + x.shape[2:]))
         return torch.cat([above, x, below], dim=1)
+
+    def _halo_back(self, g, top, bottom):
+        """The reverse exchange: each rank sends its top halo's gradient
+        to rank - 1 (its last `top` rows) and its bottom halo's to rank + 1
+        (its first `bottom` rows), and adds what it receives."""
+        h = g.shape[1] - top - bottom
+        self.exchanges += 1
+        parts = self.rows_group.all_gather(
+            torch.cat([g[:, :top], g[:, top + h:]], dim=1))
+        dx = g[:, top:top + h].clone()
+        if self.rank > 0:
+            dx[:, :bottom] += parts[self.rank - 1][:, top:]
+        if self.rank < self.n - 1:
+            dx[:, h - top:] += parts[self.rank + 1][:, :top]
+        return dx
 
     @staticmethod
     def _pad_rows(x, top, bottom):
@@ -161,10 +283,8 @@ class Spatial:
         it is whole already)."""
         if x.shape[1] == x.shape[2]:
             return x
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError("spatial sharding runs forward only")
         self.exchanges += 1
-        return torch.cat(self.rows_group.all_gather(x), dim=1)
+        return _Gather.apply(x, self)
 
     def settle(self, x: torch.Tensor) -> torch.Tensor:
         """An op's output on this rank's rows in its resolution's layout:
@@ -172,10 +292,60 @@ class Spatial:
         return x if self.sharded(x.shape[2]) else self.gather(x)
 
     def gather_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """The global batch from the data axis' ranks."""
+        """The global batch from the data axis' ranks (forward only: the
+        serving path)."""
         if self.batch_group.size == 1:
             return x
         return torch.cat(self.batch_group.all_gather(x), dim=0)
+
+    # -- gradients of replicated tensors -------------------------------------
+
+    def summed(self, t: torch.Tensor) -> torch.Tensor:
+        """t, whose gradient is summed over the model axis in the backward:
+        the style codes that the layers on sharded rows read (each rank's
+        gradient is its rows' part). Whole layers read t itself."""
+        if self.n == 1 or not t.requires_grad:
+            return t
+        return _Summed.apply(t, self)
+
+    @contextlib.contextmanager
+    def layer(self, module, *resolutions):
+        """Run `module` (a layer whose input and output have these
+        resolutions) in its layout: where any of them is sharded the layer
+        runs on this rank's rows, so its parameters' gradients are this
+        rank's parts: its model-sharded parameters' are reduce-scattered in
+        their gathers' backward, its replicated ones' are summed by
+        `sum_partial_grads`. Yields whether it runs on rows."""
+        if not any(self.sharded(r) for r in resolutions):
+            yield False
+            return
+        self._partial.add(module)
+        with partial_gradients(module):
+            yield True
+
+    @torch.no_grad()
+    def sum_partial_grads(self, module: torch.nn.Module) -> None:
+        """After the backward: `.grad` of each replicated parameter of the
+        layers of `module` that ran on rows <- its sum over the model axis,
+        in one flattened all-reduce a dtype (a missing gradient counts as
+        zeros, as `TrainState` takes it)."""
+        if self.n == 1:
+            return
+        params: dict = {}
+        for m in module.modules():
+            if m in self._partial:
+                for name, p in m.named_parameters():
+                    if "parametrizations." not in name:
+                        params.setdefault(id(p), p)
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+        def summed(flat):
+            self.grad_sums += 1
+            return self.rows_group.all_reduce(flat)
+
+        flat_collective([p.grad for p in params.values()], summed)
 
     # -- ops ------------------------------------------------------------------
 
@@ -192,16 +362,20 @@ class Spatial:
         out = fn(self.window(x, reach, reach))
         return out[:, up * reach:up * (reach + h)].contiguous()
 
-    def noise(self, shape, noise, draw) -> torch.Tensor:
+    def noise(self, shape, noise, draw, rows: int | None = None):
         """The noise of an output of `shape` (this batch's rows, whole H):
         given maps are this batch's whole maps; else `draw(global shape)`
         (the unsharded run's draw of the global batch) cut to this batch's
-        rows. Both in the output's layout."""
+        rows. Both in the output's layout, or with `rows` (an op on this
+        rank's rows whose output resolution is whole: a down-conv before
+        `settle`) this rank's block of that many rows."""
         b, res = shape[0], shape[1]
         if noise is None:
             g = self.batch_group
             noise = draw((b * g.size,) + tuple(shape[1:]))[
                 g.rank * b:(g.rank + 1) * b]
         if self.sharded(res):
-            noise = noise[:, self.own_rows(res)]
+            return noise[:, self.own_rows(res)]
+        if rows is not None and rows < res:
+            return noise[:, self.rank * rows:(self.rank + 1) * rows]
         return noise

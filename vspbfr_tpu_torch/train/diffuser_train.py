@@ -40,7 +40,12 @@ its sub-group; on the model axis every module's weights that
 `model_param_specs` names (the diffuser's and the frozen psp's, LPIPS's and
 ID's) are sharded at rest and gathered at use (`parallel/model_axis.py`),
 so Adam keeps the diffuser's moments at 1/n_model of those parameters'
-size. The ranks of one model group take the same rows and compute the
+size, and the decode's maps are H-sharded (`parallel/spatial.py`): each
+rank decodes its rows of the image, forward and backward (its noise the
+global draw's rows, so the rematerialised decode draws and exchanges the
+same), the image is gathered whole for LPIPS and ID, and the codes'
+gradient, each rank's rows' part, is summed over the model axis once.
+The ranks of one model group take the same batch rows and compute the
 same step.
 """
 
@@ -55,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from vspbfr_tpu_torch.diffusion import LatentDDPM
 from vspbfr_tpu_torch.losses import LPIPS, ResNet101Embedder, id_loss, kd_loss
 from vspbfr_tpu_torch.models.layers import init_module
-from vspbfr_tpu_torch.parallel import DataParallel
+from vspbfr_tpu_torch.parallel import DataParallel, Spatial
 from vspbfr_tpu_torch.parallel.model_axis import shard_module
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import TrainState
@@ -115,6 +120,7 @@ class DiffuserTrainer:
         self.state = TrainState(self.diffuser, config.lr, config.reg_every,
                                 self.dp)
         self._decoder_c = None
+        self.spatial = None     # the decode's H-sharding (`shard_model`)
 
     @property
     def modules(self) -> dict:
@@ -141,14 +147,16 @@ class DiffuserTrainer:
         """Place the trainer on a 2-D mesh (`parallel.create_mesh_2d`): the
         data axis reduces the gradients and metrics (`DataParallel(mesh)`),
         the model axis shards every module's weights by
-        `model_param_specs`, and the diffuser's `TrainState` is made anew
+        `model_param_specs` and the decode's maps by rows
+        (`Spatial.from_mesh`), and the diffuser's `TrainState` is made anew
         over the slices. After the weights are set (init or load) and the
         modules moved, before the first step."""
         self.dp = DataParallel(mesh)
+        self.spatial = Spatial.from_mesh(mesh)
         for m in self.modules.values():
             shard_module(m, mesh)
         self.state = TrainState(self.diffuser, self.cfg.lr,
-                                self.cfg.reg_every, self.dp)
+                                self.cfg.reg_every, self.dp, self.spatial)
         self._decoder_c = None
         return self
 
@@ -187,16 +195,20 @@ class DiffuserTrainer:
                           self.psp.decoder.noise_shapes(n)]}
 
     def _decode(self, latent: torch.Tensor, *noise) -> torch.Tensor:
-        """The pooled decode of the latent, returned in the latent's dtype
-        (f32: a bf16 decode returns to f32 for the loss nets)."""
+        """The pooled decode of the latent, whole, returned in the latent's
+        dtype (f32: a bf16 decode returns to f32 for the loss nets); on a
+        mesh H-sharded, then gathered."""
         dec = self.decoder()
         dt = self.compute_dtype
         out_dtype = latent.dtype
         if dt is not None:
             latent = latent.to(dt)
             noise = [n.to(dt) for n in noise]
-        return self.psp.decode(latent, noise=list(noise),
-                               decoder=dec).to(out_dtype)
+        image = self.psp.decode(latent, noise=list(noise), decoder=dec,
+                                spatial=self.spatial)
+        if self.spatial is not None:
+            image = self.spatial.gather(image)
+        return image.to(out_dtype)
 
     def losses(self, low: torch.Tensor, real: torch.Tensor, draws: dict):
         """The forward of one (micro)batch: (loss, metrics), the loss with

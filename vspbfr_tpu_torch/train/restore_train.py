@@ -36,6 +36,21 @@ global batch draws. The LPIPS term stays mean * the per-rank batch.
 `minibatch_stddev` in D groups the rank's own rows, as under the
 reference's DDP (the JAX package's sharded step groups the global batch).
 
+On a 2-D data x model mesh (`shard_model`, as JAX places a TrainState
+with `model_param_specs`): the data axis as above, over its sub-group;
+on the model axis every module's weights that `model_param_specs` names
+(G, D, g_ema and the frozen nets) are sharded at rest and gathered at use
+(`parallel/model_axis.py`), so both Adams keep 1/n_model of those
+parameters' moments and the EMA runs over the slices; the frozen
+embedding's decode and RestoreNet's forward and backward run on this
+rank's rows of the H-sharded maps (`parallel/spatial.py`), the fake
+images gathered whole for D, ADA, LPIPS and ID. D, lazy R1 and ADA run on
+whole images, so D's gradients (R1's double backward too, through the
+gathers' `narrow`) are whole on every rank and not summed; G's row parts
+are summed over the model axis (its styles once a forward, its
+model-sharded weights by reduce-scatter in the backward, its replicated
+ones after it). Checkpoints hold the unsharded tensors.
+
 Remat (`torch.utils.checkpoint`, non-reentrant, so R1's double backward
 runs through it) wraps the G and D forwards; automatic as in JAX: on in
 f32, off with a compute_dtype.
@@ -83,7 +98,8 @@ from vspbfr_tpu_torch.losses import (
     r1_penalty,
 )
 from vspbfr_tpu_torch.models.layers import init_module
-from vspbfr_tpu_torch.parallel import DataParallel
+from vspbfr_tpu_torch.parallel import DataParallel, Spatial
+from vspbfr_tpu_torch.parallel.model_axis import shard_module
 from vspbfr_tpu_torch.pipeline import RestorationPipeline
 from vspbfr_tpu_torch.train.state import (
     EMA_DECAY_DEFAULT,
@@ -156,6 +172,7 @@ class RestoreTrainer:
         self.d_state = TrainState(self.disc, config.lr, config.d_reg_every,
                                   self.dp)
         self._decoder_c = None
+        self.spatial = None     # the maps' H-sharding (`shard_model`)
         # the controller's state (0-d tensors on the trainer's device)
         self.ada_state = ADAState.create() if config.augment else None
 
@@ -198,6 +215,26 @@ class RestoreTrainer:
         self._decoder_c = None
         if self.ada_state is not None:
             self.ada_state = self.ada_state.to(device)
+        return self
+
+    def shard_model(self, mesh) -> "RestoreTrainer":
+        """Place the trainer on a 2-D mesh (`parallel.create_mesh_2d`): the
+        data axis reduces the gradients, ADA's sums and the metrics
+        (`DataParallel(mesh)`), the model axis shards every module's
+        weights by `model_param_specs` and the embedding's and G's maps by
+        rows (`Spatial.from_mesh`), and both `TrainState`s are made anew
+        over the slices. After the weights are set (init or load, and
+        `sync_ema`) and the modules moved, before the first step."""
+        cfg = self.cfg
+        self.dp = DataParallel(mesh)
+        self.spatial = Spatial.from_mesh(mesh)
+        for m in self.modules.values():
+            shard_module(m, mesh)
+        self.g_state = TrainState(self.gen, cfg.lr, cfg.g_reg_every,
+                                  self.dp, self.spatial)
+        self.d_state = TrainState(self.disc, cfg.lr, cfg.d_reg_every,
+                                  self.dp)
+        self._decoder_c = None
         return self
 
     @property
@@ -311,12 +348,13 @@ class RestoreTrainer:
         dt = next(dec.parameters()).dtype
         _, feats = self.psp.decode_with_feats(
             clean.to(dt), return_image=False, decoder=dec,
-            noise=[n.to(dt) for n in draws["noise"]])
+            noise=[n.to(dt) for n in draws["noise"]], spatial=self.spatial)
         return clean, feats
 
     def generate(self, low, feats, clean, draws: dict) -> torch.Tensor:
         """RestoreNet in training mode (noise, dropout) on the draws;
-        returns the image in f32. The mixing latent runs in f32 outside the
+        returns the image in f32, whole (on a mesh: gathered from the
+        ranks' rows). The mixing latent runs in f32 outside the
         rematerialised call, as in JAX."""
         noise_latent = self.gen.map_styles(draws["z"], draws["inject_index"])
         nf = len(feats)
@@ -325,7 +363,9 @@ class RestoreTrainer:
             out = self._in_dtype(
                 self.gen, low, list(maps[:nf]), clean, noise_latent,
                 input_is_latent=True, noise=list(maps[nf:]),
-                dropout_mask=draws["keep"])
+                dropout_mask=draws["keep"], spatial=self.spatial)
+            if self.spatial is not None:
+                out = self.spatial.gather(out)
             return out.float()
 
         args = (low, clean, noise_latent, *feats, *draws["noise"])

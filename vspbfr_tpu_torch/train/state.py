@@ -43,25 +43,31 @@ def make_adam(params: Iterable[torch.Tensor], lr: float,
 class TrainState:
     """A trained module, its Adam and the count of updates applied; with a
     `DataParallel`, the gradients are averaged over its ranks before each
-    update."""
+    update; with a `parallel.spatial.Spatial` (a module that runs layers
+    on H-sharded rows), the row parts of those layers' replicated
+    parameters' gradients are summed over the model axis first."""
 
     def __init__(self, module: nn.Module, lr: float,
-                 reg_every: int | None = None, dp=None):
+                 reg_every: int | None = None, dp=None, spatial=None):
         self.module = module
         self.opt = make_adam(parameters_in_order(module), lr, reg_every)
         self.step = 0
         self.dp = dp
+        self.spatial = spatial
 
     def apply_gradients(self) -> None:
         """One Adam update from the gradients in `.grad`, which it clears.
         A parameter the loss did not reach takes a zero gradient, as every
         leaf does in optax (its second moment decays), so every rank
-        reduces the same set; then the all-reduce (where XLA puts it in
-        the JAX package's sharded step)."""
+        reduces the same set; then the model axis' sum of the row parts
+        and the data axis' all-reduce (where XLA puts them in the JAX
+        package's sharded step)."""
         params = list(self.module.parameters())
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.spatial is not None:
+            self.spatial.sum_partial_grads(self.module)
         if self.dp is not None:
             self.dp.all_reduce_grads(params)
         self.opt.step()
