@@ -96,9 +96,9 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              in bf16 with the switch on: step ms, imgs/s, peak memory,
              launch counts; the bf16 step with the switch off and on in
              turns on one trainer, and without and with ADA (p 0.5) in
-             turns on two trainers, each with and without R1 (medians of
-             2; the CLI runs were cut from 4 steps and the turns from 3
-             steps, for phase 17's time).
+             turns on two trainers, each with and without R1 (one step a
+             turn after a warm-up step; the CLI runs were cut from 4 steps
+             and the turns from 3 steps, then 2, for the script's time).
 9. smart   - K5's entry, `python -m vspbfr_tpu_torch.cli.profile --smart`,
              in process, f32 and bf16: K5 against the K2 + K1 composition
              at every RestoreNet SMART shape, b4, in turns, per call and
@@ -206,7 +206,17 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              either rank; (f) `conv2d_semipacked` at (4, 512, 256, 128),
              3x3: K1 at the assembled kernel against its plain version,
              timed beside the unpacked K1 and cuDNN at 512 px C64 and the
-             2x2-packed K1.
+             2x2-packed K1; (g) the packed layout on the same ranks:
+             (a)-(c) at packed_min_res 512 (the 1024 px decode's 512 and
+             1024 levels and RestoreNet's 512 level packed and H-sharded)
+             against this process's lone packed run, f32 under the
+             serving gate, bf16 by (a)-(c)'s rule; the f32 run again with
+             each planted fault in the packed windows (`_packed_trap`: the
+             exchange's rows zeros; the top and bottom strips swapped),
+             which must fail the f32 gate; launches per rank (K1, K2, K2
+             grouped, K3, K4, K6, K6 nc = 4, K7 each at least once) beside
+             the lone run's; peak GiB per rank, halo exchanges per batch
+             and the ranks' seconds beside the lone run's.
 17. meshtrain - training on the 2-D mesh: two gloo ranks on the card (1
              data x 2 model, `--rank meshtrain`; one such mesh a dtype, the
              two at once) against this process's
@@ -226,7 +236,7 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              loss (`_mt_gates`); (c) peak GiB and Adam's bytes per rank,
              halo exchanges and model-axis sums of the first step,
              launches of K1, K1 dx, K2, K2 bwd, K3, K4, K6 and K7 per rank
-             and the step medians of two steps, each beside the lone
+             and the step's seconds (one step a run), each beside the lone
              run's.
 
 Phases 5, 7, 8, 11, 12, 13, 14, 15 (b)-(d), 16 and 17 (on both ranks too)
@@ -1072,13 +1082,13 @@ def phase_cli():
                          upto=upto, return_sample=sample)
 
     for mode, p in (("f32", p32), ("bf16", p16)):
-        ms = {u: cuda_ms(lambda: run(p, u), iters=5, warmup=1)
+        ms = {u: cuda_ms(lambda: run(p, u), iters=3, warmup=1)
               for u in ("encode", "ddpm", "decode", "full")}
         ms_sample = cuda_ms(lambda: run(p, "full", True), iters=10, warmup=1)
         split = {"encode": ms["encode"], "ddpm": ms["ddpm"] - ms["encode"],
                  "decode": ms["decode"] - ms["ddpm"],
                  "restore": ms["full"] - ms["decode"]}
-        say(f"stage split {mode} b4 (ms, median of 5): " + ", ".join(
+        say(f"stage split {mode} b4 (ms, median of 3): " + ", ".join(
             f"{k} {v:.3f}" for k, v in split.items())
             + f"; full {ms['full']:.3f}")
         # the CLI's call (restore with the sample image), median of 10
@@ -1086,12 +1096,12 @@ def phase_cli():
         say(f"restore with sample image {mode} b4: {ms_sample:.3f} ms "
             f"(median of 10 CUDA-event runs) = {ips:.3f} imgs/s")
         # the epilogue switch: K1 + the torch epilogue (off) against K1e
-        # (on), in turns off, on, on, off, median of 5 each
+        # (on), in turns off, on, on, off, median of 3 each
         ab = {"0": [], "1": []}
         for flag in ("0", "1", "1", "0"):
             with fused_epi(flag):
                 ab[flag].append(cuda_ms(lambda: run(p, "full", True),
-                                        iters=5, warmup=1))
+                                        iters=3, warmup=1))
         with fused_epi("1"):
             ops.reset_launch_counts()
             out_on = run(p).float()
@@ -1103,7 +1113,7 @@ def phase_cli():
                                  f"{on_counts}, or non-finite output")
         on_off_psnr = float(psnr(out_on, out_off, data_range=max(
             2 * float(out_off.abs().max()), 2.0)).mean())
-        say(f"restore {mode} b4, VSPBFR_FUSED_EPI off / on (ms, medians of 5 "
+        say(f"restore {mode} b4, VSPBFR_FUSED_EPI off / on (ms, medians of 3 "
             f"in turns off, on, on, off): {ab['0']} / {ab['1']}; switch on "
             f"launches {on_counts}; on vs off PSNR {on_off_psnr:.3f} dB")
         res[mode].update(prefix_ms=ms, stage_ms=split,
@@ -2043,8 +2053,8 @@ def _restore_ada_ab(res, off):
     """The stage-3 bf16 step at full width, b4, without ADA and with ADA at
     the fixed p 0.5, on two trainers with one seed's weights (`off`, the
     trainer `_restore_fused_ab` made, and one with ADA loaded from it) and
-    one batch: CUDA-event medians of 2 steps each, in turns off, on, on,
-    off, after one warm-up step each; the steps without R1 (the G step
+    one batch: one step's CUDA-event ms each, in turns off, on, on, off,
+    after one warm-up step each; the steps without R1 (the G step
     count set to 1) and, the same way, with R1 (set to 0)."""
     import torch
 
@@ -2071,10 +2081,10 @@ def _restore_ada_ab(res, off):
                 tr.g_state.step = g_step
                 return tr.train_step(low, real, gen)
 
-            ab[key].append(cuda_ms(step, iters=2, warmup=1))
+            ab[key].append(cuda_ms(step, iters=1, warmup=1))
         out[r1] = ab
         say(f"restore step bf16 b4 ({r1.replace('_', ' ')}), ADA off / on "
-            f"at p 0.5 (ms, medians of 2 in turns off, on, on, off): "
+            f"at p 0.5 (ms, one step a turn, off, on, on, off): "
             f"{ab['off']} / {ab['on']}")
     res["bf16_ada_ab_ms"] = out
     del trs, on
@@ -2082,8 +2092,8 @@ def _restore_ada_ab(res, off):
 
 def _restore_fused_ab(res):
     """The stage-3 bf16 step at full width, b4, with the epilogue switch
-    off and on, on one trainer and one batch: CUDA-event medians of 2
-    steps each, in turns off, on, on, off, after one warm-up step each.
+    off and on, on one trainer and one batch: one step's CUDA-event ms
+    each, in turns off, on, on, off, after one warm-up step each.
     The steps are the 15 in 16 without R1 (the G step count is set to 1
     before each)."""
     import torch
@@ -2104,9 +2114,9 @@ def _restore_fused_ab(res):
     ab = {"0": [], "1": []}
     for flag in ("0", "1", "1", "0"):
         with fused_epi(flag):
-            ab[flag].append(cuda_ms(step, iters=2, warmup=1))
+            ab[flag].append(cuda_ms(step, iters=1, warmup=1))
     say(f"restore step bf16 b4 (no R1), VSPBFR_FUSED_EPI off / on (ms, "
-        f"medians of 2 in turns off, on, on, off): {ab['0']} / {ab['1']}")
+        f"one step a turn, off, on, on, off): {ab['0']} / {ab['1']}")
     res["bf16_fused_ab_ms"] = {"off": ab["0"], "on": ab["1"]}
     return tr
 
@@ -3812,7 +3822,7 @@ def _packed_serving(res):
         del outs
         turns = {0: [], PACKED_PMR: []}
         for pmr in (0, PACKED_PMR, PACKED_PMR, 0):
-            turns[pmr].append(cuda_ms(lambda: run(pmr), iters=5, warmup=1))
+            turns[pmr].append(cuda_ms(lambda: run(pmr), iters=3, warmup=1))
         split = {}
         for pmr in (0, PACKED_PMR):
             ms = {u: cuda_ms(lambda: run(pmr, u), iters=3, warmup=1)
@@ -3828,7 +3838,7 @@ def _packed_serving(res):
             raise AssertionError(f"packed serve {mode}, switch on: kernels "
                                  f"never launched: {missing}")
         med = {pmr: statistics.median(v) for pmr, v in turns.items()}
-        say(f"packed serve {mode} b4 with the sample image (ms, medians of 5 "
+        say(f"packed serve {mode} b4 with the sample image (ms, medians of 3 "
             f"in turns 0, 512, 512, 0): pmr 0 {turns[0]}, pmr 512 "
             f"{turns[PACKED_PMR]}; imgs/s {4e3 / med[0]:.3f} / "
             f"{4e3 / med[PACKED_PMR]:.3f}; split (medians of 3) " + "; ".join(
@@ -4029,23 +4039,25 @@ def _counted(name: str, rec: dict):
     ops.reset_plain_cuda_calls()
     yield
     torch.cuda.synchronize()
-    rec[name] = dict(launches=ops.launch_counts(),
+    rec[name] = dict(launches=ops.launch_counts(), forms=ops.form_counts(),
                      plain=ops.plain_cuda_calls())
     if any(rec[name]["plain"].values()):
         raise AssertionError(f"mesh2d {name}: a plain version ran on the "
                              f"card: {rec[name]['plain']}")
 
 
-def _mesh_pipelines(state):
+def _mesh_pipelines(state, packed_min_res: int = 0):
     """The seeded full-width pipeline in f32 and bf16 (noise gains 0.1) on
-    the card, from its state_dict."""
+    the card, from its state_dict, at packed_min_res (the parameters are
+    the same in either layout)."""
     import torch
 
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
 
     pipes = {}
     for mode, dt in (("f32", None), ("bf16", torch.bfloat16)):
-        p = RestorationPipeline(compute_dtype=dt)
+        p = RestorationPipeline(compute_dtype=dt,
+                                packed_min_res=packed_min_res)
         p.load_state_dict(state)
         pipes[mode] = p.cuda().eval().prepare_params()
     return pipes
@@ -4191,8 +4203,9 @@ def _moment_bytes(tr) -> int:
 
 def _mesh_rank(out, state_file):
     """One rank of phase 16 (`--rank mesh2d OUT STATE`), on the 1 data x 2
-    model mesh: (a)-(c) H-sharded, (d) the model-sharded decoder, (e) one
-    model-sharded stage-2 step; rank 0 writes the whole outputs to
+    model mesh: (a)-(c) H-sharded, (d) the model-sharded decoder, (g)
+    (a)-(c) at packed_min_res 512 and its traps, (e) one model-sharded
+    stage-2 step; rank 0 writes the whole outputs to
     OUT.tensors.pt, every rank its launches, plain calls, peak memory and
     Adam's bytes to OUT.<rank>.json."""
     import torch
@@ -4208,7 +4221,6 @@ def _mesh_rank(out, state_file):
         rank = torch.distributed.get_rank()
         state = torch.load(state_file, map_location="cpu", weights_only=True)
         pipes = _mesh_pipelines(state)
-        del state
         t0 = time.perf_counter()
         tensors = {"serve": _mesh_serving(pipes, sp, rec["counts"])}
         rec["serve_s"] = time.perf_counter() - t0
@@ -4221,6 +4233,9 @@ def _mesh_rank(out, state_file):
         rec["peak_gib"]["decoder"] = (torch.cuda.max_memory_allocated()
                                       / 2 ** 30)
         del pipes
+        torch.cuda.empty_cache()
+        tensors["packed"], rec["packed"] = _packed_mesh_serving(state, sp)
+        del state
         torch.cuda.empty_cache()
         tr = _stage2_parallel_trainer(MESH_STAGE2_BATCH).to(device)
         tr.shard_model(mesh)
@@ -4434,7 +4449,13 @@ def _semipacked_rows(rows):
     torch.cuda.empty_cache()
 
 
-def _mesh_gates(got, ref) -> dict:
+def _features(feats) -> dict:
+    """The decoder's feature taps by their resolution (4, 8, ... px: a
+    packed tap's rows are half of it)."""
+    return {f"feature {4 << i} px": f for i, f in enumerate(feats)}
+
+
+def _mesh_gates(got, ref, label: str = "mesh2d") -> dict:
     """(a)-(c) against the lone run. f32: the serving gate. bf16: the
     RestoreNet stage leaves the lone run's bits at one cuDNN stride-2
     conv on a window's shape, by one bf16 ulp from bit-equal inputs
@@ -4446,29 +4467,172 @@ def _mesh_gates(got, ref) -> dict:
     1e-6 of the range); bf16 sharded against bf16 lone is reported."""
     def outputs(run):
         named = {k: run[k] for k in ("image", "stage", "restored", "sample")}
-        named.update({f"feature {f.shape[1]} px": f for f in run["feats"]})
+        named.update(_features(run["feats"]))
         return named
 
     gates = {}
     f32 = outputs(ref["f32"])
     for key, g in outputs(got["f32"]).items():
-        gates[f"{key} f32"] = _serving_gate(f"mesh2d 1x2 vs lone {key} f32",
+        gates[f"{key} f32"] = _serving_gate(f"{label} 1x2 vs lone {key} f32",
                                             g, f32[key])
     lone16 = outputs(ref["bf16"])
     for key, g in outputs(got["bf16"]).items():
-        e_sh = _serving_gate(f"mesh2d 1x2 bf16 vs lone f32 {key}", g,
+        e_sh = _serving_gate(f"{label} 1x2 bf16 vs lone f32 {key}", g,
                              f32[key], gate=False)
-        e_lone = _serving_gate(f"mesh2d lone bf16 vs lone f32 {key}",
+        e_lone = _serving_gate(f"{label} lone bf16 vs lone f32 {key}",
                                lone16[key], f32[key], gate=False)
         gates[f"{key} bf16"] = dict(
             vs_f32=e_sh, lone_vs_f32=e_lone,
-            vs_lone_bf16=_serving_gate(f"mesh2d 1x2 vs lone {key} bf16", g,
+            vs_lone_bf16=_serving_gate(f"{label} 1x2 vs lone {key} bf16", g,
                                        lone16[key], gate=False))
         for m in ("mean_rel", "max_rel"):
             if e_sh[m] > 1.5 * e_lone[m] + 1e-6:
-                raise AssertionError(f"mesh2d {key} bf16: further from f32 "
+                raise AssertionError(f"{label} {key} bf16: further from f32 "
                                      f"than the lone bf16 run ({m})")
     return gates
+
+
+# (g) the packed layout on the mesh: the kernels each block must launch
+# (the wrappers' counts here hold their unpacked forms only,
+# `_packed_counts`), the planted faults of `_packed_trap`
+PACKED_MESH_KERNELS = {
+    "decode": ("dense_conv", "d2s", "conv_epilogue", "conv_epilogue_nc4"),
+    "serve": ("dense_conv", "dilated_multi_conv",
+              "dilated_multi_conv_grouped", "d2s", "s2d", "conv_epilogue",
+              "conv_epilogue_nc4", "fused_leaky_relu")}
+PACKED_SHOWN = PACKED_MESH_KERNELS["serve"]
+PACKED_TRAPS = ("halo rows zero", "strips swapped")
+
+
+def _packed_counts(c: dict) -> dict:
+    """A `_counted` record's launches with the layout's forms apart: K2's
+    and K6's own counts less their grouped / nc = 4 launches."""
+    out = {**c["launches"], **c["forms"]}
+    out["dilated_multi_conv"] -= out["dilated_multi_conv_grouped"]
+    out["conv_epilogue"] -= out["conv_epilogue_nc4"]
+    return out
+
+
+@contextlib.contextmanager
+def _packed_trap(name: str):
+    """For the block, a fault in every window of a packed map on this
+    rank's rows (`Spatial.window` with packed=True at a sharded
+    resolution), as a copy with it would run: "halo rows zero" the
+    exchange returns zero rows (the neighbours' strips zeros, the shard's
+    own rows kept); "strips swapped" the window's top and bottom pads
+    swapped: the counts (top, bottom) -> (bottom, top) and the strips,
+    the rows from rank + 1 above the shard and those from rank - 1 below
+    it (every packed window's pads are symmetric, (1, 1) or (4, 4), so
+    the counts alone would change nothing)."""
+    import torch
+
+    from vspbfr_tpu_torch.parallel.spatial import Spatial
+
+    own = Spatial.__dict__["window"]
+
+    def window(self, x, top, bottom, packed=False):
+        if not (packed and self.sharded(self.res_of(x, True))):
+            return own(self, x, top, bottom, packed)
+        if name == "halo rows zero":
+            w = own(self, x, top, bottom, packed).clone()
+            w[:, :top] = 0
+            w[:, w.shape[1] - bottom:] = 0
+            return w
+        w = own(self, x, bottom, top, packed)
+        n = w.shape[1]
+        return torch.cat([w[:, n - top:], w[:, bottom:n - top],
+                          w[:, :bottom]], dim=1)
+
+    Spatial.window = window
+    try:
+        yield
+    finally:
+        Spatial.window = own
+
+
+def _packed_mesh_serving(state, sp) -> tuple[dict, dict]:
+    """(g) on this rank (`sp`) or, with sp None, the lone run: the
+    pipelines at packed_min_res 512 from `state`; (a)-(c) in f32 and bf16
+    (`_mesh_serving`, one dtype at a time: the halo exchanges a batch),
+    then on the ranks the f32 run once with each `_packed_trap`. Returns
+    the outputs (whole, on the host) and the record: launches per block,
+    peak GiB and exchanges per dtype, seconds."""
+    import torch
+
+    pipes = _mesh_pipelines(state, PACKED_PMR)
+    outs, rec = {}, {"counts": {}, "peak_gib": {}, "exchanges": {},
+                     "seconds": {}}
+    for mode, p in pipes.items():
+        before = sp.exchanges if sp is not None else 0
+        t0 = time.perf_counter()
+        outs[mode] = _mesh_serving({mode: p}, sp, rec["counts"])[mode]
+        rec["seconds"][mode] = time.perf_counter() - t0
+        rec["peak_gib"][mode] = outs[mode].pop("peak_gib")
+        rec["exchanges"][mode] = (sp.exchanges - before if sp is not None
+                                  else 0)
+    if sp is not None:
+        for trap in PACKED_TRAPS:
+            with _packed_trap(trap):
+                outs[trap] = _mesh_serving({"f32": pipes["f32"]}, sp,
+                                           {})["f32"]
+            outs[trap].pop("peak_gib")
+    del pipes
+    return outs, rec
+
+
+def _packed_mesh_gates(got, ref, ranks, lone) -> dict:
+    """(g)'s gates and report: (a) each output against the lone packed
+    run by `_mesh_gates` (f32 the serving gate, bf16 as close to the lone
+    f32 as the lone bf16); (b) each trap's f32 run must fail the serving
+    gate (by how many times the worst output misses it); (c) every kernel
+    of `PACKED_MESH_KERNELS` launched on every rank, the counts beside the
+    lone run's; (d) peak GiB per rank, halo exchanges per batch and the
+    ranks' seconds beside the lone run's."""
+    res = {"gates": _mesh_gates(got, ref, label="mesh2d packed")}
+    f32 = dict(ref["f32"])
+    f32.update(_features(f32.pop("feats")))
+    res["traps"] = {}
+    for trap in PACKED_TRAPS:
+        run = dict(got[trap])
+        run.update(_features(run.pop("feats")))
+        miss = 0.0
+        for key, g in run.items():
+            e = _serving_gate(f"mesh2d packed trap '{trap}' {key} f32", g,
+                              f32[key], gate=False)
+            miss = max(miss, e["mean_rel"] / 1e-3, e["max_rel"] / 1e-2)
+        res["traps"][trap] = miss
+        say(f"mesh2d packed trap '{trap}': misses the f32 serving gate by "
+            f"{miss:.3g}x")
+        if miss <= 1.0:
+            raise AssertionError(f"mesh2d packed: the trap '{trap}' passes "
+                                 f"the f32 serving gate")
+    lone_c = {k: _packed_counts(c) for k, c in lone["counts"].items()}
+    res["lone_counts"] = lone_c
+    res["rank_counts"] = []
+    for r, rank in enumerate(ranks):
+        counts = {k: _packed_counts(c) for k, c in
+                  rank["packed"]["counts"].items()}
+        res["rank_counts"].append(counts)
+        for name, c in counts.items():
+            need = PACKED_MESH_KERNELS["decode" if name.startswith("decode")
+                                       else "serve"]
+            missing = [k for k in need if c[k] == 0]
+            if missing:
+                raise AssertionError(f"mesh2d packed {name} rank {r}: "
+                                     f"kernels never launched {missing}")
+    for name, c in res["rank_counts"][0].items():
+        say(f"mesh2d packed launches {name}: rank 0 "
+            + ", ".join(f"{k} {c[k]}" for k in PACKED_SHOWN)
+            + "; lone " + ", ".join(f"{k} {lone_c[name][k]}"
+                                    for k in PACKED_SHOWN))
+    for key in ("peak_gib", "exchanges", "seconds"):
+        res[key] = [r["packed"][key] for r in ranks]
+        res[f"lone_{key}"] = lone[key]
+    say(f"mesh2d packed peak GiB per rank {res['peak_gib']}, lone "
+        f"{res['lone_peak_gib']}; halo exchanges and gathers per batch "
+        f"{res['exchanges']}; seconds (a)-(c) per dtype, ranks "
+        f"{res['seconds']}, lone {res['lone_seconds']}")
+    return res
 
 
 class _ThreadRows:
@@ -4624,9 +4788,10 @@ def _first_divergence(sd, rank_stage, mode: str = "bf16") -> dict:
 
 
 def phase_mesh2d():
-    """The 2-D mesh (`parallel/`) and the semi-packed layout: (a)-(e) in
-    two gloo ranks on the one card (1 data x 2 model) against this
-    process's lone runs, (f) `conv2d_semipacked` here."""
+    """The 2-D mesh (`parallel/`) and the semi-packed layout: (a)-(e) and
+    (g) (the packed layout, `_packed_mesh_serving`) in two gloo ranks on
+    the one card (1 data x 2 model) against this process's lone runs, (f)
+    `conv2d_semipacked` here."""
     import torch
 
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
@@ -4653,6 +4818,8 @@ def phase_mesh2d():
             ref_dec = _decoder_grads(pipes["f32"], None)
             lone_dec_peak = torch.cuda.max_memory_allocated() / 2 ** 30
             del pipes
+            torch.cuda.empty_cache()
+            ref_pk, lone_pk = _packed_mesh_serving(sd, None)
             torch.cuda.empty_cache()
             lone_tr = _stage2_parallel_trainer(MESH_STAGE2_BATCH).to("cuda")
             ranks = _collect_ranks(h, MESH_TIMEOUT)
@@ -4701,6 +4868,8 @@ def phase_mesh2d():
         _mesh_stage2_lone(res, ranks, got["stage2"], got["stage2_grads"],
                           got["stage2_image"], lone_tr)
         del lone_tr
+        res["packed"] = _packed_mesh_gates(got["packed"], ref_pk, ranks,
+                                           lone_pk)
     for name, c in ranks[0]["counts"].items():
         path = {"stage2": "train", "decoder grads": "grads"}.get(
             name, "decode" if name.startswith("decode") else "serve")
@@ -4710,6 +4879,9 @@ def phase_mesh2d():
                                  f"{missing}")
     res["launches"] = {name: c["launches"] for name, c in
                        ranks[0]["counts"].items()}
+    res["packed"]["launches"] = {
+        name: {**c["launches"], **c["forms"]}
+        for name, c in ranks[0]["packed"]["counts"].items()}
     res["lone_launches"] = {name: c["launches"] for name, c in
                             lone["counts"].items()}
     res["peak_gib"] = [r["peak_gib"] for r in ranks]
@@ -4735,7 +4907,8 @@ MESHTRAIN_TIMEOUT = 480     # seconds the phase-17 ranks may take
 MT_STAGE2 = dict(size=256, batch=8)     # phase 7's config, (a)
 MT_STAGE3 = dict(size=512, batch=4)     # phase 8's, (b); ADA at p 0.5
 MT_PIPE: dict = {}          # full width (a CPU rehearsal cuts it)
-MT_STEPS = 2                # steps a run: the first checked, both timed
+MT_STEPS = 1                # steps a run, checked and timed (was 2: cut
+#                             for the script's time)
 # the kernels each sharded step must launch on each rank (the first step)
 MT_KERNELS = {"stage2": ("dense_conv", "d2s", "s2d", "conv_epilogue",
                          "fused_leaky_relu"),
@@ -5363,6 +5536,8 @@ def main() -> None:
                 "packed_restore": REPORT["packed"]["stage3"]["launches"],
                 "packed_train": REPORT["packed"]["stage2"]["launches"],
                 "mesh2d": REPORT["mesh2d"]["launches"]["restore f32"],
+                "mesh2d_packed":
+                    REPORT["mesh2d"]["packed"]["launches"]["restore f32"],
                 "meshtrain": REPORT["meshtrain"]["launches"]["stage3 f32"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in (REPORT["kernels"] + REPORT["grads"]

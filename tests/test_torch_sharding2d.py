@@ -39,7 +39,6 @@ import shutil
 import socket
 import subprocess
 import sys
-import threading
 import types
 
 import numpy as np
@@ -47,6 +46,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.thread_ranks import run_threads  # noqa: E402
 from vspbfr_tpu_torch.parallel import (  # noqa: E402
     MIN_ROWS,
     Spatial,
@@ -238,47 +238,6 @@ def test_decoder_from_jax_init_matches_jax(jax_decoder):
 
 
 # -- (iii) the halo logic, ranks as threads -----------------------------------
-
-class ThreadRows:
-    """A stand-in exchanger: rank `rank` of `hub.n` threads of this process;
-    `all_gather` meets the others at a barrier."""
-
-    def __init__(self, hub, rank):
-        self.hub, self.rank, self.size = hub, rank, hub.n
-
-    def all_gather(self, t):
-        hub = self.hub
-        hub.slots[self.rank] = t
-        hub.barrier.wait()
-        out = list(hub.slots)
-        hub.barrier.wait()
-        return out
-
-
-def run_threads(n, fn):
-    """fn(Spatial) on n thread ranks; their results in rank order."""
-    hub = types.SimpleNamespace(n=n, slots=[None] * n,
-                                barrier=threading.Barrier(n, timeout=120))
-    out, errors = [None] * n, []
-
-    def go(r):
-        try:
-            with torch.no_grad():
-                out[r] = fn(Spatial(ThreadRows(hub, r)))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            errors.append(e)
-            hub.barrier.abort()
-
-    threads = [threading.Thread(target=go, args=(r,)) for r in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=RANK_TIMEOUT)
-    assert not any(t.is_alive() for t in threads)
-    if errors:
-        raise errors[0]
-    return out
-
 
 @contextlib.contextmanager
 def conv_rows(record):

@@ -23,8 +23,8 @@ through `space_to_depth`.
 `spatial` (a `parallel.spatial.Spatial`, default None: today's path) runs
 a layer on this rank's rows of H-sharded maps: its convs on windows of
 their neighbours' rows, its noise the shard's rows of the global draw. A
-map's resolution is its width (the maps are square), which says whether
-it is sharded.
+map's resolution (its width, twice that in a layer's packed layout) says
+whether it is sharded, in either layout (`parallel/spatial.py`).
 """
 
 from __future__ import annotations
@@ -256,12 +256,12 @@ class EqualConv2d(nn.Module):
         (`conv2d_dense_epilogue`). spatial: a `parallel.spatial.Spatial`
         when x may be H-sharded (stride 1 or the blurred stride-2 conv)."""
         w = self.weight * self.scale
-        if spatial is not None and not spatial.sharded(x.shape[2]):
+        if spatial is not None and not spatial.sharded(
+                spatial.res_of(x, self.packed)):
             spatial = None
-        if spatial is not None and (self.packed or (
-                self.stride != 1 and self.pre_blur is None)):
-            raise NotImplementedError("spatial sharding: unpacked stride-1 "
-                                      "or blurred stride-2 EqualConv2d only")
+        if spatial is not None and self.stride != 1 and self.pre_blur is None:
+            raise NotImplementedError("spatial sharding: stride-1 or blurred "
+                                      "stride-2 EqualConv2d only")
         if self.packed:
             if self.bias is not None and epi is not None:
                 raise ValueError("EqualConv2d: a bias of its own and an "
@@ -272,7 +272,7 @@ class EqualConv2d(nn.Module):
             else:
                 out = pk.conv2d_packed(x, w, dilation=self.dilation,
                                        in_ch_perm=self.packed_in_perm,
-                                       epi=epi)
+                                       epi=epi, spatial=spatial)
             if self.bias is not None:
                 out = out + pk.pack_vector(self.bias).to(out.dtype)
             return out
@@ -336,19 +336,21 @@ class NoiseInjection(nn.Module):
         same N(0, 1) draws as unpacked, in another order: cross-layout
         comparisons pass noise); given noise may be (B, 2H, 2W, 1), which
         goes through `space_to_depth`, or already (B, H, W, 4). With
-        `spatial` (unpacked; `shape` the whole map's): the output's rows
-        of the noise, or this rank's block of `rows` rows
-        (`Spatial.noise`)."""
+        `spatial` (`shape` the whole map's): the output's rows of the
+        noise, or this rank's block of `rows` rows, in the layout's own
+        rows (`Spatial.noise`: a packed draw is the global batch's packed
+        draw cut to packed rows)."""
         b, h, w = shape[:3]
-        if spatial is not None and not self.packed:
-            return self.weight * spatial.noise(
-                (b, h, w, 1), noise,
-                lambda s: draw_noise(s, like, generator), rows)
         nc = 4 if self.packed else 1
+        if self.packed and noise is not None and noise.shape[-1] == 1:
+            noise = pk.space_to_depth(noise)
+        if spatial is not None:
+            return self.weight * spatial.noise(
+                (b, h, w, nc), noise,
+                lambda s: draw_noise(s, like, generator), rows,
+                packed=self.packed)
         if noise is None:
             noise = draw_noise((b, h, w, nc), like, generator)
-        elif self.packed and noise.shape[-1] == 1:
-            noise = pk.space_to_depth(noise)
         if tuple(noise.shape) != (b, h, w, nc):
             raise ValueError(f"noise {tuple(noise.shape)} for an output "
                              f"{tuple(shape)}, packed {self.packed}")
@@ -407,13 +409,17 @@ class StyledConv(nn.Module):
                                     packed_in=packed_in,
                                     packed_out=packed_out)
 
+    def resolutions(self, xshape) -> tuple[int, int]:
+        """The input's and the output's resolutions for an input of shape
+        xshape (its width, twice that packed; H may be a shard)."""
+        res = xshape[2] * (2 if self.packed_in else 1)
+        return res, (2 * res if self.upsample
+                     else res // 2 if self.downsample else res)
+
     def out_shape(self, xshape) -> tuple:
         """The output's shape for an input of shape xshape (the layouts'
         static geometry, `_styled_out_shape`, layers.py:286)."""
-        b, h = xshape[0], xshape[2]     # square maps: W (H may be a shard)
-        res = 2 * h if self.packed_in else h
-        res = 2 * res if self.upsample else (res // 2 if self.downsample
-                                              else res)
+        b, res = xshape[0], self.resolutions(xshape)[1]
         if self.packed_out:
             return (b, res // 2, res // 2, 4 * self.features)
         return (b, res, res, self.features)
@@ -424,9 +430,10 @@ class StyledConv(nn.Module):
         RestoreNet decoder's skip fusion, `models/RestoreNet.py:1029-1035`;
         with `spatial`, the output's rows)."""
         rows = None
-        if (spatial is not None and self.downsample
-                and spatial.sharded(x.shape[2])):
-            rows = x.shape[1] // 2      # the conv's rows before they settle
+        res, res_out = self.resolutions(x.shape)
+        if spatial is not None and self.downsample and spatial.sharded(res):
+            # the conv's rows before they settle, in the output's layout
+            rows = spatial.step(res_out, self.packed_out)
         nz = self.noise.scaled(self.out_shape(x.shape), x, noise, generator,
                                spatial, rows)
         return self.conv(x, style, epilogue=dict(
@@ -457,10 +464,14 @@ class ToRGB(nn.Module):
                 out = out + on_rows(
                     skip, lambda t: upsample2d(t, BLUR_KERNEL), 1, 2, spatial)
             return out
-        out = self.conv(x, style) + pk.pack_vector(self.bias)
+        if spatial is not None and not spatial.sharded(
+                spatial.res_of(x, True)):
+            spatial = None
+        out = self.conv(x, style, spatial=spatial) + pk.pack_vector(self.bias)
         if skip is not None:
             out = out + pk.upsample2d_packed(skip, BLUR_KERNEL,
-                                             packed_in=self.skip_packed)
+                                             packed_in=self.skip_packed,
+                                             spatial=spatial)
         return out
 
 
@@ -557,15 +568,17 @@ class SMARTLayer(nn.Module):
         outputs and the final tensor (`forward_vis`)."""
         mod = self.modulation(style)
         ws = [m.weight for m in self.dilated]
-        if spatial is not None and self.packed and spatial.sharded(
-                x.shape[2]):
-            raise NotImplementedError("spatial sharding of the "
-                                      "space-to-depth layout")
         if return_intermediates:
             outs = [m(x, mod, spatial=spatial) for m in self.dilated]
         elif self.packed:
-            outs = [modulated_conv2d_d12_packed(x, ws[0], ws[1], mod),
-                    modulated_conv2d_d48_packed(x, ws[2], ws[3], mod)]
+            # the pair on rows where x is sharded (the noise below takes
+            # `spatial` at any level: the global batch's draw)
+            sp = (spatial if spatial is not None
+                  and spatial.sharded(spatial.res_of(x, True)) else None)
+            outs = [modulated_conv2d_d12_packed(x, ws[0], ws[1], mod,
+                                                spatial=sp),
+                    modulated_conv2d_d48_packed(x, ws[2], ws[3], mod,
+                                                spatial=sp)]
         else:
             # all branches in one K2 launch
             outs = [modulated_conv2d_multi(x, ws, RATES, mod,
@@ -629,12 +642,22 @@ class StyleMLP(nn.Module):
         return x
 
 
+def layer_resolutions(layer, xshape) -> tuple[int, int]:
+    """The input's and the output's resolutions of a styled layer
+    (StyledConv, SMARTLayer, ToRGB) on an input of shape xshape: the
+    width, twice that where the layer's input is packed."""
+    if isinstance(layer, StyledConv):
+        return layer.resolutions(xshape)
+    res = xshape[2] * (2 if layer.packed else 1)
+    return res, res
+
+
 def styled_runner(spatial, style, styles):
     """run(layer, x, i, ...) = layer(x, style(i), ...), a styled layer
     reading style code i. With `spatial` the layer runs in
-    `Spatial.layer`'s context (its input's resolution, x's width, and its
-    output's say whether it is on this rank's rows), and one on rows reads
-    row i of `styles` (every code, (B, n, D)) through one
+    `Spatial.layer`'s context (its input's and its output's resolutions,
+    `layer_resolutions`, say whether it is on this rank's rows), and one
+    on rows reads row i of `styles` (every code, (B, n, D)) through one
     `Spatial.summed`: the model axis sums the codes' row parts once a
     forward, not once a layer."""
     if spatial is None:
@@ -642,9 +665,7 @@ def styled_runner(spatial, style, styles):
     rows_styles = spatial.summed(styles)
 
     def run(layer, x, i, *args, **kw):
-        res_out = (layer.out_shape(x.shape)[2]
-                   if isinstance(layer, StyledConv) else x.shape[2])
-        with spatial.layer(layer, x.shape[2], res_out) as rows:
+        with spatial.layer(layer, *layer_resolutions(layer, x.shape)) as rows:
             return layer(x, rows_styles[:, i] if rows else style(i), *args,
                          spatial=spatial, **kw)
     return run

@@ -83,18 +83,21 @@ class PSPFacade(nn.Module):
     def _pooled(self, decoder, codes, spatial=None, **kw):
         """(image pooled to out_size or None, features or None). With
         `spatial` the image's rows pool to the pooled image's rows (whole
-        where out_size is not sharded)."""
+        where out_size is not sharded): the packed RGB's packed rows are
+        the pooled image's rows."""
         if kw.get("return_image", True) and self._pooled_from_packed():
             packed, feats = decoder(codes, return_packed_rgb=True,
                                     spatial=spatial, **kw)
             b, h, w, _ = packed.shape
-            return packed.reshape(b, h, w, 4, 3).mean(dim=3), feats
-        image, feats = decoder(codes, spatial=spatial, **kw)
-        if image is not None:
-            rows = image.shape[1] * self.out_size // image.shape[2]
-            image = adaptive_avg_pool(image, (rows, self.out_size))
-            if spatial is not None and not spatial.sharded(self.out_size):
-                image = spatial.gather(image)
+            image = packed.reshape(b, h, w, 4, 3).mean(dim=3)
+        else:
+            image, feats = decoder(codes, spatial=spatial, **kw)
+            if image is not None:
+                rows = image.shape[1] * self.out_size // image.shape[2]
+                image = adaptive_avg_pool(image, (rows, self.out_size))
+        if (image is not None and spatial is not None
+                and not spatial.sharded(self.out_size)):
+            image = spatial.gather(image)
         return image, feats
 
     def decode_with_feats(self, codes: torch.Tensor,

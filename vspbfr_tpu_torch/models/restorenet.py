@@ -28,10 +28,13 @@ same threshold), and the output through `depth_to_space`. D stays
 unpacked, as in the JAX package.
 
 `spatial` (a `parallel.spatial.Spatial`) runs the generator on this rank's
-rows of the H-sharded levels (`parallel/spatial.py`), forward and
-backward: the inputs are this rank's batch rows, the low image and the
-decoder features whole or already cut to this rank's rows, the output
-this rank's rows of the image (from `MIN_ROWS` rows a shard up). The 4x4
+rows of the H-sharded levels (`parallel/spatial.py`), in either layout
+(the backward unpacked only: the trainers refuse a packed mesh): the
+inputs are this rank's batch rows, the low image and the decoder features
+whole or already cut to this rank's rows (a packed feature its packed
+rows; the input's space-to-depth and the output's depth-to-space on this
+rank's rows), the output this rank's rows of the image (from `MIN_ROWS`
+image rows a shard up). The 4x4
 head and the levels below the threshold run whole on every rank. Each
 layer runs in `Spatial.layer`'s context; those on rows read their style
 codes through one `Spatial.summed` for the encoder and one for the
@@ -189,11 +192,10 @@ class RestorationNet(nn.Module):
         reference's randomize_noise). dropout_mask: the encoder head's keep
         mask in training, None in eval. spatial: see the module's doc."""
         if spatial is not None:
-            if self.packed_min_res:
-                raise NotImplementedError("spatial sharding of the "
-                                          "space-to-depth layout")
             images = spatial.own(images)
-            de_feats = [spatial.own(f) for f in de_feats]
+            # feature i is at 4 * 2^i, packed where that level is
+            de_feats = [spatial.own(f, self.packed(4 << i))
+                        for i, f in enumerate(de_feats)]
         if input_is_latent:
             noise_latent = noise_styles
         else:

@@ -14,9 +14,11 @@ the same threshold. The JAX package's default is 512, the port's 0 (the
 CLIs' `--packed_min_res` sets it).
 
 `spatial` (a `parallel.spatial.Spatial`) decodes this rank's rows of the
-H-sharded levels (`parallel/spatial.py`): the codes are this rank's batch
-rows; the image and the feature taps come back in their resolutions'
-layouts (local rows from `MIN_ROWS` rows a shard up, whole below). Each
+H-sharded levels (`parallel/spatial.py`), in either layout: the codes are
+this rank's batch rows; the image and the feature taps come back in their
+resolutions' layouts (local rows from `MIN_ROWS` image rows a shard up,
+whole below; a packed tap its packed rows, the top level's depth-to-space
+and the packed RGB on this rank's rows). Each
 layer runs in `Spatial.layer`'s context, and the layers on rows read the
 codes through `Spatial.summed`, so a backward (stage 2's LPIPS and ID
 terms into the codes) sums their row parts over the model axis once.
@@ -131,9 +133,6 @@ class Generator(nn.Module):
         resolution is packed, return the (B, size/2, size/2, 12) packed RGB
         (phase groups (gy, gx, rgb)) without the final depth-to-space."""
         b = latent.shape[0]
-        if spatial is not None and self.packed_min_res:
-            raise NotImplementedError("spatial sharding of the "
-                                      "space-to-depth layout")
         if noise is None:
             noise = [None] * self.num_layers
         run = styled_runner(spatial, lambda i: latent[:, i], latent)

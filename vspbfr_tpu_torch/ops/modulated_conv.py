@@ -24,11 +24,15 @@ launches, `modulated_conv2d_d12_packed` (dilations 1 and 2: one K1 on the
 (3, 3, 4C, 8Cb) assembled kernel, the demod as the epilogue's out_scale)
 and `modulated_conv2d_d48_packed` (dilations 4 and 8: one grouped K2).
 
-With `spatial` (a `parallel.spatial.Spatial`) the unpacked conv runs on
-this rank's rows of an H-sharded map, by the same route: a conv that pads
-H by (top, bottom) takes the window of those rows around this rank's
-(`window_rows`) and pads H by nothing (K1, K1e, the subpixel up-conv's
-K1 + K3, the blurred stride-2 down-conv, the dilated convs); the
+With `spatial` (a `parallel.spatial.Spatial`) the conv runs on this
+rank's rows of an H-sharded map, by the same route. A packed conv (either
+side packed, the unpacked-packed transitions included) hands it to its
+packed form (`ops/packed.py`: windows in packed rows); SMART's packed
+pair takes the window of the assembled kernel's pads (d1 + d2, K1) and of
+4 packed rows (d4 + d8, grouped K2, the middle rows kept). Unpacked, a
+conv that pads H by (top, bottom) takes the window of those rows around
+this rank's (`window_rows`) and pads H by nothing (K1, K1e, the subpixel
+up-conv's K1 + K3, the blurred stride-2 down-conv, the dilated convs); the
 transposed up-conv + blur and SMART's K2 run on a wider window and keep
 the middle rows. Where neither the input's nor the output's resolution is
 sharded the context is dropped, and the call is the unsharded one. Every
@@ -70,17 +74,17 @@ def window_rows(x: torch.Tensor, top: int, bottom: int, spatial):
     """(x, H pads) for a conv that pads H by (top, bottom): x and (top,
     bottom) without `spatial`; with it, this rank's rows of x with the
     `top` / `bottom` rows around them (`Spatial.window`) and no H pads."""
-    if spatial is None:
-        return x, (top, bottom)
-    return spatial.window(x, top, bottom), (0, 0)
+    return pk._window(x, (top, bottom), spatial, False)
 
 
-def on_rows(x: torch.Tensor, fn, reach: int, up: int, spatial):
+def on_rows(x: torch.Tensor, fn, reach: int, up: int, spatial,
+            packed: bool = False):
     """fn(x), or with `spatial` fn on this rank's rows (`Spatial.rows_op`:
-    the window of `reach` rows each side, the middle rows kept)."""
+    the window of `reach` rows each side, the middle rows kept; `packed`:
+    x and the output packed, the rows packed rows)."""
     if spatial is None:
         return fn(x)
-    return spatial.rows_op(x, fn, reach, up=up)
+    return spatial.rows_op(x, fn, reach, up=up, packed=packed)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding=0,
@@ -197,18 +201,20 @@ def d12_kernel(w1: torch.Tensor, w2: torch.Tensor):
 
 def modulated_conv2d_d12_packed(x: torch.Tensor, w1: torch.Tensor,
                                 w2: torch.Tensor, style: torch.Tensor,
-                                eps: float = 1e-8) -> torch.Tensor:
+                                eps: float = 1e-8,
+                                spatial=None) -> torch.Tensor:
     """SMART's dilation-1 and dilation-2 branches as ONE packed conv
     (`modulated_conv2d_d12_packed`, modulated_conv.py:201): on the half
     grid both are 3x3 pad-1 kernels (d=1 mixes phases, d=2 is phase-
     diagonal), concatenated on the output channels into one (3, 3, 4C, 8Cb)
     K1 launch; the demod is the epilogue's out_scale. Output channels:
     [d1 phase-major 4Cb | d2 phase-major 4Cb]. x (B, h, w, 4C); w1, w2
-    (3, 3, C, Cb); style (B, C)."""
+    (3, 3, C, Cb); style (B, C). spatial: this rank's rows (x sharded)."""
     scale = 1.0 / ((w1.shape[2] * 9) ** 0.5)
     wp, pady, padx = d12_kernel(scale * w1, scale * w2)
     dv = torch.cat([pk.pack_vector(demod_coeffs(w, style, scale, eps))
                     for w in (w1, w2)], -1)
+    x, pady = pk._window(x, pady, spatial, True)
     return pk._conv(x, wp.to(x.dtype), pady, padx,
                     in_scale=pk.pack_vector(style).to(x.dtype).contiguous(),
                     epi=dict(out_scale=dv, act=False))
@@ -216,30 +222,35 @@ def modulated_conv2d_d12_packed(x: torch.Tensor, w1: torch.Tensor,
 
 def modulated_conv2d_d48_packed(x: torch.Tensor, w4: torch.Tensor,
                                 w8: torch.Tensor, style: torch.Tensor,
-                                eps: float = 1e-8) -> torch.Tensor:
+                                eps: float = 1e-8,
+                                spatial=None) -> torch.Tensor:
     """SMART's dilation-4 and dilation-8 branches as ONE grouped K2 launch
     (`modulated_conv2d_d48_packed`, modulated_conv.py:242): on the half
     grid both are phase-diagonal convs at dilations 2 and 4, the weights
     shared by the four phase groups, the demod at the store. Output
-    channels: [d4 phase-major 4Cb | d8 phase-major 4Cb]."""
+    channels: [d4 phase-major 4Cb | d8 phase-major 4Cb]. spatial: K2 on
+    the window of 4 packed rows each side, the middle rows kept."""
     c_in = w4.shape[2]
     scale = 1.0 / ((c_in * 9) ** 0.5)
     dv = torch.cat([pk.pack_vector(demod_coeffs(w, style, scale, eps))
                     for w in (w4, w8)], -1)
-    return dilated_pair_conv(
-        x.contiguous(), (scale * w4).to(x.dtype).contiguous(),
-        (scale * w8).to(x.dtype).contiguous(), 2, 4, groups=4,
-        in_scale=pk.pack_vector(style).to(x.dtype).contiguous(),
-        out_scale=dv.to(x.dtype).contiguous())
+    w4s = (scale * w4).to(x.dtype).contiguous()
+    w8s = (scale * w8).to(x.dtype).contiguous()
+    sty = pk.pack_vector(style).to(x.dtype).contiguous()
+    dv = dv.to(x.dtype).contiguous()
+    return on_rows(x, lambda t: dilated_pair_conv(
+        t.contiguous(), w4s, w8s, 2, 4, groups=4, in_scale=sty,
+        out_scale=dv), 4, 1, spatial, packed=True)
 
 
 def _modulated_conv2d_packed(x, w, style, *, demodulate, up, down, dilation,
                              blur_kernel, eps, packed_in, packed_out,
-                             epilogue):
+                             epilogue, spatial=None):
     """The packed-layout modulated conv (`_modulated_conv2d_packed`,
     modulated_conv.py:307): x (B, h, w, 4Ci) when packed_in else (B, H, W,
     Ci); the output packed iff packed_out. The style rides the conv's
-    in_scale, the demod the epilogue's out_scale."""
+    in_scale, the demod the epilogue's out_scale. spatial: the packed form
+    on this rank's rows (a down-conv settles its output)."""
     k, _, c_in, _ = w.shape
     scale = 1.0 / ((c_in * k * k) ** 0.5)
     dv = None
@@ -255,13 +266,14 @@ def _modulated_conv2d_packed(x, w, style, *, demodulate, up, down, dilation,
             raise ValueError("packed up-conv: packed output, dilation 1")
         out = pk.up_conv_blur_packed(x, ws, tuple(blur_kernel),
                                      packed_in=packed_in, in_scale=sty,
-                                     epi=epi)
+                                     epi=epi, spatial=spatial)
     elif down:
         if not packed_in or dilation != 1:
             raise ValueError("packed down-conv: packed input, dilation 1")
         fn = (pk.blur_down_conv_packed_packed if packed_out
               else pk.blur_down_conv_packed)
-        out = fn(x, ws, tuple(blur_kernel), in_scale=sty, epi=epi)
+        out = fn(x, ws, tuple(blur_kernel), in_scale=sty, epi=epi,
+                 spatial=spatial)
     else:
         if not (packed_in and packed_out):
             raise ValueError("packed stride-1 conv: packed input and output")
@@ -269,7 +281,7 @@ def _modulated_conv2d_packed(x, w, style, *, demodulate, up, down, dilation,
             out = pk.conv1x1_packed(x, ws, in_scale=sty, epi=epi)
         else:
             out = pk.conv2d_packed(x, ws, dilation=dilation, in_scale=sty,
-                                   epi=epi)
+                                   epi=epi, spatial=spatial)
     if epilogue is not None or dv is None:
         return out
     return pk._epi_after(out, dict(out_scale=dv, act=False))
@@ -292,13 +304,10 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
     activated tensor."""
     fir = isinstance(blur_kernel, (tuple, list))
     if spatial is not None:
-        res = x.shape[2]
+        res = x.shape[2] * (2 if packed_in else 1)
         res_out = 2 * res if up else (res // 2 if down else res)
         if not (spatial.sharded(res) or spatial.sharded(res_out)):
             spatial = None
-        elif packed_in or packed_out:
-            raise NotImplementedError("spatial sharding of the "
-                                      "space-to-depth layout")
         elif (up or down) and (dilation != 1 or not fir):
             raise NotImplementedError("spatial sharding: up / down convs at "
                                       "dilation 1 with FIR taps only")
@@ -306,7 +315,8 @@ def modulated_conv2d(x: torch.Tensor, w: torch.Tensor, style: torch.Tensor, *,
         return _modulated_conv2d_packed(
             x, w, style, demodulate=demodulate, up=up, down=down,
             dilation=dilation, blur_kernel=blur_kernel, eps=eps,
-            packed_in=packed_in, packed_out=packed_out, epilogue=epilogue)
+            packed_in=packed_in, packed_out=packed_out, epilogue=epilogue,
+            spatial=spatial)
     kh, kw, c_in, c_out = w.shape
     if kh != kw:
         raise ValueError("square kernels only")

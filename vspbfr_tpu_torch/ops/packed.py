@@ -35,6 +35,15 @@ K6 pass (`_epi_after`, `apply_epilogue`).
 The kernel assembly (`_assemble2`) is one contraction of the weight with a
 static 0/1 selection tensor, so it is differentiable (training reaches the
 unpacked parameters through it) and runs on the weight's device.
+
+`spatial` (a `parallel.spatial.Spatial`, given only where the input's or
+the output's resolution is H-sharded) runs a form on this rank's rows, in
+the map's own rows (`parallel/spatial.py`): the assembled kernel's H pads
+become the window's top and bottom rows with no H padding (the stride-2
+packed-to-packed down-conv's (top, bottom - 1)); an even dilation's
+grouped K2 runs on the window of dilation / 2 rows and keeps the middle
+rows; the down-convs run their epilogue on their rows, then `settle`
+gathers an output below the threshold. The 1x1 form needs no halo.
 """
 
 from __future__ import annotations
@@ -61,6 +70,15 @@ def _conv(x, wp, pady, padx, in_scale=None, epi=None) -> torch.Tensor:
         return conv2d_dense_epilogue(x, wp, pads, in_scale=in_scale, **epi)
     return dense_conv(x.contiguous(), wp.to(x.dtype).contiguous(), pads,
                       in_scale)
+
+
+def _window(x, pady, spatial, packed: bool):
+    """(x, H pads) for a conv that pads H by pady: x and pady without
+    `spatial`; with it, this rank's rows of x with pady's rows around them
+    (`Spatial.window`, in x's own rows) and no H pads."""
+    if spatial is None:
+        return x, tuple(pady)
+    return spatial.window(x, pady[0], pady[1], packed), (0, 0)
 
 
 def _epi_after(out, epi):
@@ -245,24 +263,29 @@ def assembled_kernel(w: torch.Tensor, form: str, taps: tuple = (1, 3, 3, 1),
 
 def conv2d_packed(x: torch.Tensor, w: torch.Tensor, dilation: int = 1,
                   in_ch_perm=None, in_scale: torch.Tensor | None = None,
-                  epi=None) -> torch.Tensor:
+                  epi=None, spatial=None) -> torch.Tensor:
     """Stride-1 'same' conv on a packed tensor == packed(conv(unpacked)).
     x (B, h, w, 4Ci); w (k, k, Ci, Co) the unpacked kernel; in_scale (B,
     4Ci) in x's dtype. in_ch_perm: a packed-input-channel permutation
     folded into the assembled kernel (x's channel j holds packed channel
-    in_ch_perm[j]); odd dilations only."""
+    in_ch_perm[j]); odd dilations only. spatial: this rank's rows."""
     if dilation % 2 == 0:   # SMART's 3x3 branches: K2 checks the shape
         if in_ch_perm is not None:
             raise ValueError("conv2d_packed: in_ch_perm needs an odd "
                              "dilation")
-        out = dilated_multi_conv(x.contiguous(),
-                                 [w.to(x.dtype).contiguous()],
-                                 (dilation // 2,), groups=4,
-                                 in_scale=in_scale)
+        wd = w.to(x.dtype).contiguous()
+
+        def grouped(t):
+            return dilated_multi_conv(t.contiguous(), [wd], (dilation // 2,),
+                                      groups=4, in_scale=in_scale)
+
+        out = (grouped(x) if spatial is None else
+               spatial.rows_op(x, grouped, dilation // 2, packed=True))
         return _epi_after(out, epi)
     wp, pady, padx = assembled_kernel(w, "s1", dilation=dilation)
     if in_ch_perm is not None:
         wp = wp[:, :, torch.tensor(in_ch_perm, device=wp.device)]
+    x, pady = _window(x, pady, spatial, True)
     return _conv(x, wp, pady, padx, in_scale=in_scale, epi=epi)
 
 
@@ -298,14 +321,16 @@ def conv1x1_packed(x: torch.Tensor, w: torch.Tensor, in_ch_perm=None,
 def up_conv_blur_packed(x: torch.Tensor, w: torch.Tensor, taps: tuple,
                         packed_in: bool,
                         in_scale: torch.Tensor | None = None,
-                        epi=None) -> torch.Tensor:
+                        epi=None, spatial=None) -> torch.Tensor:
     """StyleGAN2 up path (transposed stride-2 conv + FIR blur) emitting the
     packed output at 2x the resolution. packed_in False: x (B, h, w, Ci)
     -> (B, h, w, 4Co), the phase channels straight out of one dense conv
     (the epilogue rides it); packed_in True: x (B, h, w, 4Ci) -> (B, 2h,
-    2w, 4Co), a 16-phase conv and one K3 interleave."""
+    2w, 4Co), a 16-phase conv and one K3 interleave. spatial: this rank's
+    output rows, from the window of a sharded or a whole input."""
     wp, pady, padx = assembled_kernel(w, "up_packed" if packed_in else "up",
                                       taps)
+    x, pady = _window(x, pady, spatial, packed_in)
     if not packed_in:
         return _conv(x, wp, pady, padx, in_scale=in_scale, epi=epi)
     out16 = _conv(x, wp, pady, padx, in_scale=in_scale)
@@ -314,34 +339,46 @@ def up_conv_blur_packed(x: torch.Tensor, w: torch.Tensor, taps: tuple,
 
 def blur_down_conv_packed(x: torch.Tensor, w: torch.Tensor, taps: tuple,
                           in_scale: torch.Tensor | None = None,
-                          epi=None) -> torch.Tensor:
+                          epi=None, spatial=None) -> torch.Tensor:
     """StyleGAN2 down path (FIR blur + stride-2 conv) from a packed input:
     x (B, h, w, 4Ci) at res 2h -> (B, h, w, Co) unpacked at res h, one
-    stride-1 dense conv."""
+    stride-1 dense conv. spatial: on this rank's rows, the epilogue's
+    noise its rows (a block of them where the output is whole), then
+    settled."""
     wp, pady, padx = assembled_kernel(w, "down", taps)
-    return _conv(x, wp, pady, padx, in_scale=in_scale, epi=epi)
+    x, pady = _window(x, pady, spatial, True)
+    out = _conv(x, wp, pady, padx, in_scale=in_scale, epi=epi)
+    return out if spatial is None else spatial.settle(out)
 
 
 def blur_down_conv_packed_packed(x: torch.Tensor, w: torch.Tensor,
                                  taps: tuple,
                                  in_scale: torch.Tensor | None = None,
-                                 epi=None) -> torch.Tensor:
+                                 epi=None, spatial=None) -> torch.Tensor:
     """The down path from a packed input to a packed output: x (B, h, w,
     4Ci) at res 2h -> (B, h/2, w/2, 4Co) at res h, one stride-2 conv on
-    the packed grids (`F.conv2d`; the JAX package leaves it to XLA)."""
+    the packed grids (`F.conv2d`; the JAX package leaves it to XLA).
+    spatial: as `blur_down_conv_packed`, the shard's h rows (even) to its
+    h/2 output rows."""
     wp, (py0, py1), (px0, px1) = assembled_kernel(w, "down_packed", taps)
+    # out[q] = sum_u K[u - u0] x[2q + u]: pads (-u0, u1 - 1) give h / 2;
+    # on rows the window's first row is the shard's first minus u0, so
+    # the stride stays aligned with the shard's rows
+    if spatial is not None and x.shape[1] % 2:
+        raise ValueError(f"packed down-conv: a shard of {x.shape[1]} rows")
+    x, pady = _window(x, (py0, py1 - 1), spatial, True)
     xs = x if in_scale is None else x * in_scale[:, None, None, :]
-    # out[q] = sum_u K[u - u0] x[2q + u]: pads (-u0, u1 - 1) give h / 2
-    out = conv_nhwc(xs, wp, 2, ((py0, py1 - 1), (px0, px1 - 1)))
-    return _epi_after(out, epi)
+    out = conv_nhwc(xs, wp, 2, (pady, (px0, px1 - 1)))
+    out = _epi_after(out, epi)
+    return out if spatial is None else spatial.settle(out, packed=True)
 
 
 def upsample2d_packed(x: torch.Tensor, taps: tuple,
-                      packed_in: bool) -> torch.Tensor:
+                      packed_in: bool, spatial=None) -> torch.Tensor:
     """FIR 2x upsample (`models/RestoreNet.py:43-60`) to a packed output
     (the ToRGB skip chain): the depthwise FIR as a dense kernel with
     diagonal channel blocks (C is 3 or 12 here), K1, and from a packed
-    input one K3 interleave."""
+    input one K3 interleave. spatial: this rank's output rows."""
     lk, factor = len(taps), 2
     t = np.asarray(taps, np.float64)
     k2 = np.outer(t, t)
@@ -353,7 +390,9 @@ def upsample2d_packed(x: torch.Tensor, taps: tuple,
     m = _map_up(lk, lk - 1 - pad0, packed_in)
     if not packed_in:
         wp, pady, padx = _assemble2(d2, m, m, 1, 2)
+        x, pady = _window(x, pady, spatial, False)
         return _conv(x, wp, pady, padx)
     wp, pady, padx = _assemble2(d2, m, m, 2, 4)
     wp = wp[..., torch.as_tensor(_phase16_perm(c), device=wp.device)]
+    x, pady = _window(x, pady, spatial, True)
     return d2s(_conv(x, wp, pady, padx), 4 * c)

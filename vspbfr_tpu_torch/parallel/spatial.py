@@ -2,15 +2,24 @@
 inserts for `spatial_sharded` (`vspbfr_tpu/parallel/mesh.py:106`), in the
 forward and in the backward.
 
-Rank r of the n ranks of the model axis holds rows [r H/n, (r + 1) H/n)
-of every NHWC map whose resolution H is sharded (`Spatial.sharded`: at
-least `MIN_ROWS` rows a shard). Before an op that reads neighbouring rows
-it takes the rows it needs from its neighbours (`Spatial.window`: zeros
-above and below the image, real rows between shards) and runs the op on
-its rows alone, with no H padding; it computes only its own output rows.
-The maps are square, so a map's global resolution is its width and its
-layout follows from it: local rows at a sharded resolution, all rows
-below. Where the ops meet the context (`spatial=`):
+The layout rule. A map's resolution r is that of the image it holds: an
+unpacked map (B, H, r, C) has width r, a space-to-depth packed one (B, h,
+r/2, 4C) (`ops/packed.py`) width r/2, and the caller says which
+(`packed=`; the maps are square in their own grid). Whether r is sharded
+depends on r alone (`Spatial.sharded`: r/n even and at least `MIN_ROWS`
+image rows a shard), so the packed and the unpacked maps of one
+resolution agree (the ToRGB skip across the packing boundary, the decoder
+features RestoreNet reads). Rank k of the n ranks of the model axis then
+holds image rows [k r/n, (k + 1) r/n): rows [k r/n, (k + 1) r/n) of an
+unpacked map, packed rows [k r/(2n), (k + 1) r/(2n)) of a packed one (r/n
+is even). Every count of rows an op gives (a window's halo, a shard's
+rows, `rows_op`'s reach, `noise`'s block) is in the map's own rows: image
+rows unpacked, packed rows packed. Before an op that reads neighbouring
+rows a rank takes the rows it needs from its neighbours (`Spatial.window`:
+zeros above and below the image, real rows between shards) and runs the
+op on its rows alone, with no H padding; it computes only its own output
+rows. Below the threshold a map is whole: all its rows on every rank.
+Where the ops meet the context (`spatial=`):
 
 - 3x3 styled / equal convs (K1, K1e; `ops/modulated_conv.py`,
   `models/layers.py`): the window of `pad` rows each side, pads ((0, 0),
@@ -30,7 +39,17 @@ below. Where the ops meet the context (`spatial=`):
   reach, its H/(2n) output rows, its epilogue on those rows, then
   gathered where the output is below the threshold;
 - the FIR 2x upsample of the ToRGB skip (`upsample2d`, `rows_op`): a
-  window of 1 row, the middle 2H/n output rows kept.
+  window of 1 row, the middle 2H/n output rows kept;
+- the packed forms (`ops/packed.py`), in packed rows: each assembled
+  kernel's H pads (top, bottom) become the window's rows, with no H
+  padding (stride 1, the up-convs and the upsample from an unpacked or a
+  packed input, the down-conv to an unpacked output; the stride-2
+  packed-to-packed down-conv takes (top, bottom - 1), so that its h/2
+  outputs read the h + 2 rows from the shard's first row on, stride
+  aligned), all of them 1 row each side; an even dilation d (SMART's d4
+  and d8 branches, grouped K2) the window of d/2 rows, each branch at its
+  own symmetric padding, the middle rows kept: at most 4 packed rows,
+  which the threshold's 8 image rows (4 packed) cover.
 
 1x1 convs and the K6 / K7 epilogues need no halo; their noise is the
 shard's rows of the global draw (`Spatial.noise`). Below the threshold a
@@ -79,8 +98,9 @@ from torch.autograd.function import once_differentiable
 from vspbfr_tpu_torch.parallel.mesh import AxisGroup, flat_collective
 from vspbfr_tpu_torch.parallel.model_axis import partial_gradients
 
-# a map is H-sharded when each shard holds at least this many rows: the
-# largest halo (K2's dilation 8), so a window reaches one neighbour only
+# a resolution is H-sharded when each shard holds at least this many image
+# rows: the largest halo (K2's dilation 8 unpacked; 4 packed rows, grouped
+# K2's d8 branch at dilation 4), so a window reaches one neighbour only
 MIN_ROWS = 8
 
 
@@ -194,29 +214,48 @@ class Spatial:
     # -- layouts ------------------------------------------------------------
 
     def sharded(self, res: int) -> bool:
-        """Whether maps of resolution res are H-sharded."""
-        return self.n > 1 and res % self.n == 0 and res // self.n >= MIN_ROWS
+        """Whether maps of resolution res (image rows) are H-sharded, in
+        either layout: r/n even (a packed map splits into equal blocks of
+        packed rows) and at least `MIN_ROWS`."""
+        return (self.n > 1 and res % (2 * self.n) == 0
+                and res // self.n >= MIN_ROWS)
 
-    def own_rows(self, res: int) -> slice:
-        h = res // self.n
+    @staticmethod
+    def res_of(x: torch.Tensor, packed: bool = False) -> int:
+        """The resolution of the map x: its width, twice that packed."""
+        return x.shape[2] * (2 if packed else 1)
+
+    def step(self, res: int, packed: bool = False) -> int:
+        """A shard's rows of a map at res in its own rows: r/n, or r/(2n)
+        packed (the block a window of a whole map is cut around)."""
+        rows = res // 2 if packed else res
+        if rows % self.n:
+            raise ValueError(f"spatial: {rows} rows do not split over "
+                             f"{self.n} ranks")
+        return rows // self.n
+
+    def own_rows(self, res: int, packed: bool = False) -> slice:
+        h = self.step(res, packed)
         return slice(self.rank * h, (self.rank + 1) * h)
 
-    def _check(self, x: torch.Tensor) -> int:
-        """x's global resolution (its width), after checking that x holds
-        the rows its layout says."""
-        res = x.shape[2]
-        want = res // self.n if self.sharded(res) else res
+    def _check(self, x: torch.Tensor, packed: bool = False) -> int:
+        """x's resolution (`res_of`), after checking that x holds the rows
+        its layout says."""
+        res = self.res_of(x, packed)
+        want = (self.step(res, packed) if self.sharded(res)
+                else x.shape[2])
         if x.shape[1] != want:
-            raise ValueError(f"spatial: a map of width {res} holds "
-                             f"{x.shape[1]} rows, its layout {want}")
+            raise ValueError(f"spatial: a map of width {x.shape[2]} "
+                             f"(packed {packed}) holds {x.shape[1]} rows, "
+                             f"its layout {want}")
         return res
 
-    def own(self, x: torch.Tensor) -> torch.Tensor:
+    def own(self, x: torch.Tensor, packed: bool = False) -> torch.Tensor:
         """A map given whole (or already as local rows) in its layout: its
         own rows where its resolution is sharded."""
-        res = x.shape[2]
-        if self.sharded(res) and x.shape[1] == res:
-            return _WholeRows.apply(x, self, res // self.n, 0, 0)
+        res = self.res_of(x, packed)
+        if self.sharded(res) and x.shape[1] == x.shape[2]:
+            return _WholeRows.apply(x, self, self.step(res, packed), 0, 0)
         return x
 
     def batch_rows(self, global_batch: int) -> slice:
@@ -226,12 +265,14 @@ class Spatial:
 
     # -- exchanges ----------------------------------------------------------
 
-    def window(self, x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
-        """Rows [r h - top, (r + 1) h + bottom) of the map x (h = H / n),
-        zeros outside the image: from the neighbours' edge strips where x
-        is sharded, by slicing where it is whole."""
-        res = self._check(x)
-        h = res // self.n
+    def window(self, x: torch.Tensor, top: int, bottom: int,
+               packed: bool = False) -> torch.Tensor:
+        """Rows [k h - top, (k + 1) h + bottom) of the map x (h its
+        `step`, all in x's own rows), zeros outside the image: from the
+        neighbours' edge strips where x is sharded, by slicing where it is
+        whole."""
+        res = self._check(x, packed)
+        h = self.step(res, packed)
         if not self.sharded(res):
             return _WholeRows.apply(x, self, h, top, bottom)
         if top == 0 and bottom == 0:
@@ -280,16 +321,16 @@ class Spatial:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole map from the ranks' equal row blocks (x itself where
-        it is whole already)."""
+        it is whole already: square in its own grid, either layout)."""
         if x.shape[1] == x.shape[2]:
             return x
         self.exchanges += 1
         return _Gather.apply(x, self)
 
-    def settle(self, x: torch.Tensor) -> torch.Tensor:
+    def settle(self, x: torch.Tensor, packed: bool = False) -> torch.Tensor:
         """An op's output on this rank's rows in its resolution's layout:
         gathered where that resolution is not sharded."""
-        return x if self.sharded(x.shape[2]) else self.gather(x)
+        return x if self.sharded(self.res_of(x, packed)) else self.gather(x)
 
     def gather_batch(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch from the data axis' ranks (forward only: the
@@ -349,33 +390,41 @@ class Spatial:
 
     # -- ops ------------------------------------------------------------------
 
-    def rows_op(self, x: torch.Tensor, fn, reach: int,
-                up: int = 1) -> torch.Tensor:
+    def rows_op(self, x: torch.Tensor, fn, reach: int, up: int = 1,
+                packed: bool = False) -> torch.Tensor:
         """fn (a shift-equivariant op whose output row y reads input rows
-        within `reach` of y / up, with `up`x the rows out) on this rank's
-        rows: fn on the window of `reach` rows, the middle up * H/n output
-        rows kept. The result is in the output resolution's layout."""
-        res = self._check(x)
+        within `reach` of y / up, with `up`x the rows out, x and the output
+        in one layout: `packed`, the rows its own) on this rank's rows: fn
+        on the window of `reach` rows, the middle up * h output rows kept
+        (h the shard's rows). The result is in the output resolution's
+        layout."""
+        res = self._check(x, packed)
         if not self.sharded(res * up):
             return fn(x)
-        h = res // self.n
-        out = fn(self.window(x, reach, reach))
+        h = self.step(res, packed)
+        out = fn(self.window(x, reach, reach, packed))
         return out[:, up * reach:up * (reach + h)].contiguous()
 
-    def noise(self, shape, noise, draw, rows: int | None = None):
-        """The noise of an output of `shape` (this batch's rows, whole H):
-        given maps are this batch's whole maps; else `draw(global shape)`
-        (the unsharded run's draw of the global batch) cut to this batch's
-        rows. Both in the output's layout, or with `rows` (an op on this
-        rank's rows whose output resolution is whole: a down-conv before
-        `settle`) this rank's block of that many rows."""
-        b, res = shape[0], shape[1]
+    def noise(self, shape, noise, draw, rows: int | None = None,
+              packed: bool = False):
+        """The noise of an output of `shape` (this batch's rows, whole H;
+        packed: (B, r/2, r/2, 4), one value a phase): given maps are this
+        batch's whole maps; else `draw(global shape)` (the unsharded run's
+        draw of the global batch) cut to this batch's rows. Both in the
+        output's layout, or with `rows` (an op on this rank's rows whose
+        output resolution is whole: a down-conv before `settle`) this
+        rank's block of that many rows, in the output's own rows."""
+        b = shape[0]
+        res = shape[1] * (2 if packed else 1)
         if noise is None:
             g = self.batch_group
             noise = draw((b * g.size,) + tuple(shape[1:]))[
                 g.rank * b:(g.rank + 1) * b]
+        elif tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise {tuple(noise.shape)} for an output "
+                             f"{tuple(shape)}, packed {packed}")
         if self.sharded(res):
-            return noise[:, self.own_rows(res)]
-        if rows is not None and rows < res:
+            return noise[:, self.own_rows(res, packed)]
+        if rows is not None and rows < shape[1]:
             return noise[:, self.rank * rows:(self.rank + 1) * rows]
         return noise

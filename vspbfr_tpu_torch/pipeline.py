@@ -26,9 +26,9 @@ flow into RestoreNet's skip fusion packed. The JAX package's default is
 
 `restore(..., spatial=)` runs on a 2-D mesh (`parallel/spatial.py`): the
 encode and the DDPM replicated over the model axis (256 px and the 18x512
-code), the decode and RestoreNet H-sharded over it, each data-axis rank on
-its share of the batch; the output is gathered, so every rank returns the
-whole batch. The draws are the unsharded run's, cut to the rank's rows.
+code), the decode and RestoreNet H-sharded over it (in either layout),
+each data-axis rank on its share of the batch; the output is gathered, so
+every rank returns the whole batch. The draws are the unsharded run's, cut to the rank's rows.
 """
 
 from __future__ import annotations
@@ -145,9 +145,6 @@ class RestorationPipeline(nn.Module):
         out_dtype = low_imgs.dtype
         rows = slice(None)
         if spatial is not None:
-            if self.packed_min_res:
-                raise NotImplementedError("spatial sharding of the "
-                                          "space-to-depth layout")
             rows = spatial.batch_rows(low_imgs.shape[0])
         n_all = low_imgs.shape[0]
         low_imgs = low_imgs[rows]
