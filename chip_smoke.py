@@ -237,7 +237,21 @@ Phases, in order (any failed check raises, so the exit status is non-zero):
              halo exchanges and model-axis sums of the first step,
              launches of K1, K1 dx, K2, K2 bwd, K3, K4, K6 and K7 per rank
              and the step's seconds (one step a run), each beside the lone
-             run's.
+             run's; (d) training on the packed mesh: (a)-(c) again in the
+             same rank processes, after the unpacked steps, at
+             packed_min_res 512 (the 1024 px decoder's 512 and 1024
+             levels and RestoreNet's 512 level packed and sharded by
+             packed rows, their gradients back through the packed
+             windows), held to this process's lone packed steps by the
+             same gates; the f32 packed step on ranks with each planted
+             fault in the packed windows' backward (`_strip_fault`: the
+             strips' gradients dropped; swapped, the top strip's to the
+             lower neighbour and the bottom one's to the upper; run by
+             the bf16 mesh's ranks in f32 after their own steps, so the
+             two meshes take about as long) must fail the f32 gradient
+             gate with its losses unchanged; grouped K2, its
+             backward Function, K6 at nc = 4, K3 and K4 launch on every
+             rank as often as in the lone packed step.
 
 Phases 5, 7, 8, 11, 12, 13, 14, 15 (b)-(d), 16 and 17 (on both ranks too)
 also count the calls of K6's and K7's plain versions on CUDA tensors
@@ -350,7 +364,13 @@ PATH_KERNELS = {"serve": ("dense_conv", "dilated_multi_conv", "d2s",
                            "conv_epilogue", "fused_leaky_relu"),
                 # phase 17: the stage-3 step on two gloo ranks (f32)
                 "meshtrain": ("dense_conv", "dilated_multi_conv", "d2s",
-                              "s2d", "conv_epilogue", "fused_leaky_relu")}
+                              "s2d", "conv_epilogue", "fused_leaky_relu"),
+                # phase 17 (d): the same at packed_min_res 512
+                "meshtrain_packed": ("dense_conv", "dilated_multi_conv",
+                                     "d2s", "s2d", "conv_epilogue",
+                                     "fused_leaky_relu",
+                                     "dilated_multi_conv_grouped",
+                                     "conv_epilogue_nc4")}
 TOL = {"f32": 1e-4, "bf16": 2e-2}
 REPORT: dict = {}
 # phase 5's seeded full-width modules and faces, which phases 11 and 12
@@ -4931,13 +4951,47 @@ MT_IMAGES = {"stage2": 1, "stage3": 2}
 # parameters' parts
 MT_TRAPS = {"stage2": ("codes' sum",),
             "stage3": ("parameters' sum", "reduce-scatter")}
+# (d) the packed layout: both stages again at this packed_min_res (the
+# 1024 px decoder's 512 and 1024 levels and RestoreNet's 512 level
+# packed, sharded by packed rows), the counts each rank's packed step must
+# share with the lone packed step's (nonzero: the layout's kernel forms,
+# K3, K4 and grouped K2's backward Function), and the planted faults in
+# the packed windows' backward (`_mt_trap`) that the f32 run's gradients
+# must show while its losses stay as they were; the model-axis sums'
+# traps are the layout's alike, so they run unpacked only
+MT_PMR = 512
+MT_PACKED_COUNTS = {"stage2": ("d2s", "s2d", "conv_epilogue_nc4"),
+                    "stage3": ("dilated_multi_conv_grouped", "k2_bwd", "d2s",
+                               "s2d", "conv_epilogue_nc4")}
+MT_PACKED_TRAPS = ("strip gradients dropped", "strip gradients swapped")
+# the runs of phase 17: (stage, packed_min_res)
+MT_CELLS = (("stage2", 0), ("stage3", 0), ("stage2", MT_PMR),
+            ("stage3", MT_PMR))
 
 
-def _mt_trainer(stage: str, mode: str, weights: dict | None = None):
+def _mt_key(stage: str, pmr: int) -> str:
+    """A run's key: "stage2", or "stage2 packed" at `MT_PMR`."""
+    return f"{stage} packed" if pmr else stage
+
+
+def _mt_name(key: str, mode: str) -> str:
+    """A run's name: "stage2 f32", "stage3 bf16 packed"."""
+    stage, *packed = key.split()
+    return " ".join([stage, mode, *packed])
+
+
+def _mt_traps(name: str) -> tuple:
+    return (MT_PACKED_TRAPS if name.endswith(" packed")
+            else MT_TRAPS[name.split()[0]])
+
+
+def _mt_trainer(stage: str, mode: str, weights: dict | None = None,
+                pmr: int = 0):
     """Phase 17's trainer: stage 2 at phase 7's config, stage 3 at phase
-    8's with ADA at p 0.5, f32 or bf16; from `weights` (module ->
-    state_dict: the frozen nets, which both stages share, G and D; g_ema
-    starts as G) or, without, stage 2 seeded (the diffuser conditioned,
+    8's with ADA at p 0.5, f32 or bf16, at packed_min_res `pmr`; from
+    `weights` (module -> state_dict: the frozen nets, which both stages
+    share, G and D; g_ema starts as G; the unpacked layout's tensors in
+    either layout) or, without, stage 2 seeded (the diffuser conditioned,
     noise gains 0.1)."""
     import torch
 
@@ -4952,11 +5006,13 @@ def _mt_trainer(stage: str, mode: str, weights: dict | None = None):
         tr = DiffuserTrainer(DiffuserTrainConfig(compute_dtype=dt,
                                                  **MT_STAGE2),
                              RestorationPipeline(size=MT_STAGE2["size"],
+                                                 packed_min_res=pmr,
                                                  **MT_PIPE))
     else:
         tr = RestoreTrainer(RestoreTrainConfig(
             augment=True, augment_p=0.5, compute_dtype=dt, **MT_STAGE3),
-            RestorationPipeline(size=MT_STAGE3["size"], **MT_PIPE))
+            RestorationPipeline(size=MT_STAGE3["size"], packed_min_res=pmr,
+                                **MT_PIPE))
     if weights is None:
         tr.init_from_seed(3)
         _condition_diffuser(tr.pipe)
@@ -5023,24 +5079,72 @@ def _mt_reset(tr, held: dict) -> None:
         tr.sync_ema()
 
 
+def _strip_fault(name: str):
+    """A `Spatial.window` whose windows of a packed map on this rank's rows
+    (packed=True at a sharded resolution) run the forward exchange as the
+    package does and a faulty reverse one: "strip gradients dropped" adds
+    nothing from the strips (each rank keeps its own rows' gradient);
+    "strip gradients swapped" sends the top strip's gradient to the lower
+    neighbour and the bottom one's to the upper (each rank adds the upper
+    neighbour's top strip into its first rows and the lower neighbour's
+    bottom strip into its last)."""
+    import torch
+    from torch.autograd.function import once_differentiable
+
+    from vspbfr_tpu_torch.parallel.spatial import Spatial, _Window
+
+    class Faulty(_Window):
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, g):
+            sp, top, bottom = ctx.sp, ctx.top, ctx.bottom
+            h = g.shape[1] - top - bottom
+            sp.exchanges += 1
+            parts = sp.rows_group.all_gather(
+                torch.cat([g[:, :top], g[:, top + h:]], dim=1))
+            dx = g[:, top:top + h].clone()
+            k = min(top, bottom)
+            if name == "strip gradients swapped" and k:
+                if sp.rank > 0:
+                    dx[:, :k] += parts[sp.rank - 1][:, top - k:top]
+                if sp.rank < sp.n - 1:
+                    dx[:, h - k:] += parts[sp.rank + 1][:, top:top + k]
+            return dx, None, None, None
+
+    own = Spatial.__dict__["window"]
+
+    def window(self, x, top, bottom, packed=False):
+        if not (packed and (top or bottom)
+                and self.sharded(self.res_of(x, True))):
+            return own(self, x, top, bottom, packed)
+        self._check(x, True)
+        return Faulty.apply(x, self, top, bottom)
+
+    return window
+
+
 @contextlib.contextmanager
 def _mt_trap(name: str):
-    """For the block, the model-axis sum `name` taken out of the package,
-    as a copy without it would run: "codes' sum" the style codes' row
-    parts' (`Spatial.summed` the identity), "parameters' sum" the
+    """For the block, a fault in the package's backward, as a copy with it
+    would run: a model-axis sum taken out ("codes' sum" the style codes'
+    row parts' (`Spatial.summed` the identity), "parameters' sum" the
     replicated parameters' (`Spatial.sum_partial_grads` does nothing),
     "reduce-scatter" the model-sharded parameters' (each rank keeps its
-    slice of its own part)."""
+    slice of its own part)), or one of `MT_PACKED_TRAPS` in the packed
+    windows' reverse exchange (`_strip_fault`)."""
     from vspbfr_tpu_torch.parallel.model_axis import ModelAxis
     from vspbfr_tpu_torch.parallel.spatial import Spatial
 
-    cls, attr, stub = {
-        "codes' sum": (Spatial, "summed", lambda self, t: t),
-        "parameters' sum": (Spatial, "sum_partial_grads",
-                            lambda self, module: None),
-        "reduce-scatter": (ModelAxis, "reduce_scatter_last",
-                           lambda self, t: self.local(t).contiguous()),
-    }[name]
+    if name in MT_PACKED_TRAPS:
+        cls, attr, stub = Spatial, "window", _strip_fault(name)
+    else:
+        cls, attr, stub = {
+            "codes' sum": (Spatial, "summed", lambda self, t: t),
+            "parameters' sum": (Spatial, "sum_partial_grads",
+                                lambda self, module: None),
+            "reduce-scatter": (ModelAxis, "reduce_scatter_last",
+                               lambda self, t: self.local(t).contiguous()),
+        }[name]
     own = cls.__dict__.get(attr)
     setattr(cls, attr, stub)
     try:
@@ -5069,7 +5173,8 @@ def _mt_run(tr, stage: str, device, bwd: dict, f: float = 1.0,
     seeded generator on the device: the first step's metrics, the
     gradients each of its Adam updates took (by name, in the modules'
     unsharded order; the rank's slice of a model-sharded one), its
-    launches, K1 dx and K2 bwd counts and plain K6 / K7 calls; every
+    launches and the layout's forms', K1 dx and K2 bwd counts and plain
+    K6 / K7 calls; every
     step's seconds (host clock, synchronised); peak memory; Adam's bytes;
     with a mesh the first step's halo exchanges and model-axis sums."""
     import torch
@@ -5115,6 +5220,7 @@ def _mt_run(tr, stage: str, device, bwd: dict, f: float = 1.0,
         if s == 0:
             out["metrics"] = {k: float(v) for k, v in m.items()}
             out["launches"] = ops.launch_counts()
+            out["forms"] = ops.form_counts()
             out["plain"] = ops.plain_cuda_calls()
             out["backward"] = dict(bwd)
             for h in hooks:
@@ -5149,47 +5255,81 @@ def _mt_whole(tr, grads: dict) -> dict:
     return out
 
 
-def _meshtrain_rank(out, mode):
-    """One rank of phase 17 (`--rank meshtrain OUT MODE`) on a 1 data x 2
-    model mesh: per stage a trainer in MODE (f32 or bf16) on
-    `_mt_weights`, `shard_model`, `MT_STEPS` steps; in f32 the first
-    step's whole images recorded, then per `MT_TRAPS` entry the first step
-    again with that sum taken out. Rank 0 writes the first steps'
-    gradients, whole, and the images to OUT.tensors.pt, every rank its
-    record to OUT.<rank>.json."""
+def _meshtrain_rank(out, mode, weights_file):
+    """One rank of phase 17 (`--rank meshtrain OUT MODE WEIGHTS`) on a 1
+    data x 2 model mesh: per `MT_CELLS` entry (each stage unpacked, then at
+    `MT_PMR`) a trainer in MODE (f32 or bf16) on the parent's
+    `_mt_weights` (WEIGHTS, once it is written), `shard_model`, `MT_STEPS`
+    steps; in f32 the first step's whole images recorded, then per
+    model-axis trap of an unpacked run (`MT_TRAPS`) the first step again
+    with that sum taken out. The bf16 mesh then runs the f32 packed runs'
+    traps (`MT_PACKED_TRAPS`), the first f32 step again on a new trainer
+    with each fault planted, so the two meshes take about as long. Each
+    trap run's gradients and metrics are kept. Rank 0 writes the first
+    steps' gradients, whole, and the images to OUT.tensors.pt, every rank
+    its record to OUT.<rank>.json."""
     import torch
 
     from vspbfr_tpu_torch.parallel import create_mesh_2d, distributed
 
-    rec = {"runs": {}}
+    t0 = time.perf_counter()
+    rec = {"runs": {}, "trap_metrics": {}, "marks": []}
+
+    def mark(what):
+        rec["marks"].append((what, round(time.perf_counter() - t0, 1)))
+
+    def traps(tr, name, stage, held, names):
+        rec["trap_metrics"][name] = {}
+        for trap in names:
+            _mt_reset(tr, held)
+            with _mt_trap(trap):
+                t_run = _mt_run(tr, stage, device, bwd, steps=1)
+            tensors[f"{name} without {trap}"] = _mt_whole(tr, t_run["grads"])
+            rec["trap_metrics"][name][trap] = t_run["metrics"]
+        mark(f"{name} trapped")
+
     tensors = {}
     with distributed("cuda") as device, \
             backward_counts(MT_BACKWARDS) as bwd:
         mesh = create_mesh_2d(1, 2)
         rank = torch.distributed.get_rank()
-        weights = _mt_weights()
-        for stage in ("stage2", "stage3"):
-            name = f"{stage} {mode}"
-            tr = _mt_trainer(stage, mode, weights).to(device)
+        mark("mesh")
+        while not os.path.exists(weights_file):
+            if time.perf_counter() - t0 > MESHTRAIN_TIMEOUT:
+                raise TimeoutError(f"no {weights_file}")
+            time.sleep(0.2)
+        weights = torch.load(weights_file, weights_only=True)
+        mark("weights")
+        for stage, pmr in MT_CELLS:
+            name = _mt_name(_mt_key(stage, pmr), mode)
+            tr = _mt_trainer(stage, mode, weights, pmr).to(device)
             tr.shard_model(mesh)
+            mark(f"{name} built")
             held = _mt_held(tr) if mode == "f32" else None
             images: list = []
             with _whole_images(tr, images, MT_IMAGES[stage]):
                 run = _mt_run(tr, stage, device, bwd)
+            mark(f"{name} stepped")
             tensors[name] = _mt_whole(tr, run.pop("grads"))
             rec["runs"][name] = run
             if mode == "f32":
                 tensors[f"{name} images"] = [t.cpu() for t in images]
-                for trap in MT_TRAPS[stage]:
-                    _mt_reset(tr, held)
-                    with _mt_trap(trap):
-                        t_run = _mt_run(tr, stage, device, bwd, steps=1)
-                    tensors[f"{name} without {trap}"] = _mt_whole(
-                        tr, t_run["grads"])
+                if not pmr:
+                    traps(tr, name, stage, held, MT_TRAPS[stage])
             del tr, held
             torch.cuda.empty_cache()
+        if mode == "bf16":
+            for stage, pmr in MT_CELLS:
+                if pmr:
+                    tr = _mt_trainer(stage, "f32", weights, pmr).to(device)
+                    tr.shard_model(mesh)
+                    traps(tr, _mt_name(_mt_key(stage, pmr), "f32"), stage,
+                          _mt_held(tr), MT_PACKED_TRAPS)
+                    del tr
+                    torch.cuda.empty_cache()
         if rank == 0:
             torch.save(tensors, f"{out}.tensors.pt")
+        mark("saved")
     rec["plain_cuda_calls"] = {}
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(rec, f)
@@ -5199,7 +5339,8 @@ def _mt_compare(got: list, want: list) -> dict:
     """A gradient set (a list of updates, each name -> tensor) against
     another: the worst tensor's max |diff| over its max |want| (and its
     name), the whole set's relative L2 error, and the share of elements
-    whose sign differs (of those where want is not 0)."""
+    whose sign differs (of those where want is not 0). On the card: the
+    phase compares billions of elements."""
     worst, at = 0.0, ""
     diff2 = ref2 = 0.0
     flips = counted = 0
@@ -5208,8 +5349,8 @@ def _mt_compare(got: list, want: list) -> dict:
             raise AssertionError("meshtrain: the gradient sets name other "
                                  "parameters")
         for k, w in w_upd.items():
-            g = g_upd[k].float()
-            w = w.float()
+            g = g_upd[k].to("cuda").float()
+            w = w.to("cuda").float()
             d = (g - w).abs()
             rel = float(d.max()) / max(float(w.abs().max()), 1e-6)
             if rel > worst:
@@ -5225,18 +5366,20 @@ def _mt_compare(got: list, want: list) -> dict:
 
 
 def _mt_lone(weights: dict, bwd: dict) -> tuple[dict, dict]:
-    """The lone runs, in this process: per stage the f32 trainer at the
-    phase's inputs (`MT_STEPS` steps), at inputs scaled by 1 +- 1e-6 and
-    once more at 1 (one step each: the losses' spread and the gradients'
-    own spread from run to run), and the bf16 trainer once; the
-    gradients on the host. Also returns the f32 trainers and their
-    weights (stage -> (trainer, `_mt_held`)) for `_mt_at_images`."""
+    """The lone runs, in this process: per `MT_CELLS` entry the f32
+    trainer at the phase's inputs (`MT_STEPS` steps), at inputs scaled by
+    1 +- 1e-6 and once more at 1 (one step each: the losses' spread and
+    the gradients' own spread from run to run), and the bf16 trainer
+    once; the gradients on the host. Also returns the f32 trainers and
+    their weights (run key -> (trainer, `_mt_held`)) for
+    `_mt_at_images`."""
     import torch
 
     out, kept = {}, {}
-    for stage in ("stage2", "stage3"):
+    for stage, pmr in MT_CELLS:
+        key = _mt_key(stage, pmr)
         for mode in ("f32", "bf16"):
-            tr = _mt_trainer(stage, mode, weights).to("cuda")
+            tr = _mt_trainer(stage, mode, weights, pmr).to("cuda")
             held = _mt_held(tr)
             runs = []
             fs = (1.0, 1 + 1e-6, 1 - 1e-6, 1.0) if mode == "f32" else (1.0,)
@@ -5245,12 +5388,12 @@ def _mt_lone(weights: dict, bwd: dict) -> tuple[dict, dict]:
                     _mt_reset(tr, held)     # the step again
                 runs.append(_mt_host(_mt_run(tr, stage, "cuda", bwd, f,
                                              MT_STEPS if i == 0 else 1)))
-            out[f"{stage} {mode}"] = runs
+            out[_mt_name(key, mode)] = runs
             if mode == "f32":
                 # on the host while the other runs take their peaks
                 for st in _mt_states(tr).values():
                     st.opt.state.clear()
-                kept[stage] = (tr.to("cpu"), held)
+                kept[key] = (tr.to("cpu"), held)
             del tr, held
             torch.cuda.empty_cache()
     return out, kept
@@ -5264,16 +5407,19 @@ def _mt_host(run: dict) -> dict:
 
 def _mt_at_images(kept: dict, got: dict, bwd: dict) -> dict:
     """Each lone f32 step once more (`kept`, from `_mt_lone`) with the
-    ranks' whole images (`got["<stage> f32 images"]`) handed to its
-    whole-image nets in place of its own (`_whole_images`): stage ->
+    ranks' whole images (`got["<run name> images"]`) handed to its
+    whole-image nets in place of its own (`_whole_images`): run key ->
     the run."""
     out = {}
-    for stage, (tr, held) in kept.items():
+    for key, (tr, held) in kept.items():
         tr.to("cuda")
         _mt_reset(tr, held)
-        subs = [t.to("cuda") for t in got[f"{stage} f32 images"]]
+        subs = [t.to("cuda") for t in got[f"{_mt_name(key, 'f32')} images"]]
         with _whole_images(tr, subs=subs):
-            out[stage] = _mt_host(_mt_run(tr, stage, "cuda", bwd, steps=1))
+            out[key] = _mt_host(_mt_run(tr, key.split()[0], "cuda", bwd,
+                                        steps=1))
+        kept[key] = None    # off the card before the next one
+        del tr, held
     return out
 
 
@@ -5292,16 +5438,21 @@ def _mt_gates(res, name, ranks, got, lone, at_images) -> None:
     the same inputs: the backward is not deterministic) and the distance
     the ranks' images alone move it (one rounding of the forward, as
     these gradients feel it; what is left, the decode's own rounding
-    inside, is of that kind); flips <= 5%; and each `MT_TRAPS` run of the
-    ranks (a model-axis sum taken out) must fail that gate. The distances
-    to the plain lone step and the +-1e-6 runs' are reported. bf16: held
+    inside, is of that kind); flips <= 5%; and each trap run of the ranks
+    (`_mt_traps`: unpacked a model-axis sum taken out, packed a fault in
+    the packed windows' reverse exchange) must fail that gate, a packed
+    one with its losses equal to the untrapped step's (within 1e-6 of
+    each, relative: the faults are in the backward only). The distances
+    to the plain lone step and the +-1e-6 runs' are reported. A packed
+    run (name ending " packed") is held to the lone packed runs alike.
+    bf16: held
     to the lone f32 step as closely as the lone
     bf16 step is: each loss's relative error within 1.5 x the lone
     bf16's + 2e-2 (bf16's kernel tolerance); each gradient set's relative
     L2 error within 1.5 x the lone bf16's + 1e-6; flips within max(5%,
     1.5 x the lone bf16's)."""
-    stage, mode = name.split()
-    ref = lone[f"{stage} f32"]
+    stage, mode = name.split()[:2]
+    ref = lone[name.replace(mode, "f32")]
     m1 = ref[0]["metrics"]
     gate = {"metrics": {}, "grads": {}}
     bad = []
@@ -5314,8 +5465,18 @@ def _mt_gates(res, name, ranks, got, lone, at_images) -> None:
             gate["metrics"][k] = dict(rel_err=err, spread=spread)
             if not err <= 10 * spread + 1e-5:
                 bad.append(k)
-        traps = {t: got[f"{name} without {t}"] for t in MT_TRAPS[stage]}
+        traps = {t: got[f"{name} without {t}"] for t in _mt_traps(name)}
         caught = dict.fromkeys(traps, False)
+        if name.endswith(" packed"):
+            gate["trap_losses"] = {}
+            for t in traps:
+                worst = max(abs(r["trap_metrics"][name][t][k] - v)
+                            / max(abs(v), 1e-12)
+                            for r in ranks
+                            for k, v in r["runs"][name]["metrics"].items())
+                gate["trap_losses"][t] = worst
+                if not worst <= 1e-6:
+                    bad.append(f"the losses with the {t} moved by {worst}")
         for key, want in at_images["grads"].items():
             plain = ref[0]["grads"][key]
             c = _mt_compare(got[name][key], want)
@@ -5357,6 +5518,11 @@ def _mt_gates(res, name, ranks, got, lone, at_images) -> None:
                                         1.5 * c["lone_bf16"]["flips"])):
                 bad.append(f"grads {key}")
     res["gates"][name] = gate
+    if "trap_losses" in gate:
+        say(f"meshtrain {name}: the losses with each backward fault against "
+            f"the untrapped step's, worst relative: "
+            + ", ".join(f"{t} {w:.2e}"
+                        for t, w in gate["trap_losses"].items()))
     say(f"meshtrain {name}, 1 x 2 vs lone: losses (rel err / "
         + ("lone spread" if mode == "f32" else "lone bf16's") + ") "
         + ", ".join(f"{k} " + "/".join(f"{x:.2e}" for x in v.values())
@@ -5395,7 +5561,11 @@ def phase_meshtrain():
     to the lone step on the ranks' images, and the ranks' steps without
     each model-axis sum must fail that gate), f32 and bf16; (c)
     peak memory, Adam's bytes, halo exchanges, model-axis sums, launches
-    and step medians a rank beside the lone run's."""
+    and step medians a rank beside the lone run's; (d) the same at
+    packed_min_res `MT_PMR` in the same processes, the f32 packed step on
+    ranks with each of `MT_PACKED_TRAPS` in the packed windows' backward
+    (on the bf16 mesh, after its own steps), and (`_mt_report`) the
+    layout's counts a rank equal to the lone packed step's."""
     import torch
 
     SEEDED["nets"].clear()
@@ -5405,22 +5575,34 @@ def phase_meshtrain():
     with tempfile.TemporaryDirectory() as tmp, \
             backward_counts(MT_BACKWARDS) as bwd:
         # two meshes at once, one a dtype (each rank's peak is its own;
-        # the card holds both and the lone steps); every process draws
-        # the seeded weights itself, at once
+        # the card holds both and the lone steps); the ranks start while
+        # this process draws the seeded weights, and load them once written
         outs = {m: os.path.join(tmp, f"meshtrain_{m}") for m in ("f32",
                                                                 "bf16")}
-        hs = [_spawn_ranks("meshtrain", o, 2, [m]) for m, o in outs.items()]
+        wfile = os.path.join(tmp, "weights.pt")
+        hs = [_spawn_ranks("meshtrain", o, 2, [m, wfile])
+              for m, o in outs.items()]
         try:
             t0 = time.perf_counter()
-            lone, kept = _mt_lone(_mt_weights(), bwd)
+            weights = _mt_weights()
+            torch.save(weights, f"{wfile}.part")
+            os.replace(f"{wfile}.part", wfile)
+            lone, kept = _mt_lone(weights, bwd)
+            del weights
             lone_s = time.perf_counter() - t0
             per_mode = [_collect_ranks(h, MESHTRAIN_TIMEOUT) for h in hs]
         except BaseException:
             for h in hs:
                 _stop_ranks(h)
             raise
-        ranks = [{"runs": {k: v for r in recs for k, v in r["runs"].items()}}
+        ranks = [{part: {k: v for r in recs for k, v in r[part].items()}
+                  for part in ("runs", "trap_metrics")}
                  for recs in zip(*per_mode)]
+        res["marks"] = {m: recs[0]["marks"]
+                        for m, recs in zip(outs, per_mode)}
+        for m, marks in res["marks"].items():
+            say(f"meshtrain: rank 0 of the {m} mesh, seconds since its "
+                f"start: {marks}")
         got = {}
         for o in outs.values():
             got.update(torch.load(f"{o}.tensors.pt", weights_only=True))
@@ -5430,54 +5612,81 @@ def phase_meshtrain():
     say(f"meshtrain: the lone runs took {lone_s:.1f} s beside the ranks, "
         f"the lone steps on the ranks' images "
         f"{time.perf_counter() - t0:.1f} s after them")
-    for name in ("stage2 f32", "stage2 bf16", "stage3 f32", "stage3 bf16"):
-        stage = name.split()[0]
-        _mt_gates(res, name, ranks, got, lone, at_images[stage])
-        runs = [r["runs"][name] for r in ranks]
-        lone_run = lone[name][0]
-        for i, r in enumerate(runs):
-            missing = [k for k in MT_KERNELS[stage] if r["launches"][k] == 0]
-            if missing:
-                raise AssertionError(f"meshtrain {name} rank {i}: kernels "
-                                     f"never launched {missing}")
-        res["launches"][name] = runs[0]["launches"]
-        res["runs"][name] = dict(
-            ranks=[{k: r[k] for k in ("seconds", "peak_gib", "adam_bytes",
-                                      "exchanges", "grad_sums",
-                                      "reduce_scatters", "launches",
-                                      "backward", "metrics")}
-                   for r in runs],
-            lone={k: lone_run[k] for k in ("seconds", "peak_gib",
-                                           "adam_bytes", "launches",
-                                           "backward", "metrics")})
-        r0 = runs[0]
-        shown, lone_shown = ({**{k: r["launches"][k]
-                                 for k in MT_KERNELS["stage3"]},
-                              **r["backward"]} for r in (r0, lone_run))
-        say(f"meshtrain {name} (c): peak GiB per rank "
-            f"{[round(r['peak_gib'], 3) for r in runs]} vs lone "
-            f"{lone_run['peak_gib']:.3f}; Adam's bytes per rank "
-            f"{[r['adam_bytes'] for r in runs]} vs lone "
-            f"{lone_run['adam_bytes']} "
-            f"({runs[0]['adam_bytes'] / lone_run['adam_bytes']:.3f}x); "
-            f"first step: halo exchanges and gathers {r0['exchanges']}, "
-            f"model-axis sums {r0['grad_sums']} + reduce-scatters "
-            f"{r0['reduce_scatters']}; launches rank 0 {shown}, lone "
-            f"{lone_shown}; step s (host clock, gloo through the host: not "
-            f"speeds) ranks "
-            f"{[[round(t, 3) for t in r['seconds']] for r in runs]} median "
-            f"{statistics.median(runs[0]['seconds']):.3f}, lone "
-            f"{[round(t, 3) for t in lone_run['seconds']]} median "
-            f"{statistics.median(lone_run['seconds']):.3f}; plain K6 / K7 "
-            f"on CUDA tensors 0")
-        if stage == "stage3" and not runs[0]["reduce_scatters"]:
-            raise AssertionError("meshtrain stage 3: no model-sharded "
-                                 "weight of a layer on rows was "
-                                 "reduce-scattered")
-        if not all(r["adam_bytes"] < lone_run["adam_bytes"] for r in runs):
-            raise AssertionError(f"meshtrain {name}: Adam's moments not "
-                                 "sharded")
+    for stage, pmr in MT_CELLS:
+        key = _mt_key(stage, pmr)
+        for mode in ("f32", "bf16"):
+            _mt_report(res, _mt_name(key, mode), ranks, got, lone,
+                       at_images[key])
     REPORT["meshtrain"] = res
+
+
+def _mt_counts(run: dict) -> dict:
+    """A run's first-step counts: launches, the layout's forms, and K1 dx
+    and K2 bwd."""
+    return {**run["launches"], **run["forms"], **run["backward"]}
+
+
+def _mt_report(res, name, ranks, got, lone, at_images) -> None:
+    """Phase 17's checks and lines of one run on the ranks: its gates
+    (`_mt_gates`), the kernels each rank launched, (d)'s counts equal to
+    the lone packed step's, and (c)'s line."""
+    stage = name.split()[0]
+    _mt_gates(res, name, ranks, got, lone, at_images)
+    runs = [r["runs"][name] for r in ranks]
+    lone_run = lone[name][0]
+    for i, r in enumerate(runs):
+        missing = [k for k in MT_KERNELS[stage] if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"meshtrain {name} rank {i}: kernels "
+                                 f"never launched {missing}")
+        if name.endswith(" packed"):
+            got_c, want_c = _mt_counts(r), _mt_counts(lone_run)
+            off = {k: (got_c.get(k, 0), want_c.get(k, 0))
+                   for k in MT_PACKED_COUNTS[stage]
+                   if not got_c.get(k, 0) == want_c.get(k, 0) > 0}
+            if off:
+                raise AssertionError(f"meshtrain {name} rank {i}: counts "
+                                     f"(rank, lone) not equal and nonzero "
+                                     f"{off}")
+    res["launches"][name] = {**runs[0]["launches"], **runs[0]["forms"]}
+    res["runs"][name] = dict(
+        ranks=[{k: r[k] for k in ("seconds", "peak_gib", "adam_bytes",
+                                  "exchanges", "grad_sums",
+                                  "reduce_scatters", "launches", "forms",
+                                  "backward", "metrics")}
+               for r in runs],
+        lone={k: lone_run[k] for k in ("seconds", "peak_gib",
+                                       "adam_bytes", "launches", "forms",
+                                       "backward", "metrics")})
+    r0 = runs[0]
+    shown, lone_shown = ({**{k: r["launches"][k]
+                             for k in MT_KERNELS["stage3"]},
+                          **r["backward"],
+                          **(r["forms"] if name.endswith(" packed") else {})}
+                         for r in (r0, lone_run))
+    say(f"meshtrain {name} (c): peak GiB per rank "
+        f"{[round(r['peak_gib'], 3) for r in runs]} vs lone "
+        f"{lone_run['peak_gib']:.3f}; Adam's bytes per rank "
+        f"{[r['adam_bytes'] for r in runs]} vs lone "
+        f"{lone_run['adam_bytes']} "
+        f"({runs[0]['adam_bytes'] / lone_run['adam_bytes']:.3f}x); "
+        f"first step: halo exchanges and gathers {r0['exchanges']}, "
+        f"model-axis sums {r0['grad_sums']} + reduce-scatters "
+        f"{r0['reduce_scatters']}; launches rank 0 {shown}, lone "
+        f"{lone_shown}; step s (host clock, gloo through the host: not "
+        f"speeds) ranks "
+        f"{[[round(t, 3) for t in r['seconds']] for r in runs]} median "
+        f"{statistics.median(runs[0]['seconds']):.3f}, lone "
+        f"{[round(t, 3) for t in lone_run['seconds']]} median "
+        f"{statistics.median(lone_run['seconds']):.3f}; plain K6 / K7 "
+        f"on CUDA tensors 0")
+    if stage == "stage3" and not runs[0]["reduce_scatters"]:
+        raise AssertionError(f"meshtrain {name}: no model-sharded "
+                             "weight of a layer on rows was "
+                             "reduce-scattered")
+    if not all(r["adam_bytes"] < lone_run["adam_bytes"] for r in runs):
+        raise AssertionError(f"meshtrain {name}: Adam's moments not "
+                             "sharded")
 
 
 # --- main -------------------------------------------------------------------
@@ -5512,6 +5721,8 @@ def main() -> None:
                                                  "meshtrain")
               else contextlib.nullcontext()):
             globals()[f"phase_{name}"]()
+        REPORT.setdefault("phase_seconds", {})[name] = round(
+            time.perf_counter() - t0, 1)
         say(f"phase {name} done in {time.perf_counter() - t0:.1f} s; "
             f"{_held()}")
 
@@ -5538,7 +5749,9 @@ def main() -> None:
                 "mesh2d": REPORT["mesh2d"]["launches"]["restore f32"],
                 "mesh2d_packed":
                     REPORT["mesh2d"]["packed"]["launches"]["restore f32"],
-                "meshtrain": REPORT["meshtrain"]["launches"]["stage3 f32"]}
+                "meshtrain": REPORT["meshtrain"]["launches"]["stage3 f32"],
+                "meshtrain_packed":
+                    REPORT["meshtrain"]["launches"]["stage3 f32 packed"]}
     for name, (src, replaces) in KERNEL_INFO.items():
         rows = [r for r in (REPORT["kernels"] + REPORT["grads"]
                             + REPORT["packed"]["kernels"]

@@ -341,7 +341,7 @@ def _noise_gains(module, value=0.1):
                 v.fill_(value)
 
 
-def _stage2_trainer():
+def _stage2_trainer(packed_min_res=0):
     """The stage-2 trainer at the tiny config, LPIPS and ID on."""
     from vspbfr_tpu_torch.models.e4e import TINY_STAGES
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
@@ -349,13 +349,14 @@ def _stage2_trainer():
                                                        DiffuserTrainer)
 
     pipe = RestorationPipeline(encode_size=64, encoder_stages=TINY_STAGES,
-                               channel_div=8, **STAGE2)
+                               channel_div=8, packed_min_res=packed_min_res,
+                               **STAGE2)
     return DiffuserTrainer(DiffuserTrainConfig(
         size=STAGE2["size"], batch=2, percept_weight=0.1, id_weight=0.1),
         pipe)
 
 
-def _stage3_trainer():
+def _stage3_trainer(packed_min_res=0):
     """The stage-3 trainer at half widths, ADA at p 0.5."""
     from vspbfr_tpu_torch.models.e4e import TINY_STAGES
     from vspbfr_tpu_torch.pipeline import RestorationPipeline
@@ -363,7 +364,7 @@ def _stage3_trainer():
                                                       RestoreTrainer)
 
     pipe = RestorationPipeline(encode_size=64, encoder_stages=TINY_STAGES,
-                               **STAGE3)
+                               packed_min_res=packed_min_res, **STAGE3)
     return RestoreTrainer(RestoreTrainConfig(
         size=STAGE3["size"], batch=2, augment=True, augment_p=0.5), pipe)
 

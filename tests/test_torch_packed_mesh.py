@@ -1,7 +1,9 @@
 """The space-to-depth packed layout on the port's 2-D mesh
-(`vspbfr_tpu_torch/parallel/spatial.py` with `ops/packed.py`), serving
-only, on the CPU. The ranks are threads of this process
-(`tests/thread_ranks.py`: no process group), one intra-op thread each.
+(`vspbfr_tpu_torch/parallel/spatial.py` with `ops/packed.py`), the
+forward, on the CPU (its gradients: `tests/test_torch_packed_mesh_grads.py`
+and `tests/test_torch_packed_mesh_train.py`). The ranks are threads of
+this process (`tests/thread_ranks.py`: no process group), one intra-op
+thread each.
 
 - (i) each packed form of `ops/packed.py` (and SMART's packed pair) on
   this rank's rows at n = 2 and 4 against the unsharded form, within 1e-5
@@ -29,8 +31,7 @@ only, on the CPU. The ranks are threads of this process
   draws on a rank, with a data axis of two, equals the rows of the lone
   run's draw of the global batch, exactly; given unpacked maps go through
   `space_to_depth` first;
-- (v) both trainers' `shard_model` refuse packed_min_res > 0;
-- (vi) the layout rule: `sharded` depends on the resolution alone, the
+- (v) the layout rule: `sharded` depends on the resolution alone, the
   same for both layouts; a packed map's window, `own`, `settle` and the
   row checks count packed rows; at the threshold a packed shard holds the
   4 rows grouped K2's d8 window needs.
@@ -95,8 +96,10 @@ def _epi(gen, out_shape, packed_out):
 
 
 def _form(name, gen):
-    """(x, packed_in, up, packed_out, fn(x, epi, spatial), epilogue or
-    None) of a packed form on random operands."""
+    """(x, packed_in, up, packed_out, fn(x, p, epi, spatial), epilogue or
+    None, p) of a packed form on random operands: p the weights, styles
+    and input scales it reads (a dict, so a caller can hand in its own
+    leaves)."""
     from vspbfr_tpu_torch.ops import modulated_conv as mc
 
     xp = _rand(gen, B, GRID, GRID, 4 * CI)          # packed, 32 px
@@ -105,48 +108,58 @@ def _form(name, gen):
     if name.startswith("s1 d"):
         dil = int(name[4:])
 
-        def fn(x, epi, sp):
-            return pk.conv2d_packed(x, w3, dilation=dil, in_scale=isc,
-                                    epi=epi, spatial=sp)
-        return xp, True, 1, True, fn, True
+        def fn(x, p, epi, sp):
+            return pk.conv2d_packed(x, p["w"], dilation=dil,
+                                    in_scale=p["in_scale"], epi=epi,
+                                    spatial=sp)
+        return xp, True, 1, True, fn, True, dict(w=w3, in_scale=isc)
     if name == "s1 perm":
         perm = tuple(int(i) for i in np.random.default_rng(1).permutation(
             4 * CI))
-        return xp, True, 1, True, lambda x, epi, sp: pk.conv2d_packed(
-            x, w3, in_ch_perm=perm, epi=epi, spatial=sp), False
+        return xp, True, 1, True, lambda x, p, epi, sp: pk.conv2d_packed(
+            x, p["w"], in_ch_perm=perm, epi=epi, spatial=sp), False, dict(
+            w=w3)
     if name == "1x1":
         w1 = _rand(gen, 1, 1, CI, CO, scale=0.3)
-        return xp, True, 1, True, lambda x, epi, sp: pk.conv1x1_packed(
-            x, w1, in_scale=isc, epi=epi), True
+        return xp, True, 1, True, lambda x, p, epi, sp: pk.conv1x1_packed(
+            x, p["w"], in_scale=p["in_scale"], epi=epi), True, dict(
+            w=w1, in_scale=isc)
+    if name.startswith("upsample"):
+        packed_in = name == "upsample packed"
+        x = (_rand(gen, B, GRID // 2, GRID // 2, 12) if packed_in
+             else _rand(gen, B, GRID, GRID, 3))
+        return x, packed_in, 2, True, lambda t, p, epi, sp: (
+            pk.upsample2d_packed(t, TAPS, packed_in, spatial=sp)), False, {}
     if name.startswith("up"):
         packed_in = name == "up packed"
         x = (_rand(gen, B, GRID // 2, GRID // 2, 4 * CI) if packed_in
              else _rand(gen, B, GRID, GRID, CI))    # 16 px in, 32 out
         s = isc if packed_in else isc[:, :CI]
-        return x, packed_in, 2, True, lambda t, epi, sp: (
-            pk.up_conv_blur_packed(t, w3, TAPS, packed_in, in_scale=s,
-                                   epi=epi, spatial=sp)), True
-    if name.startswith("upsample"):
-        packed_in = name == "upsample packed"
-        x = (_rand(gen, B, GRID // 2, GRID // 2, 12) if packed_in
-             else _rand(gen, B, GRID, GRID, 3))
-        return x, packed_in, 2, True, lambda t, epi, sp: (
-            pk.upsample2d_packed(t, TAPS, packed_in, spatial=sp)), False
+        return x, packed_in, 2, True, lambda t, p, epi, sp: (
+            pk.up_conv_blur_packed(t, p["w"], TAPS, packed_in,
+                                   in_scale=p["in_scale"], epi=epi,
+                                   spatial=sp)), True, dict(w=w3,
+                                                            in_scale=s)
     if name == "down":
-        return xp, True, 0, False, lambda x, epi, sp: (
-            pk.blur_down_conv_packed(x, w3, TAPS, in_scale=isc, epi=epi,
-                                     spatial=sp)), True
+        return xp, True, 0, False, lambda x, p, epi, sp: (
+            pk.blur_down_conv_packed(x, p["w"], TAPS,
+                                     in_scale=p["in_scale"], epi=epi,
+                                     spatial=sp)), True, dict(w=w3,
+                                                              in_scale=isc)
     if name == "down packed":
-        return xp, True, 0, True, lambda x, epi, sp: (
-            pk.blur_down_conv_packed_packed(x, w3, TAPS, in_scale=isc,
-                                            epi=epi, spatial=sp)), True
+        return xp, True, 0, True, lambda x, p, epi, sp: (
+            pk.blur_down_conv_packed_packed(x, p["w"], TAPS,
+                                            in_scale=p["in_scale"], epi=epi,
+                                            spatial=sp)), True, dict(
+            w=w3, in_scale=isc)
     # SMART's packed pair (ops/modulated_conv.py)
     w_b = _rand(gen, 3, 3, CI, CO, scale=0.3)
     style = 1.0 + 0.1 * _rand(gen, B, CI)
     pair = (mc.modulated_conv2d_d12_packed if name == "d12"
             else mc.modulated_conv2d_d48_packed)
-    return xp, True, 1, True, lambda x, epi, sp: pair(
-        x, w3, w_b, style, spatial=sp), False
+    return xp, True, 1, True, lambda x, p, epi, sp: pair(
+        x, p["w"], p["w_b"], p["style"], spatial=sp), False, dict(
+        w=w3, w_b=w_b, style=style)
 
 
 FORMS = ["s1 d1", "s1 d3", "s1 d2", "s1 d4", "s1 d8", "s1 perm", "1x1",
@@ -162,12 +175,12 @@ def test_packed_form_on_rows(name, n):
     or this rank's block before a whole output settles) gathered, against
     the unsharded form: 1e-5 of max. The output holds its layout's rows."""
     gen = torch.Generator().manual_seed(FORMS.index(name))
-    x, packed_in, up, packed_out, fn, with_epi = _form(name, gen)
+    x, packed_in, up, packed_out, fn, with_epi, p = _form(name, gen)
     res = Spatial.res_of(x, packed_in)
     res_out = res * up if up else res // 2
-    want_plain = fn(x, None, None)
+    want_plain = fn(x, p, None, None)
     epi = _epi(gen, want_plain.shape, packed_out) if with_epi else None
-    want = fn(x, epi, None) if with_epi else want_plain
+    want = fn(x, p, epi, None) if with_epi else want_plain
 
     def rank(sp):
         e = None
@@ -175,7 +188,7 @@ def test_packed_form_on_rows(name, n):
             rows = (sp.step(res_out, packed_out) if sp.sharded(res) else None)
             e = dict(epi, noise=sp.noise(epi["noise"].shape, epi["noise"],
                                          None, rows, packed=packed_out))
-        out = fn(sp.own(x, packed_in), e, sp)
+        out = fn(sp.own(x, packed_in), p, e, sp)
         return sp.gather(out), out.shape[1], sp.sharded(res_out)
 
     for got, rows, sharded in run_threads(n, rank):
@@ -475,29 +488,7 @@ def test_packed_noise_rows_exact(n):
         assert torch.equal(got, pk.space_to_depth(full)[:, r * h:(r + 1) * h])
 
 
-# -- (v) training on the packed mesh is refused -------------------------------
-
-def test_shard_model_refuses_packed():
-    """Both trainers' `shard_model` raise at packed_min_res > 0 (training
-    on the packed mesh is still to be ported), before touching the
-    mesh."""
-    from vspbfr_tpu_torch.train.diffuser_train import (DiffuserTrainConfig,
-                                                       DiffuserTrainer)
-    from vspbfr_tpu_torch.train.restore_train import (RestoreTrainConfig,
-                                                      RestoreTrainer)
-
-    pipe = _pipeline(PMRS[0])
-    mesh = types.SimpleNamespace(shape=(1, 2),
-                                 mesh_dim_names=("data", "model"))
-    for tr in (DiffuserTrainer(DiffuserTrainConfig(size=SIZE, batch=2,
-                                                   id_weight=0.0), pipe),
-               RestoreTrainer(RestoreTrainConfig(size=SIZE, batch=2,
-                                                 id_weight=0.0), pipe)):
-        with pytest.raises(NotImplementedError, match="packed mesh"):
-            tr.shard_model(mesh)
-
-
-# -- (vi) the layout rule on packed maps ---------------------------------------
+# -- (v) the layout rule on packed maps ----------------------------------------
 
 def test_packed_window_and_threshold():
     """`sharded` is the resolution's alone (r/n even, at least MIN_ROWS

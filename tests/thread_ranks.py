@@ -1,7 +1,8 @@
 """Ranks as threads of one process: a stand-in exchanger for
 `vspbfr_tpu_torch.parallel.Spatial`, for the CPU tests of the H-sharded
-stages (`tests/test_torch_sharding2d.py`, `tests/test_torch_packed_mesh.py`).
-No process group: the threads meet at a barrier."""
+stages (`tests/test_torch_sharding2d.py`, `tests/test_torch_packed_mesh.py`,
+`tests/test_torch_packed_mesh_grads.py`). No process group: the threads
+meet at a barrier."""
 
 import threading
 import types
@@ -28,16 +29,26 @@ class ThreadRows:
         hub.barrier.wait()
         return out
 
+    def all_reduce(self, t):
+        """The sum over the ranks, in rank order (the same bits on every
+        rank)."""
+        parts = self.all_gather(t)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
 
-def run_threads(n, fn):
-    """fn(Spatial) on n thread ranks; their results in rank order."""
+
+def run_threads(n, fn, grad=False):
+    """fn(Spatial) on n thread ranks (under no_grad unless `grad`); their
+    results in rank order."""
     hub = types.SimpleNamespace(n=n, slots=[None] * n,
                                 barrier=threading.Barrier(n, timeout=120))
     out, errors = [None] * n, []
 
     def go(r):
         try:
-            with torch.no_grad():
+            with torch.set_grad_enabled(grad):
                 out[r] = fn(Spatial(ThreadRows(hub, r)))
         except BaseException as e:  # noqa: BLE001 - re-raised below
             errors.append(e)

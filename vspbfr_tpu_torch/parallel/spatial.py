@@ -76,6 +76,20 @@ model axis sums (Megatron's identity forward / all-reduce backward):
 - the style codes those layers read pass `summed` once a forward, so
   their parts are summed in one all-reduce, not one a layer.
 
+The packed layout reverses through the same Functions, counted in packed
+rows: a packed window's strips are packed rows, so their gradients go
+back into the owner's first or last packed rows (the assembled kernels'
+windows, 1 row each side; the stride-2 packed-to-packed down-conv's
+lopsided (top, bottom - 1) window sends `top` rows up and `bottom - 1`
+down; grouped K2's window of d/2 rows, whose outer output rows `rows_op`
+drops, so those rows' gradients enter as zeros, sends d/2 rows each
+way); `own` / `window` on a whole packed map add the ranks' blocks of
+packed rows; `settle(packed=True)` keeps this rank's packed rows of the
+whole gradient. `noise(packed=True)` exchanges nothing: it cuts rows of
+maps that the trainers draw before the step and hand in, so a
+rematerialised decode (`torch.utils.checkpoint`) cuts the same rows
+again.
+
 The backward exchanges are once differentiable: R1's double backward
 runs through D on whole images, never through a halo, and a double
 backward through an exchange raises.

@@ -150,13 +150,9 @@ class DiffuserTrainer:
         `model_param_specs` and the decode's maps by rows
         (`Spatial.from_mesh`), and the diffuser's `TrainState` is made anew
         over the slices. After the weights are set (init or load) and the
-        modules moved, before the first step. The packed layout's
-        backward on the mesh is still to be ported: a decoder at
-        packed_min_res > 0 raises."""
-        if self.psp.decoder.packed_min_res:
-            raise NotImplementedError(
-                "training on the packed mesh (packed_min_res > 0 under "
-                "shard_model) is still to be ported")
+        modules moved, before the first step. Either layout: at
+        packed_min_res > 0 the packed levels' maps are sharded by packed
+        rows, and their gradients flow back through the same exchanges."""
         self.dp = DataParallel(mesh)
         self.spatial = Spatial.from_mesh(mesh)
         for m in self.modules.values():

@@ -224,13 +224,10 @@ class RestoreTrainer:
         weights by `model_param_specs` and the embedding's and G's maps by
         rows (`Spatial.from_mesh`), and both `TrainState`s are made anew
         over the slices. After the weights are set (init or load, and
-        `sync_ema`) and the modules moved, before the first step. The
-        packed layout's backward on the mesh is still to be ported: a
-        decoder or a G at packed_min_res > 0 raises."""
-        if self.psp.decoder.packed_min_res or self.gen.packed_min_res:
-            raise NotImplementedError(
-                "training on the packed mesh (packed_min_res > 0 under "
-                "shard_model) is still to be ported")
+        `sync_ema`) and the modules moved, before the first step. Either
+        layout: at packed_min_res > 0 the decoder's and G's packed levels
+        are sharded by packed rows, and G's gradients flow back through
+        the same exchanges."""
         cfg = self.cfg
         self.dp = DataParallel(mesh)
         self.spatial = Spatial.from_mesh(mesh)
